@@ -1,0 +1,4 @@
+from tpu_lanczos_torch.kernels.cpg import CPGGraph, pack_cpg
+from tpu_lanczos_torch.kernels.spmv import spmv
+
+__all__ = ["CPGGraph", "pack_cpg", "spmv"]
