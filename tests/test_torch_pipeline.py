@@ -142,7 +142,7 @@ def test_k_clamps_to_n_minus_1():
     (dict(fmt="auto"), "queue 1 item 5"),
     (dict(fmt="ell"), "queue 1 item 5"),
     (dict(eig_impl="device"), "queue 1 items 7 and 8"),
-    (dict(low_mem=True), "queue 1 items 6 and 8"),
+    (dict(fmt="coo"), "queue 1 item 5"),
     (dict(reorthogonalize=True), "queue 1 item 6"),
 ])
 def test_unported_arguments_raise(kw, item):

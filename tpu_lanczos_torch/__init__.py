@@ -8,7 +8,11 @@ package ``tpu_lanczos`` is the reference the port is tested against.
 
 The slice served so far: CSR graphs (.mtx I/O, generators), the CPG
 packer, Lanczos, host LAPACK eigensolve, and the e^A.x answer or its
-top-k (``expm_action``, ``expm_action_summary``).
+top-k (``expm_action``, ``expm_action_summary``), each also in the
+two-pass O(n)-memory mode (``low_mem=True``); and the f64-grade df64
+pipeline on (hi, lo) float32 pairs with its compensated CUDA level
+kernel (``expm_action_df`` with a pass-1 checkpoint,
+``expm_action_ks_df``).
 """
 
 from tpu_lanczos_torch.graphs.csr import CSRGraph
@@ -20,6 +24,10 @@ from tpu_lanczos_torch.core.pipeline import (
     LanczosResult,
     SummaryResult,
 )
+from tpu_lanczos_torch.core.lanczos_df import (
+    expm_action_df,
+    expm_action_ks_df,
+)
 
 __all__ = [
     "CSRGraph",
@@ -27,6 +35,8 @@ __all__ = [
     "generators",
     "expm_action",
     "expm_action_summary",
+    "expm_action_df",
+    "expm_action_ks_df",
     "LanczosResult",
     "SummaryResult",
 ]

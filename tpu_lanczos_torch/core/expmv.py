@@ -26,30 +26,40 @@ def coefficients(evals, evecs, x_norm):
     return evecs @ w, shift
 
 
-def fetch_tridiag(state: LanczosState):
-    """alpha, beta (numpy) and x_norm (float) in ONE device->host copy."""
-    k = state.k
-    h = torch.cat([state.alpha, state.beta, state.x_norm.reshape(1)])
+def fetch_tridiag(alpha: torch.Tensor, beta: torch.Tensor,
+                  x_norm: torch.Tensor):
+    """alpha (k,), beta[:k-1] (numpy) and x_norm (float) in ONE
+    device->host copy; ``beta`` may carry the unused slot k-1."""
+    k = alpha.shape[0]
+    h = torch.cat([alpha, beta[: k - 1], x_norm.reshape(1)])
     h = h.cpu().numpy()
     return h[:k], h[k:2 * k - 1], float(h[-1])
 
 
+def host_coefficients(alpha, beta, x_norm):
+    """Host LAPACK eigensolve of T (float64), then ``coefficients``:
+    returns (tmp, shift)."""
+    evals, evecs = tridiag.eigh_host(alpha, beta)
+    return coefficients(evals, evecs, x_norm)
+
+
+def unshift(ans_scaled: torch.Tensor, shift: float) -> torch.Tensor:
+    """ans_scaled * exp(shift) in the working dtype: overflows to inf for
+    lambda_max beyond ~88 in float32, as the reference's does."""
+    with np.errstate(over="ignore"):
+        scale = np.exp(shift).astype(numpy_dtype(ans_scaled.dtype))
+    return ans_scaled * float(scale)
+
+
 def multiply_out_host_eig(state: LanczosState, log_scale: bool = False):
     """Host LAPACK eigensolve of T (float64), then the GEMV on device.
-    Returns ``ans`` (n_pad,) or ``(ans_scaled, shift)``.
-
-    With ``log_scale=False`` the final ``* exp(shift)`` runs in the
-    working dtype and overflows to inf for lambda_max beyond ~88 (f32),
-    as the reference's does."""
-    alpha_h, beta_h, x_norm_h = fetch_tridiag(state)
-    evals, evecs = tridiag.eigh_host(alpha_h, beta_h)
-    tmp, shift = coefficients(evals, evecs, x_norm_h)
+    Returns ``ans`` (n_pad,) or ``(ans_scaled, shift)``."""
+    tmp, shift = host_coefficients(
+        *fetch_tridiag(state.alpha, state.beta, state.x_norm))
     q_basis = state.q_basis
     np_dtype = numpy_dtype(q_basis.dtype)
     coeff = torch.from_numpy(tmp.astype(np_dtype)).to(q_basis.device)
     ans_scaled = coeff @ q_basis
     if log_scale:
         return ans_scaled, float(shift)
-    with np.errstate(over="ignore"):
-        scale = np.exp(shift).astype(np_dtype)
-    return ans_scaled * float(scale)
+    return unshift(ans_scaled, shift)

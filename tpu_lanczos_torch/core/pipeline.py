@@ -6,6 +6,10 @@ the device, solve the k x k tridiagonal eigenproblem with LAPACK on the
 host (the reference's architecture), then the GEMV ``tmp @ Q`` — and for
 serving, a masked top-k on the device so only O(topk) values come back.
 
+``low_mem=True`` runs the two-pass Q-free mode instead (an alpha/beta
+pass, host eigh, then a pass that regenerates q_j and accumulates the
+answer): O(n) device memory in place of the (k, n_pad) basis.
+
 ``device="cuda"`` (the default) runs the hand-written CUDA SpMV kernel;
 ``device="cpu"`` runs its plain PyTorch version.  Arguments this slice
 does not serve yet raise NotImplementedError naming their ROADMAP item.
@@ -20,8 +24,9 @@ import torch
 
 from tpu_lanczos_torch.graphs.csr import CSRGraph
 from tpu_lanczos_torch.kernels.cpg import CPGGraph, pack_cpg
-from tpu_lanczos_torch.core.lanczos import lanczos
-from tpu_lanczos_torch.core import expmv, tridiag
+from tpu_lanczos_torch.core.lanczos import (
+    lanczos, lanczos_alphabeta, lanczos_recombine)
+from tpu_lanczos_torch.core import expmv
 from tpu_lanczos_torch.utils import numpy_dtype, torch_dtype
 
 
@@ -57,7 +62,7 @@ class SummaryResult:
     k: int
 
 
-def _check_unported(fmt: str, eig_impl: str, low_mem: bool,
+def _check_unported(fmt: str, eig_impl: str,
                     reorthogonalize: bool = False) -> None:
     if fmt not in ("best", "cpg"):
         raise NotImplementedError(
@@ -67,10 +72,6 @@ def _check_unported(fmt: str, eig_impl: str, low_mem: bool,
         raise NotImplementedError(
             f"eig_impl={eig_impl!r}: the device eigensolve is ROADMAP "
             "queue 1 items 7 and 8")
-    if low_mem:
-        raise NotImplementedError(
-            "low_mem=True (the two-pass Q-free mode) is ROADMAP queue 1 "
-            "items 6 and 8")
     if reorthogonalize:
         raise NotImplementedError(
             "reorthogonalize=True is ROADMAP queue 1 item 6")
@@ -102,6 +103,18 @@ def _start_vector(dg: CPGGraph, dtype: torch.dtype,
     return torch.from_numpy(x_host).to(dg.device)
 
 
+def _two_pass(dg: CPGGraph, x_dev: torch.Tensor, k: int):
+    """The Q-free answer: alpha/beta pass, host eigh, recombine pass.
+    Returns (ans_scaled (n_pad,), shift, alpha, beta, x_norm), the last
+    three on the host."""
+    alpha, beta, x_norm = lanczos_alphabeta(dg, x_dev, k)
+    alpha_h, beta_h, x_norm_h = expmv.fetch_tridiag(alpha, beta, x_norm)
+    tmp, shift = expmv.host_coefficients(alpha_h, beta_h, x_norm_h)
+    coeff = torch.from_numpy(tmp.astype(numpy_dtype(x_dev.dtype)))
+    ans = lanczos_recombine(dg, x_dev, coeff.to(dg.device), k)
+    return ans, float(shift), alpha_h, beta_h, x_norm_h
+
+
 def expm_action(
     graph: CSRGraph,
     x: np.ndarray | None = None,
@@ -118,18 +131,29 @@ def expm_action(
 ) -> LanczosResult:
     """e^A.x for ``graph``.  ``x`` defaults to all-ones (the centrality
     start vector); k clamps to n-1.  ``device`` is where the pack is
-    built when ``dg`` is None; a given ``dg`` runs on its own device."""
-    _check_unported(fmt, eig_impl, low_mem, reorthogonalize)
+    built when ``dg`` is None; a given ``dg`` runs on its own device.
+    ``low_mem=True`` selects the two-pass Q-free mode, which cannot
+    reorthogonalize (that needs the stored basis)."""
+    if low_mem and reorthogonalize:
+        raise ValueError("low_mem is incompatible with reorthogonalize")
+    _check_unported(fmt, eig_impl, reorthogonalize)
     k = int(max(min(k, graph.n - 1), 1))
     dg = _resolve_dg(graph, dg, device)
     x_dev = _start_vector(dg, torch_dtype(dtype), x)
-    state = lanczos(dg, x_dev, k)
-    out = expmv.multiply_out_host_eig(state, log_scale=log_scale)
-    if log_scale:
-        ans, shift_val = out
+    if low_mem:
+        ans, shift, alpha, beta, x_norm = _two_pass(dg, x_dev, k)
+        if not log_scale:
+            ans = expmv.unshift(ans, shift)
+        shift_val = shift if log_scale else None
     else:
-        ans, shift_val = out, None
-    alpha, beta, x_norm = expmv.fetch_tridiag(state)
+        state = lanczos(dg, x_dev, k)
+        out = expmv.multiply_out_host_eig(state, log_scale=log_scale)
+        if log_scale:
+            ans, shift_val = out
+        else:
+            ans, shift_val = out, None
+        alpha, beta, x_norm = expmv.fetch_tridiag(
+            state.alpha, state.beta, state.x_norm)
     return LanczosResult(
         ans=dg.permute_out(ans),
         log_scale=shift_val,
@@ -156,19 +180,27 @@ def expm_action_summary(
     """Serving variant: the answer is reduced ON DEVICE to its top-k
     entries and norm, so the device->host transfer is O(topk).  The
     highest-centrality vertices under e^A.1 (the reference's check_ans
-    max/idx metrics).  The values are the log-scaled answer."""
-    _check_unported(fmt, eig_impl, low_mem)
+    max/idx metrics).  The values are the log-scaled answer.
+    ``low_mem=True`` serves it through the two-pass Q-free mode, which
+    the fused device eigensolve cannot (it stores Q)."""
+    if low_mem and eig_impl == "device":
+        raise ValueError("low_mem summary uses the two-pass host-eig "
+                         "path (the fused device program stores Q)")
+    _check_unported(fmt, eig_impl)
     k = int(max(min(k, graph.n - 1), 1))
     dg = _resolve_dg(graph, dg, device)
     dtype = torch_dtype(dtype)
     x_dev = _start_vector(dg, dtype, x)
-    state = lanczos(dg, x_dev, k)
-    # one host sync for alpha, beta and x_norm together
-    alpha_h, beta_h, x_norm_h = expmv.fetch_tridiag(state)
-    evals, evecs = tridiag.eigh_host(alpha_h, beta_h)
-    tmp, shift = expmv.coefficients(evals, evecs, x_norm_h)
-    coeff = torch.from_numpy(tmp.astype(numpy_dtype(dtype))).to(dg.device)
-    ans = coeff @ state.q_basis
+    if low_mem:
+        ans, shift, alpha_h, beta_h, x_norm_h = _two_pass(dg, x_dev, k)
+    else:
+        state = lanczos(dg, x_dev, k)
+        # one host sync for alpha, beta and x_norm together
+        alpha_h, beta_h, x_norm_h = expmv.fetch_tridiag(
+            state.alpha, state.beta, state.x_norm)
+        tmp, shift = expmv.host_coefficients(alpha_h, beta_h, x_norm_h)
+        coeff = torch.from_numpy(tmp.astype(numpy_dtype(dtype)))
+        ans = coeff.to(dg.device) @ state.q_basis
     neg = torch.finfo(dtype).min
     vals, idx = torch.topk(torch.where(dg.realmask > 0, ans, neg), topk)
     nrm = torch.linalg.vector_norm(ans)

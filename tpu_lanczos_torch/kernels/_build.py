@@ -46,6 +46,8 @@ def _bind(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.tlt_spmv_cpg_level.restype = i
     lib.tlt_spmv_cpg_level.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.tlt_spmv_cpg_level_comp.restype = i
+    lib.tlt_spmv_cpg_level_comp.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p]
     return lib
 
 

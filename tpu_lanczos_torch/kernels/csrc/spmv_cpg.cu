@@ -2,7 +2,9 @@
 //
 // Replaces the Pallas TPU kernel tpu_lanczos/kernels/spmv_cpg.py::
 // _make_kernel (:85), launched by _run_level (:320, pallas_call :342) in
-// its plain, classic-layout form.  For every dest chunk D and dest cell
+// its plain, classic-layout form (cpg_level_kernel) and in its
+// compensated form (compensated=True, :295-301; cpg_level_comp_kernel,
+// below).  For every dest chunk D and dest cell
 // (ld, rd) it computes
 //
 //   out[D*sub + rd, ld] = base[D*sub + rd, ld]
@@ -53,6 +55,20 @@ namespace {
 constexpr int kLane = 128;
 constexpr int kThreads = 256;
 
+// x[s_ids[t]*sub + L2, L1[L2, ld]] for tile t and dest cell c = ld*sub + rd
+template <typename T, typename L2T>
+__device__ __forceinline__ T tile_value(const T* __restrict__ x,
+                                        const int8_t* __restrict__ l1,
+                                        const L2T* __restrict__ l2,
+                                        const int32_t* __restrict__ s_ids,
+                                        int64_t t, int64_t cells, int c,
+                                        int sub, int ld) {
+  const int64_t ss = static_cast<int64_t>(l2[t * cells + c]);
+  const int lane = l1[(t * sub + ss) * kLane + ld];
+  const int64_t s = s_ids[t];
+  return x[(s * sub + ss) * kLane + lane];
+}
+
 template <typename T, typename L2T>
 __global__ void __launch_bounds__(kThreads)
 cpg_level_kernel(const T* __restrict__ x, const int8_t* __restrict__ l1,
@@ -71,14 +87,56 @@ cpg_level_kernel(const T* __restrict__ x, const int8_t* __restrict__ l1,
   T acc = T(0);
 #pragma unroll 4
   for (int i = 0; i < count; ++i) {
-    const int64_t t = start + i;
-    const int64_t ss = static_cast<int64_t>(l2[t * cells + c]);
-    const int lane = l1[(t * sub + ss) * kLane + ld];
-    const int64_t s = s_ids[t];
-    acc += x[(s * sub + ss) * kLane + lane];
+    acc += tile_value(x, l1, l2, s_ids, start + i, cells, c, sub, ld);
   }
   const int64_t o = (static_cast<int64_t>(d) * sub + rd) * kLane + ld;
   out[o] = base != nullptr ? base[o] + acc : acc;
+}
+
+// The compensated level (float only): the same tile walk with a Knuth
+// two-sum per tile, acc and its error stream err both from 0:
+//
+//   s = acc + g;  z = s - acc;  err += (acc - (s - z)) + (g - z);  acc = s
+//
+// in exactly this order, as the Pallas body has it.  The two-sum holds
+// only if every add rounds as written: it has no multiply, so nvcc's
+// default --fmad=true has nothing to contract, and this file must never
+// be built with -use_fast_math or any flag that reassociates adds.
+// There is no base: the caller folds levels with a two-sum outside the
+// kernel (spmv_cpg.py:477-478).  A ghost cell's tile value is the
+// structural zero of lane 127, which leaves acc and err unchanged, as
+// the reference's masked duplicate tiles do.
+template <typename L2T>
+__global__ void __launch_bounds__(kThreads)
+cpg_level_comp_kernel(const float* __restrict__ x,
+                      const int8_t* __restrict__ l1,
+                      const L2T* __restrict__ l2,
+                      const int32_t* __restrict__ s_ids,
+                      const int32_t* __restrict__ starts,
+                      const int32_t* __restrict__ counts,
+                      float* __restrict__ out, float* __restrict__ err,
+                      int sub) {
+  const int64_t cells = static_cast<int64_t>(sub) * kLane;
+  const int c = blockIdx.x * kThreads + threadIdx.x;  // ld * sub + rd
+  if (c >= cells) return;
+  const int d = blockIdx.y;
+  const int ld = c / sub;
+  const int rd = c - ld * sub;
+  const int64_t start = starts[d];
+  const int count = counts[d];
+  float acc = 0.0f;
+  float e = 0.0f;
+#pragma unroll 4
+  for (int i = 0; i < count; ++i) {
+    const float g = tile_value(x, l1, l2, s_ids, start + i, cells, c, sub, ld);
+    const float s = acc + g;
+    const float z = s - acc;
+    e += (acc - (s - z)) + (g - z);
+    acc = s;
+  }
+  const int64_t o = (static_cast<int64_t>(d) * sub + rd) * kLane + ld;
+  out[o] = acc;
+  err[o] = e;
 }
 
 template <typename T, typename L2T>
@@ -94,6 +152,24 @@ void launch(const void* x, const void* l1, const void* l2, const void* s_ids,
       static_cast<const T*>(base), static_cast<T*>(out), sub);
 }
 
+template <typename L2T>
+void launch_comp(const void* x, const void* l1, const void* l2,
+                 const void* s_ids, const void* starts, const void* counts,
+                 void* out, void* err, int n_chunks, int sub,
+                 cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned>((sub * kLane) / kThreads),
+                  static_cast<unsigned>(n_chunks));
+  cpg_level_comp_kernel<L2T><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const int8_t*>(l1),
+      static_cast<const L2T*>(l2), static_cast<const int32_t*>(s_ids),
+      static_cast<const int32_t*>(starts), static_cast<const int32_t*>(counts),
+      static_cast<float*>(out), static_cast<float*>(err), sub);
+}
+
+bool bad_shape(int n_chunks, int sub) {
+  return n_chunks <= 0 || n_chunks > 65535 || sub <= 0 || sub % kLane != 0;
+}
+
 }  // namespace
 
 // Launches one CPG level on `stream`; `base` may be null.  value_bytes is
@@ -105,7 +181,7 @@ extern "C" int tlt_spmv_cpg_level(const void* x, const void* l1,
                                   const void* base, void* out, int n_chunks,
                                   int sub, int l2_bytes, int value_bytes,
                                   void* stream) {
-  if (n_chunks <= 0 || n_chunks > 65535 || sub <= 0 || sub % kLane != 0) {
+  if (bad_shape(n_chunks, sub)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -121,6 +197,30 @@ extern "C" int tlt_spmv_cpg_level(const void* x, const void* l1,
   } else if (value_bytes == 8 && l2_bytes == 2) {
     launch<double, int16_t>(x, l1, l2, s_ids, starts, counts, base, out,
                             n_chunks, sub, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches one compensated CPG level on `stream`: float x, out and err
+// (no base).  l2_bytes is 1 (uint8) or 2 (int16).  Returns
+// cudaGetLastError() after the launch (0 = launched).
+extern "C" int tlt_spmv_cpg_level_comp(const void* x, const void* l1,
+                                       const void* l2, const void* s_ids,
+                                       const void* starts, const void* counts,
+                                       void* out, void* err, int n_chunks,
+                                       int sub, int l2_bytes, void* stream) {
+  if (bad_shape(n_chunks, sub)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (l2_bytes == 1) {
+    launch_comp<uint8_t>(x, l1, l2, s_ids, starts, counts, out, err,
+                         n_chunks, sub, s);
+  } else if (l2_bytes == 2) {
+    launch_comp<int16_t>(x, l1, l2, s_ids, starts, counts, out, err,
+                         n_chunks, sub, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
