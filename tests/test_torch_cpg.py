@@ -83,9 +83,15 @@ def test_load_upgrades_legacy_pack_like_reference(tmp_path):
 
 
 def test_slab_layout_not_ported():
+    """The slab layout, once refused here, now packs to the reference's
+    arrays (tests/test_torch_slab.py holds it on larger graphs); an
+    unknown layout is refused."""
     build, _ = PACK_CASES["ba2000"]
-    with pytest.raises(NotImplementedError, match="queue 2 item 2"):
-        cpg.pack_cpg(to_port_graph(build()), layout="slab", device="cpu")
+    g = build()
+    port = cpg.pack_cpg(to_port_graph(g), layout="slab", device="cpu")
+    assert_pack_equal(port, ref_cpg.pack_cpg(g, layout="slab"))
+    with pytest.raises(ValueError, match="layout"):
+        cpg.pack_cpg(to_port_graph(g), layout="diagonal", device="cpu")
 
 
 def test_permute_round_trip():

@@ -54,13 +54,14 @@ def test_generators_match_reference_native_path(fn, args):
 
 
 def test_native_builds_into_port_build_dir():
-    """The port compiles the reference's graphcore.cc into its own build
+    """The port compiles its own copy of graphcore.cc (byte-identical to
+    the reference's, tests/test_torch_slab.py) into its own build
     directory and never writes the reference's _graphcore.so."""
     assert native.available()
     assert native._SO.startswith(BUILD_DIR)
     assert os.path.exists(native._SO)
     assert native._SRC == os.path.join(
-        ROOT_DIR, "tpu_lanczos", "graphs", "native", "graphcore.cc")
+        ROOT_DIR, "tpu_lanczos_torch", "graphs", "native", "graphcore.cc")
     assert native._SO != ref_native._SO
 
 

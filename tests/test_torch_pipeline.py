@@ -146,10 +146,15 @@ def test_k_clamps_to_n_minus_1():
     (dict(reorthogonalize=True), "queue 1 item 6"),
 ])
 def test_unported_arguments_raise(kw, item):
+    """Each argument that raised NotImplementedError until its ROADMAP
+    item (``item``) was ported now runs and gives the default path's
+    answer (f32: within 1e-5) and top nodes."""
     g = to_port_graph(CSRGraph.from_edges(
-        4, np.array([[0, 1], [1, 2], [2, 3]])))
-    with pytest.raises(NotImplementedError, match=item):
-        expm_action(g, k=2, device="cpu", **kw)
+        4, np.array([[0, 1], [1, 2], [2, 3], [0, 2]])))
+    base = expm_action(g, k=3, device="cpu")
+    res = expm_action(g, k=3, device="cpu", **kw)
+    np.testing.assert_allclose(res.ans, base.ans, rtol=1e-5, err_msg=item)
     if "reorthogonalize" not in kw:
-        with pytest.raises(NotImplementedError, match=item):
-            expm_action_summary(g, k=2, topk=2, device="cpu", **kw)
+        summ = expm_action_summary(g, k=3, topk=2, device="cpu", **kw)
+        want = expm_action_summary(g, k=3, topk=2, device="cpu")
+        assert set(summ.top_nodes) == set(want.top_nodes), item

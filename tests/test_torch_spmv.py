@@ -94,11 +94,11 @@ def test_kernel_wrapper_accepts_pack_arrays(case):
 
 
 def test_spmv_rejects_unported_formats():
-    class DeviceGraph:
+    class CSTGraph:
         pass
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        spmv(DeviceGraph(), torch.zeros(4))
+    with pytest.raises(NotImplementedError, match="queue 2 item 6"):
+        spmv(CSTGraph(), torch.zeros(4))
 
 
 def test_run_level_rejects_other_devices(case):

@@ -1,9 +1,9 @@
 """ctypes bindings for the native graph core (graphcore.cc).
 
-The C++ source is the JAX package's own
-``tpu_lanczos/graphs/native/graphcore.cc``, found by file path and
-compiled with g++ into the port's build directory (``utils.BUILD_DIR``);
-the JAX package's ``_graphcore.so`` is never written.  Every entry point
+The C++ source ``graphcore.cc`` beside this file is the port's own copy
+of the JAX package's (kept byte-identical, which a test checks), compiled
+with g++ into the port's build directory (``utils.BUILD_DIR``); the JAX
+package's ``_graphcore.so`` is never written.  Every entry point
 degrades gracefully (``available()`` returns False) when no toolchain is
 present, and the numpy implementations in
 :mod:`tpu_lanczos_torch.graphs.generators` /
@@ -20,9 +20,9 @@ import threading
 import numpy as np
 
 from tpu_lanczos_torch.graphs.csr import CSRGraph
-from tpu_lanczos_torch.utils import BUILD_DIR, ROOT_DIR, build_shared
+from tpu_lanczos_torch.utils import BUILD_DIR, build_shared
 
-_SRC = os.path.join(ROOT_DIR, "tpu_lanczos", "graphs", "native",
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                     "graphcore.cc")
 _SO = os.path.join(BUILD_DIR, "_graphcore.so")
 

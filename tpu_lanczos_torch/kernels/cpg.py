@@ -18,8 +18,13 @@ Constraints per tile: one entry per staging pair (ss, ld) and one entry
 per dest cell (rd, ld).  Rows beyond ``theta`` are split into virtual
 rows folded back by reduce levels; heavy sources are split into copies
 filled by a leading broadcast level.  Lane 127 of every sublane is a
-structural zero, so ghost cells gather zeros and no masking exists in
-the kernel (kernels/csrc/spmv_cpg.cu).
+structural zero, so in the classic layout ghost cells gather zeros and
+no masking exists in the kernel (kernels/csrc/spmv_cpg.cu).
+
+The slab layout (``layout="slab"``) makes every tile source-slab-pure:
+it reads one (128, 128) slab of x (``s_ids`` are global slab ids), l1 is
+(T*128, 128), and l2 is uint8 at any ``sub`` with bit 7 marking ghost
+dest cells, which the kernel adds as zero.
 """
 
 from __future__ import annotations
@@ -73,8 +78,9 @@ class _CPGLevel:
 @dataclasses.dataclass(frozen=True)
 class CPGGraph:
     """A packed graph: host metadata plus per-level index tensors on
-    ``device``.  Each level is a dict with l1 (T_pad*sub, 128) int8,
-    l2 (T_pad*128, sub) uint8 (sub <= 256) or int16, and (T_pad,) int32
+    ``device``.  Each level is a dict with l1 (T_pad*sub, 128) int8 (slab
+    layout: (T_pad*128, 128)), l2 (T_pad*128, sub) uint8 (sub <= 256 or
+    slab layout) or int16, and (T_pad,) int32
     s_ids, d_ids, run_ids, pair_mask, plus (n_chunks,) int32 starts and
     counts.  The CUDA kernel reads l1, l2, s_ids, starts and counts;
     run_ids and pair_mask only scheduled the TPU kernel and are kept so
@@ -91,7 +97,9 @@ class CPGGraph:
     # leading broadcast levels (source-split copy distribution): levels
     # [0, n_bcast) write into a copy of x before the main level runs
     n_bcast: int = 0
-    # "classic" only: the slab layout's kernel is not ported yet
+    # "classic": tiles span a full (sub, 128) source chunk.  "slab":
+    # tiles are source-slab-pure, one (128, 128) source slab each; l2
+    # stays uint8 at any sub and bit 7 flags ghost cells
     layout: str = "classic"
     t_reals: tuple = ()    # real (un-padded) tile count per level
     mask_sparse: tuple = ()  # per level: a real tile kept a sparse mask
@@ -115,8 +123,9 @@ class CPGGraph:
     def index_bytes(self) -> int:
         """Bytes of l1 + l2 over the real tiles: what one SpMV must read
         at least once (the kernel's roofline input)."""
+        rows = LANE if self.layout == "slab" else self.sub
         return sum(
-            t * (self.sub * LANE + LANE * self.sub * lv["l2"].element_size())
+            t * (rows * LANE + LANE * self.sub * lv["l2"].element_size())
             for t, lv in zip(self.t_reals, self.levels))
 
     # ------------------------------------------------------------ vectors
@@ -358,6 +367,69 @@ def _build_cpg_level_np(src_pos: np.ndarray, dst_pos: np.ndarray, sub: int):
                      pair_mask=pair_mask)
 
 
+def _build_cpg_level_slab(src_pos: np.ndarray, dst_pos: np.ndarray,
+                          sub: int) -> _CPGLevel:
+    """Source-slab-pure level builder (layout="slab").
+
+    Each tile reads ONE (128, 128) source slab: block key = (dest chunk,
+    global source slab).  l1 is (T*128, 128) int8 (staging sublane =
+    source sublane within the slab), l2 is (T*128, sub) uint8 whose high
+    bit flags ghost dest cells (the kernel masks them to zero — no mex
+    fill needed, and l2 stays uint8 at any ``sub``)."""
+    out = _native("cpg_build_level", src_pos, dst_pos, sub, slab=True)
+    if out is not None:
+        l1, l2, s_ids, d_ids, pair_mask = out
+        return _CPGLevel(l1=l1, l2=l2, s_ids=s_ids, d_ids=d_ids,
+                         pair_mask=pair_mask)
+    return _build_cpg_level_slab_np(src_pos, dst_pos, sub)
+
+
+def _build_cpg_level_slab_np(src_pos: np.ndarray, dst_pos: np.ndarray,
+                             sub: int) -> _CPGLevel:
+    """Numpy reference implementation of the slab-pure level builder."""
+    n_slab = sub // LANE
+    s_chunk = src_pos // (sub * LANE)
+    ss = (src_pos // LANE) % sub
+    ssl = ss % LANE                      # sublane within slab
+    slab_g = s_chunk * n_slab + ss // LANE  # global source slab id
+    sl = src_pos % LANE
+    d_chunk = dst_pos // (sub * LANE)
+    rd = (dst_pos // LANE) % sub
+    ld = dst_pos % LANE
+
+    block = d_chunk * np.int64(1 << 32) + slab_g
+    a_key = block * (LANE * LANE) + ssl * LANE + ld    # staging pair
+    b_key = block * (sub * LANE) + rd * LANE + ld      # dest cell
+    a_c = _compact(a_key)
+    b_c = _compact(b_key)
+    tier = _assign_tiers(a_c, b_c)
+
+    tier_mult = int(tier.max()) + 1 if tier.size else 1
+    tkey = block * tier_mult + tier
+    tile_of, uniq_t = _compact(tkey, return_unique=True)
+    T = uniq_t.size
+    blocks = uniq_t // tier_mult
+    d_ids = (blocks // (1 << 32)).astype(np.int32)
+    s_ids = (blocks % (1 << 32)).astype(np.int32)      # global slab ids
+
+    l1 = np.full((T * LANE, LANE), LANE - 1, dtype=np.int8)
+    l1[tile_of * LANE + ssl, ld] = sl.astype(np.int8)
+    l2 = np.full((T * LANE, sub), 255, dtype=np.uint8)  # bit7 = ghost
+    l2[tile_of * LANE + ld, rd] = ssl.astype(np.uint8)
+    pair_mask = np.zeros(T, dtype=np.int32)
+    if sub // LANE > 30:
+        # int32 mask capacity (one bit per OUTPUT slab here): emit the
+        # all-dense sentinel instead of overflowing the shift — mirrors
+        # the native builder's guard (graphcore.cc slab-mask path)
+        pair_mask[:] = -1
+    else:
+        np.bitwise_or.at(
+            pair_mask, tile_of, (1 << (rd // LANE)).astype(np.int32)
+        )
+    return _CPGLevel(l1=l1, l2=l2, s_ids=s_ids, d_ids=d_ids,
+                     pair_mask=pair_mask)
+
+
 def _level_ranges(d_ids: np.ndarray, n_chunks: int):
     """Per-dest-chunk [start, count) over the d-major-sorted tile list."""
     counts = np.bincount(d_ids, minlength=n_chunks).astype(np.int32)
@@ -404,21 +476,26 @@ _UNIT_CYC = 77.0
 _MASK_MAX_BITS = 30  # int32 mask capacity (sub >= 768 -> always dense)
 
 
-def _mask_is_sparse(pm_real: np.ndarray, sub: int) -> bool:
+def _mask_is_sparse(pm_real: np.ndarray, sub: int, layout: str) -> bool:
     """True iff any REAL tile keeps a non-FULL mask after densify — the
     TPU kernel's static per-level switch, kept as pack metadata."""
     n_slab = sub // LANE
     if n_slab == 1 or pm_real.size == 0:
         return False
-    u2 = n_slab * n_slab
+    u2 = n_slab if layout == "slab" else n_slab * n_slab
     if u2 > _MASK_MAX_BITS:
         return False
     return bool((pm_real != (1 << u2) - 1).any())
 
 
-def _densify_mask(pm: np.ndarray, sub: int) -> np.ndarray:
+def _densify_mask(pm: np.ndarray, sub: int, layout: str) -> np.ndarray:
     n_slab = sub // LANE
     if n_slab == 1:
+        return pm
+    if layout == "slab":
+        # the slab kernel conds every output slab unconditionally (no
+        # m == FULL branch-free dispatch), so densifying only turns
+        # skipped all-ghost gathers into executed ones — keep raw masks
         return pm
     u2 = n_slab * n_slab
     if u2 > _MASK_MAX_BITS:
@@ -432,14 +509,27 @@ def _densify_mask(pm: np.ndarray, sub: int) -> np.ndarray:
     return np.where(occ <= int(thresh), pm, full).astype(pm.dtype)
 
 
-def mask_from_l1l2(l1: np.ndarray, l2: np.ndarray, sub: int) -> np.ndarray:
+def mask_from_l1l2(l1: np.ndarray, l2: np.ndarray, sub: int,
+                   layout: str = "classic") -> np.ndarray:
     """Recover per-tile slab-pair occupancy masks from the index tiles
     (for packs saved before pair_mask existed).
 
-    A dest cell (ld, rd) is real iff the staging cell it selects is
-    itself staged (l1 != ghost lane) — ghost cells point at a mex staging
-    sublane whose l1 column entry is 127."""
+    Classic layout: a dest cell (ld, rd) is real iff the staging cell it
+    selects is itself staged (l1 != ghost lane) — ghost cells point at a
+    mex staging sublane whose l1 column entry is 127.  Slab layout: bit 7
+    of l2 flags ghosts directly."""
     n_slab = sub // LANE
+    if layout == "slab":
+        T = l2.shape[0] // LANE
+        if n_slab > _MASK_MAX_BITS:
+            # int32 mask capacity: same all-dense sentinel the builders
+            # and the classic recovery path use past 30 bits
+            return np.full(T, -1, dtype=np.int32)
+        mask = np.zeros(T, dtype=np.int32)
+        real = l2 < LANE                       # (T*128, sub)
+        j_any = real.reshape(T, LANE, n_slab, LANE).any(axis=(1, 3))
+        mask |= (j_any << np.arange(n_slab)).sum(axis=1).astype(np.int32)
+        return mask
     T = l2.shape[0] // LANE
     if n_slab * n_slab > _MASK_MAX_BITS:
         return np.full(T, -1, dtype=np.int32)
@@ -465,13 +555,6 @@ def mask_from_l1l2(l1: np.ndarray, l2: np.ndarray, sub: int) -> np.ndarray:
     return mask
 
 
-def _check_layout(layout: str) -> None:
-    if layout != "classic":
-        raise NotImplementedError(
-            f"CPG layout {layout!r}: only the classic layout is ported "
-            "(the slab kernel is ROADMAP queue 2 item 2)")
-
-
 def _to_device(arrays: dict, device) -> dict:
     # writable + contiguous: on the CPU the tensor shares the array
     return {k: torch.from_numpy(np.require(v, requirements="CW")).to(device)
@@ -483,7 +566,6 @@ def from_numpy(meta: dict, levels, realmask: np.ndarray,
     """Build a CPGGraph from host arrays, e.g. a JAX-package pack's
     (``np.asarray`` of each level array).  ``meta`` holds n, n_chunks,
     nnz, theta, sub, n_bcast, layout, t_reals and mask_sparse."""
-    _check_layout(meta.get("layout", "classic"))
     return CPGGraph(
         n=int(meta["n"]), n_chunks=int(meta["n_chunks"]),
         nnz=int(meta["nnz"]), theta=int(meta["theta"]),
@@ -492,7 +574,8 @@ def from_numpy(meta: dict, levels, realmask: np.ndarray,
         realmask=torch.from_numpy(np.require(
             realmask, dtype=np.float32, requirements="CW")).to(device),
         new_of_old=np.asarray(new_of_old),
-        n_bcast=int(meta.get("n_bcast", 0)), layout="classic",
+        n_bcast=int(meta.get("n_bcast", 0)),
+        layout=str(meta.get("layout", "classic")),
         t_reals=tuple(int(t) for t in meta["t_reals"]),
         mask_sparse=tuple(bool(m) for m in meta["mask_sparse"]),
     )
@@ -504,7 +587,8 @@ def load_cpg(path: str, device="cuda") -> CPGGraph:
     z = np.load(path)
     sub = int(z["sub"]) if "sub" in z else 128
     layout = str(z["layout"]) if "layout" in z else "classic"
-    _check_layout(layout)
+    rows = LANE if layout == "slab" else sub
+
     def level(i):
         lv = {k: np.asarray(z[f"lv{i}_{k}"])
               for k in ("l1", "l2", "s_ids", "d_ids", "starts", "counts")}
@@ -520,10 +604,10 @@ def load_cpg(path: str, device="cuda") -> CPGGraph:
             # the mask is never read at sub=128: skip the recovery pass
             pm = np.zeros_like(lv["s_ids"])
         else:  # packs saved before the masked second gather existed
-            pm = mask_from_l1l2(lv["l1"], lv["l2"], sub)
-        lv["pair_mask"] = _densify_mask(pm, sub)
+            pm = mask_from_l1l2(lv["l1"], lv["l2"], sub, layout)
+        lv["pair_mask"] = _densify_mask(pm, sub, layout)
         mask_sparse.append(_mask_is_sparse(
-            lv["pair_mask"][: int(lv["counts"].sum())], sub))
+            lv["pair_mask"][: int(lv["counts"].sum())], sub, layout))
         # packs saved before the batched group DMA lack the >= GROUP_PAD
         # ghost-tile tail — extend, so arrays equal a fresh pack's
         tail = lv["s_ids"].shape[0] - int(lv["counts"].sum())
@@ -531,10 +615,12 @@ def load_cpg(path: str, device="cuda") -> CPGGraph:
             extra = GROUP_PAD - tail
             lv["l1"] = np.concatenate([
                 lv["l1"],
-                np.full((extra * sub, LANE), LANE - 1, dtype=lv["l1"].dtype),
+                np.full((extra * rows, LANE), LANE - 1, dtype=lv["l1"].dtype),
             ])
-            lv["l2"] = np.concatenate(
-                [lv["l2"], np.zeros((extra * LANE, sub), lv["l2"].dtype)])
+            pad2 = (np.full((extra * LANE, sub), 255, np.uint8)
+                    if layout == "slab"
+                    else np.zeros((extra * LANE, sub), lv["l2"].dtype))
+            lv["l2"] = np.concatenate([lv["l2"], pad2])
             for k in ("s_ids", "d_ids", "run_ids", "pair_mask"):
                 lv[k] = np.concatenate(
                     [lv[k], np.zeros(extra, dtype=lv[k].dtype)]
@@ -675,18 +761,21 @@ def pack_cpg(
     if layout == "auto":
         # classic, as in the reference (cpg.py pins auto to classic)
         layout = "classic"
-    _check_layout(layout)
+    if layout not in ("classic", "slab"):
+        raise ValueError(f"layout must be auto, classic or slab, "
+                         f"got {layout!r}")
 
     rows = graph.row_ids().astype(np.int64)
     cols = graph.indices.astype(np.int64)
 
     if theta_s is None and not redeal:
-        return _pack_legacy(graph, rows, cols, n, theta, sub, order, device)
+        return _pack_legacy(graph, rows, cols, n, theta, sub, order, layout,
+                            device)
     return _pack_split(graph, rows, cols, n, theta, int(theta_s or 0),
-                       sub, order, redeal, device)
+                       sub, order, redeal, layout, device)
 
 
-def _pack_legacy(graph, rows, cols, n, theta, sub, order,
+def _pack_legacy(graph, rows, cols, n, theta, sub, order, layout,
                  device) -> CPGGraph:
     """Original pack path: dest-only split, global dealing (meshes)."""
     unit, n_units, parents0 = _split_rows(rows, cols, n, theta)
@@ -723,17 +812,17 @@ def _pack_legacy(graph, rows, cols, n, theta, sub, order,
         rank[srt] = np.arange(n_units)
     pos_of = _pos_of_unit(rank, sub)
 
-    build = _build_cpg_level
+    build = _build_cpg_level_slab if layout == "slab" else _build_cpg_level
     levels = []
     levels.append(build(pos_of[cols], pos_of[unit], sub))
     for s_arr, d_arr in reduce_edges:
         levels.append(build(pos_of[s_arr], pos_of[d_arr], sub))
     return _finalize(graph, n, n_units, theta, sub, pos_of, levels,
-                     n_bcast=0, device=device)
+                     n_bcast=0, layout=layout, device=device)
 
 
 def _pack_split(graph, rows, cols, n, theta, theta_s, sub, order,
-                redeal, device) -> CPGGraph:
+                redeal, layout, device) -> CPGGraph:
     """Source-split + (optionally) block-aware-redeal pack path.
 
     Unit id space layout: [0, n) real rows, then dest virtual rows
@@ -849,7 +938,7 @@ def _pack_split(graph, rows, cols, n, theta, theta_s, sub, order,
         rdst = np.where(rpart == 0, pa, base_of[pa] + rpart - 1)
         reduce_edges.append((ch, rdst))
 
-    build = _build_cpg_level
+    build = _build_cpg_level_slab if layout == "slab" else _build_cpg_level
     levels = []
     n_bcast = 0
     if n_copies:
@@ -859,11 +948,11 @@ def _pack_split(graph, rows, cols, n, theta, theta_s, sub, order,
     for s_arr, d_arr in reduce_edges:
         levels.append(build(pos_of[s_arr], pos_of[d_arr], sub))
     return _finalize(graph, n, n_units, theta, sub, pos_of, levels,
-                     n_bcast=n_bcast, device=device)
+                     n_bcast=n_bcast, layout=layout, device=device)
 
 
 def _finalize(graph, n, n_units, theta, sub, pos_of, levels,
-              n_bcast, device) -> CPGGraph:
+              n_bcast, layout, device) -> CPGGraph:
     """Shared tail: chunk bucketing, realmask, padding, device tensors."""
     n_chunks = max(int(np.ceil(n_units / (sub * REAL_LANES))), 1)
     # bucket the chunk count as the reference does (it was part of the
@@ -888,9 +977,13 @@ def _finalize(graph, n, n_units, theta, sub, pos_of, levels,
             max(T, 1) + GROUP_PAD,
             max(256, 1 << max((max(T, 1) - 1).bit_length() - 2, 0)),
         )
-        l1 = np.full((T_pad * sub, LANE), LANE - 1, dtype=np.int8)
-        l1[: T * sub] = lv.l1
-        l2 = np.zeros((T_pad * LANE, sub), dtype=_l2_dtype(sub))
+        rows = LANE if layout == "slab" else sub
+        l1 = np.full((T_pad * rows, LANE), LANE - 1, dtype=np.int8)
+        l1[: T * rows] = lv.l1
+        if layout == "slab":
+            l2 = np.full((T_pad * LANE, sub), 255, dtype=np.uint8)
+        else:
+            l2 = np.zeros((T_pad * LANE, sub), dtype=_l2_dtype(sub))
         l2[: T * LANE] = lv.l2
         ids_pad = np.zeros(T_pad, dtype=np.int32)
         s_ids = ids_pad.copy()
@@ -899,8 +992,8 @@ def _finalize(graph, n, n_units, theta, sub, pos_of, levels,
         d_ids[:T] = lv.d_ids
         run_ids = ids_pad.copy()
         run_ids[:T] = run_ids_real
-        pm_dens = _densify_mask(lv.pair_mask, sub)
-        mask_sparse.append(_mask_is_sparse(pm_dens, sub))
+        pm_dens = _densify_mask(lv.pair_mask, sub, layout)
+        mask_sparse.append(_mask_is_sparse(pm_dens, sub, layout))
         pair_mask = ids_pad.copy()
         pair_mask[:T] = pm_dens
         dev_levels.append(_to_device(dict(
@@ -911,7 +1004,7 @@ def _finalize(graph, n, n_units, theta, sub, pos_of, levels,
         n=n, n_chunks=n_chunks, nnz=graph.nnz, theta=theta, sub=sub,
         levels=tuple(dev_levels),
         realmask=torch.from_numpy(realmask).to(device),
-        new_of_old=new_of_old, n_bcast=n_bcast, layout="classic",
+        new_of_old=new_of_old, n_bcast=n_bcast, layout=layout,
         t_reals=tuple(lv.s_ids.shape[0] for lv in levels),
         mask_sparse=tuple(mask_sparse),
     )

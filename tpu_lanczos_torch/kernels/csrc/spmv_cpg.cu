@@ -2,10 +2,11 @@
 //
 // Replaces the Pallas TPU kernel tpu_lanczos/kernels/spmv_cpg.py::
 // _make_kernel (:85), launched by _run_level (:320, pallas_call :342) in
-// its plain, classic-layout form (cpg_level_kernel) and in its
-// compensated form (compensated=True, :295-301; cpg_level_comp_kernel,
-// below).  For every dest chunk D and dest cell
-// (ld, rd) it computes
+// its plain form (cpg_level_kernel) and in its compensated form
+// (compensated=True, :295-301; cpg_level_comp_kernel, below), each in the
+// classic layout and in the slab layout (slab=True, :184-205; kSlab,
+// below).  For every dest chunk D and dest cell (ld, rd) the classic
+// layout computes
 //
 //   out[D*sub + rd, ld] = base[D*sub + rd, ld]
 //       + sum_{t in [starts[D], starts[D] + counts[D])}
@@ -17,6 +18,18 @@
 // or y outside the kernel: the result is bit-identical to the reference.
 // Output is the untransposed (n_chunks*sub, 128) y layout, so no
 // transpose pass follows.
+//
+// The slab layout makes every tile source-slab-pure: s_ids are GLOBAL
+// slab ids (128 rows of x each, not chunk ids times sub), l1_t = l1[t*128
+// : (t+1)*128] is (128, 128), and l2 is uint8 at every sub with bit 7
+// marking a ghost dest cell:
+//
+//   L2 = l2_t[ld, rd];  v = L2 >= 128 ? +0.0
+//                           : x[s_ids[t]*128 + L2, L1[L2, ld]]
+//
+// A ghost adds +0.0 (no skipped add), as the Pallas body's
+// where(idx < LANE, part, zero) does, so the sum is bit-identical too.
+// Skipping all-ghost output slabs by pair_mask only scheduled the TPU.
 //
 // Design notes.
 // - Parallelism.  The TPU ran one grid step per dest chunk; at bn1M
@@ -33,7 +46,9 @@
 // - Source chunk.  A classic sub=512 source chunk is 512*128*4 B = 256
 //   KB, more than one block's 227 KB of shared memory, so x is gathered
 //   straight from global memory: the whole x of bn1M (a few MB) stays
-//   in the 50 MB L2.
+//   in the 50 MB L2.  A slab is 128*128*4 B = 64 KB of x, which would
+//   fit in shared memory; staging it there is left to a later change,
+//   and this kernel gathers it from global memory like the classic one.
 // - What bounds it.  The index bytes: each tile carries sub*128 B of l1
 //   plus 128*sub*sizeof(L2) B of l2 (64 KB + 128 KB at sub=512), and the
 //   whole pack is read once per SpMV (~2,200 tiles at bn1M, ~420 MB):
@@ -41,11 +56,13 @@
 //   against.  The tile loop is unrolled so several tiles' independent
 //   l2 -> l1 -> x load chains are in flight per thread.
 // - Index types.  Templated on the l2 type (uint8 for sub <= 256, int16
-//   above); l1 is int8 with values 0..127.  Every tile offset is 64-bit:
-//   t*sub*128 passes 2^31 on multi-GB packs.
-// - No masking.  Ghost dest cells point at a staging sublane whose l1
-//   entry is lane 127, a structural zero of x, so they add 0.  The TPU's
-//   pair_mask and run_ids only scheduled its VMEM and DMA; unused here.
+//   above; uint8 always in the slab layout, which reads 128 instead of
+//   sub l1 rows per tile); l1 is int8 with values 0..127.  Every tile
+//   offset is 64-bit: t*sub*128 passes 2^31 on multi-GB packs.
+// - No masking in the classic layout.  Ghost dest cells point at a
+//   staging sublane whose l1 entry is lane 127, a structural zero of x,
+//   so they add 0.  The TPU's pair_mask and run_ids only scheduled its
+//   VMEM and DMA; unused here.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -55,8 +72,10 @@ namespace {
 constexpr int kLane = 128;
 constexpr int kThreads = 256;
 
-// x[s_ids[t]*sub + L2, L1[L2, ld]] for tile t and dest cell c = ld*sub + rd
-template <typename T, typename L2T>
+// Tile t's value for dest cell c = ld*sub + rd: classic layout
+// x[s_ids[t]*sub + L2, L1[L2, ld]]; slab layout +0.0 for a ghost (bit 7
+// of L2), else x[s_ids[t]*128 + L2, L1[L2, ld]] with (128, 128) l1 tiles
+template <bool kSlab, typename T, typename L2T>
 __device__ __forceinline__ T tile_value(const T* __restrict__ x,
                                         const int8_t* __restrict__ l1,
                                         const L2T* __restrict__ l2,
@@ -64,12 +83,14 @@ __device__ __forceinline__ T tile_value(const T* __restrict__ x,
                                         int64_t t, int64_t cells, int c,
                                         int sub, int ld) {
   const int64_t ss = static_cast<int64_t>(l2[t * cells + c]);
-  const int lane = l1[(t * sub + ss) * kLane + ld];
+  const int64_t rows = kSlab ? kLane : sub;
+  if (kSlab && ss >= kLane) return T(0);
+  const int lane = l1[(t * rows + ss) * kLane + ld];
   const int64_t s = s_ids[t];
-  return x[(s * sub + ss) * kLane + lane];
+  return x[(s * rows + ss) * kLane + lane];
 }
 
-template <typename T, typename L2T>
+template <bool kSlab, typename T, typename L2T>
 __global__ void __launch_bounds__(kThreads)
 cpg_level_kernel(const T* __restrict__ x, const int8_t* __restrict__ l1,
                  const L2T* __restrict__ l2, const int32_t* __restrict__ s_ids,
@@ -87,7 +108,8 @@ cpg_level_kernel(const T* __restrict__ x, const int8_t* __restrict__ l1,
   T acc = T(0);
 #pragma unroll 4
   for (int i = 0; i < count; ++i) {
-    acc += tile_value(x, l1, l2, s_ids, start + i, cells, c, sub, ld);
+    acc += tile_value<kSlab>(x, l1, l2, s_ids, start + i, cells, c, sub,
+                             ld);
   }
   const int64_t o = (static_cast<int64_t>(d) * sub + rd) * kLane + ld;
   out[o] = base != nullptr ? base[o] + acc : acc;
@@ -103,10 +125,10 @@ cpg_level_kernel(const T* __restrict__ x, const int8_t* __restrict__ l1,
 // default --fmad=true has nothing to contract, and this file must never
 // be built with -use_fast_math or any flag that reassociates adds.
 // There is no base: the caller folds levels with a two-sum outside the
-// kernel (spmv_cpg.py:477-478).  A ghost cell's tile value is the
-// structural zero of lane 127, which leaves acc and err unchanged, as
-// the reference's masked duplicate tiles do.
-template <typename L2T>
+// kernel (spmv_cpg.py:477-478).  A ghost cell's tile value is +0.0 (the
+// structural zero of lane 127, or the slab layout's bit-7 zero), which
+// leaves acc and err unchanged, as the reference's masked tiles do.
+template <bool kSlab, typename L2T>
 __global__ void __launch_bounds__(kThreads)
 cpg_level_comp_kernel(const float* __restrict__ x,
                       const int8_t* __restrict__ l1,
@@ -128,7 +150,8 @@ cpg_level_comp_kernel(const float* __restrict__ x,
   float e = 0.0f;
 #pragma unroll 4
   for (int i = 0; i < count; ++i) {
-    const float g = tile_value(x, l1, l2, s_ids, start + i, cells, c, sub, ld);
+    const float g =
+        tile_value<kSlab>(x, l1, l2, s_ids, start + i, cells, c, sub, ld);
     const float s = acc + g;
     const float z = s - acc;
     e += (acc - (s - z)) + (g - z);
@@ -139,27 +162,27 @@ cpg_level_comp_kernel(const float* __restrict__ x,
   err[o] = e;
 }
 
-template <typename T, typename L2T>
+template <bool kSlab, typename T, typename L2T>
 void launch(const void* x, const void* l1, const void* l2, const void* s_ids,
             const void* starts, const void* counts, const void* base,
             void* out, int n_chunks, int sub, cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>((sub * kLane) / kThreads),
                   static_cast<unsigned>(n_chunks));
-  cpg_level_kernel<T, L2T><<<grid, kThreads, 0, stream>>>(
+  cpg_level_kernel<kSlab, T, L2T><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const int8_t*>(l1),
       static_cast<const L2T*>(l2), static_cast<const int32_t*>(s_ids),
       static_cast<const int32_t*>(starts), static_cast<const int32_t*>(counts),
       static_cast<const T*>(base), static_cast<T*>(out), sub);
 }
 
-template <typename L2T>
+template <bool kSlab, typename L2T>
 void launch_comp(const void* x, const void* l1, const void* l2,
                  const void* s_ids, const void* starts, const void* counts,
                  void* out, void* err, int n_chunks, int sub,
                  cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>((sub * kLane) / kThreads),
                   static_cast<unsigned>(n_chunks));
-  cpg_level_comp_kernel<L2T><<<grid, kThreads, 0, stream>>>(
+  cpg_level_comp_kernel<kSlab, L2T><<<grid, kThreads, 0, stream>>>(
       static_cast<const float*>(x), static_cast<const int8_t*>(l1),
       static_cast<const L2T*>(l2), static_cast<const int32_t*>(s_ids),
       static_cast<const int32_t*>(starts), static_cast<const int32_t*>(counts),
@@ -173,30 +196,39 @@ bool bad_shape(int n_chunks, int sub) {
 }  // namespace
 
 // Launches one CPG level on `stream`; `base` may be null.  value_bytes is
-// 4 (float) or 8 (double), l2_bytes 1 (uint8) or 2 (int16).  Returns
+// 4 (float) or 8 (double), l2_bytes 1 (uint8) or 2 (int16); slab != 0
+// selects the slab layout, whose l2 is always uint8.  Returns
 // cudaGetLastError() after the launch (0 = launched).
 extern "C" int tlt_spmv_cpg_level(const void* x, const void* l1,
                                   const void* l2, const void* s_ids,
                                   const void* starts, const void* counts,
                                   const void* base, void* out, int n_chunks,
                                   int sub, int l2_bytes, int value_bytes,
-                                  void* stream) {
+                                  int slab, void* stream) {
   if (bad_shape(n_chunks, sub)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (value_bytes == 4 && l2_bytes == 1) {
-    launch<float, uint8_t>(x, l1, l2, s_ids, starts, counts, base, out,
-                           n_chunks, sub, s);
+  if (slab != 0 && value_bytes == 4 && l2_bytes == 1) {
+    launch<true, float, uint8_t>(x, l1, l2, s_ids, starts, counts, base,
+                                 out, n_chunks, sub, s);
+  } else if (slab != 0 && value_bytes == 8 && l2_bytes == 1) {
+    launch<true, double, uint8_t>(x, l1, l2, s_ids, starts, counts, base,
+                                  out, n_chunks, sub, s);
+  } else if (slab != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else if (value_bytes == 4 && l2_bytes == 1) {
+    launch<false, float, uint8_t>(x, l1, l2, s_ids, starts, counts, base,
+                                  out, n_chunks, sub, s);
   } else if (value_bytes == 4 && l2_bytes == 2) {
-    launch<float, int16_t>(x, l1, l2, s_ids, starts, counts, base, out,
-                           n_chunks, sub, s);
+    launch<false, float, int16_t>(x, l1, l2, s_ids, starts, counts, base,
+                                  out, n_chunks, sub, s);
   } else if (value_bytes == 8 && l2_bytes == 1) {
-    launch<double, uint8_t>(x, l1, l2, s_ids, starts, counts, base, out,
-                            n_chunks, sub, s);
+    launch<false, double, uint8_t>(x, l1, l2, s_ids, starts, counts, base,
+                                   out, n_chunks, sub, s);
   } else if (value_bytes == 8 && l2_bytes == 2) {
-    launch<double, int16_t>(x, l1, l2, s_ids, starts, counts, base, out,
-                            n_chunks, sub, s);
+    launch<false, double, int16_t>(x, l1, l2, s_ids, starts, counts, base,
+                                   out, n_chunks, sub, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -204,23 +236,30 @@ extern "C" int tlt_spmv_cpg_level(const void* x, const void* l1,
 }
 
 // Launches one compensated CPG level on `stream`: float x, out and err
-// (no base).  l2_bytes is 1 (uint8) or 2 (int16).  Returns
-// cudaGetLastError() after the launch (0 = launched).
+// (no base).  l2_bytes is 1 (uint8) or 2 (int16); slab != 0 selects the
+// slab layout (uint8 l2).  Returns cudaGetLastError() after the launch
+// (0 = launched).
 extern "C" int tlt_spmv_cpg_level_comp(const void* x, const void* l1,
                                        const void* l2, const void* s_ids,
                                        const void* starts, const void* counts,
                                        void* out, void* err, int n_chunks,
-                                       int sub, int l2_bytes, void* stream) {
+                                       int sub, int l2_bytes, int slab,
+                                       void* stream) {
   if (bad_shape(n_chunks, sub)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (l2_bytes == 1) {
-    launch_comp<uint8_t>(x, l1, l2, s_ids, starts, counts, out, err,
-                         n_chunks, sub, s);
+  if (slab != 0 && l2_bytes == 1) {
+    launch_comp<true, uint8_t>(x, l1, l2, s_ids, starts, counts, out, err,
+                               n_chunks, sub, s);
+  } else if (slab != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else if (l2_bytes == 1) {
+    launch_comp<false, uint8_t>(x, l1, l2, s_ids, starts, counts, out, err,
+                                n_chunks, sub, s);
   } else if (l2_bytes == 2) {
-    launch_comp<int16_t>(x, l1, l2, s_ids, starts, counts, out, err,
-                         n_chunks, sub, s);
+    launch_comp<false, int16_t>(x, l1, l2, s_ids, starts, counts, out, err,
+                                n_chunks, sub, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
