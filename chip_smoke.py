@@ -31,18 +31,31 @@ jax or of the JAX package.  Each phase prints one JSON line:
   7  the CLI (``tpu_lanczos_torch.cli.main.main``) in process: the
      full-width slab --topk query with the device and the host
      eigensolve, and each single-device mode on a small graph against
-     the serial oracle.
+     the serial oracle;
+  8  the lineage formats on the same graph and oracle answer: GPG and CST
+     packs (the CST pack, ~5 min of host numpy, is built by a child
+     process while phases 2-7 run), their kernels == plain on every level
+     of bn1M and of the small packs of tests/test_cst.py and
+     tests/test_gpg.py, the f64 SpMVs against scipy, ``expm_action``
+     through each (launch counts, accuracy, top-20), the GPG top-20
+     query, SpMV and Lanczos timings, and ``--fmt cst`` in the CLI;
+  9  the tensor-core dense-block probe (``python -m
+     tpu_lanczos_torch.eval.mxu_probe``): its check, its default run of
+     16,384 blocks in three variants, the kernel against the plain
+     version at that size, and a bf16 matmul as the yardstick.
 
 Then the card's name and power limit (nvidia-smi), one JSON line of
 per-kernel results (with each kernel's bound: the larger of its bytes
-over the HBM rate and its adds over the float32 rate), and last
-``{"ok": true, "device": {...}}``.  Any
-failure raises: the script exits nonzero and prints no final line.
+over the HBM rate and its operations over their peak rate), and last
+``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
+nonzero and prints no final line.
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
+import importlib
 import io
 import json
 import os
@@ -62,13 +75,26 @@ COMP_REPLACES = "tpu_lanczos/kernels/spmv_cpg.py:85 (compensated=True)"
 SLAB_REPLACES = "tpu_lanczos/kernels/spmv_cpg.py:85 (slab=True, :184-205)"
 COMP_SLAB_REPLACES = ("tpu_lanczos/kernels/spmv_cpg.py:85 (compensated=True,"
                       " slab=True)")
+CST_SOURCE = "tpu_lanczos_torch/kernels/csrc/spmv_cst.cu"
+CST_REPLACES = "tpu_lanczos/kernels/spmv_pallas2.py:42 and :52"
+GPG_SOURCE = "tpu_lanczos_torch/kernels/csrc/spmv_gpg.cu"
+GPG_REPLACES = "tpu_lanczos/kernels/spmv_gpg.py:154"
+PROBE_SOURCE = "tpu_lanczos_torch/kernels/csrc/mxu_probe.cu"
+PROBE_REPLACES = "tpu_lanczos/eval/mxu_probe.py:106"
 KS = (10, 30, 50)
 CKPT_CHUNK = 16
 # the H100 SXM's published peaks (700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-COUNTERS = ("launches", "launches_slab", "launches_comp",
-            "launches_comp_slab")
+BF16_OPS_PER_S = 989e12
+# every kernel's launch counter, (module, name): its wrapper adds one per
+# launch
+COUNTERS = tuple(("tpu_lanczos_torch.kernels.spmv_cpg", c) for c in (
+    "launches", "launches_slab", "launches_comp", "launches_comp_slab")) + (
+    ("tpu_lanczos_torch.kernels.spmv_cst", "launches_cst"),
+    ("tpu_lanczos_torch.kernels.spmv_gpg", "launches_gpg"),
+    ("tpu_lanczos_torch.eval.mxu_probe", "launches_mxu"),
+)
 CLI_SMALL = ["-b", "4", "-n", "20000", "-k", "50"]
 
 
@@ -103,19 +129,20 @@ def cuda_ms(torch, fn, reps: int = REPS):
     return float(np.median(samples)), samples
 
 
-def reset_counts(spmv_cpg) -> None:
-    for c in COUNTERS:
-        setattr(spmv_cpg, c, 0)
+def reset_counts() -> None:
+    for mod, name in COUNTERS:
+        setattr(importlib.import_module(mod), name, 0)
 
 
-def read_counts(torch, spmv_cpg) -> dict:
+def read_counts(torch) -> dict:
     torch.cuda.synchronize()
-    return {c: getattr(spmv_cpg, c) for c in COUNTERS}
+    return {name: getattr(importlib.import_module(mod), name)
+            for mod, name in COUNTERS}
 
 
 def check_counts(counts: dict, want: dict, what: str) -> None:
     """Exactly ``want`` launches of each named counter, none of the rest."""
-    full = {c: want.get(c, 0) for c in COUNTERS}
+    full = {name: want.get(name, 0) for _, name in COUNTERS}
     check(counts == full, f"{what}: kernel launches {counts} == {full}")
 
 
@@ -135,11 +162,11 @@ def level_cost(cg, i: int, value_bytes: int, n_out: int, base: bool,
     return idx + vec, adds
 
 
-def bound(nbytes: float, adds: float):
+def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and
-    adds over the float32 rate."""
+    operations over their peak rate (float32 adds by default)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = adds / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -151,6 +178,115 @@ def spmv_cost(cg, value_bytes: int = 4):
         b, a = level_cost(cg, i, value_bytes, 1, i != cg.n_bcast)
         nbytes, adds = nbytes + b, adds + a
     return nbytes + cg.n_pad * (4 + value_bytes), adds + cg.n_pad
+
+
+def cst_spmv_cost(cg, value_bytes: int = 4):
+    """(bytes, adds) of one CST SpMV: idx1 and idx3 read once, each
+    level's source (a reduce level's source is its start) read once and
+    its output written once, the realmask read and y written; one add per
+    slot cell, one multiply per cell for the mask."""
+    levels = len(cg.idx1)
+    nbytes = (cg.index_bytes() + levels * 2 * cg.n_pad * value_bytes
+              + cg.n_pad * (4 + value_bytes))
+    return nbytes, cg.total_slots * cg.n_pad + cg.n_pad
+
+
+def gpg_spmv_cost(gg, value_bytes: int = 4):
+    """(bytes, adds) of one GPG SpMV: the real tiles' l1, l2 and g_ids and
+    the chunk ranges read once, each level's x read and output written
+    once (a reduce level also reads y to fold into), the realmask read
+    and y written; one add per tile cell, one per cell per fold."""
+    levels = len(gg.levels)
+    vec = gg.n_pad * value_bytes
+    nbytes = (gg.index_bytes() + levels * 2 * gg.n_chunks * 4
+              + levels * 2 * vec + (levels - 1) * 2 * vec
+              + gg.n_pad * 4 + vec)
+    adds = (sum(gg.t_reals) * 128 * gg.sub_d + (levels - 1) * gg.n_pad
+            + gg.n_pad)
+    return nbytes, adds
+
+
+# bn1M's CST pack is host numpy (~5 min on the card's machine): a child
+# process builds it while phases 2-7 run, and hands it over in a file
+CST_CHILD = """
+import json, sys, time
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+from tpu_lanczos_torch import generators
+from tpu_lanczos_torch.kernels.cst import pack_cst
+n, m, seed = (int(a) for a in sys.argv[2:5])
+path = sys.argv[5]
+g = generators.barabasi_albert(n, m, seed=seed, use_native=True)
+t0 = time.time()
+cg = pack_cst(g, device="cpu")
+pack_s = time.time() - t0
+arrays = {f"idx1_{i}": a.numpy() for i, a in enumerate(cg.idx1)}
+arrays.update({f"idx3_{i}": a.numpy() for i, a in enumerate(cg.idx3)})
+np.savez(path, n=cg.n, n_cols=cg.n_cols, nnz=cg.nnz, theta=cg.theta,
+         n_levels=len(cg.idx1), realmask=cg.realmask.numpy(),
+         new_of_old=cg.new_of_old, **arrays)
+print(json.dumps({"pack_s": pack_s}))
+"""
+
+
+def _die_with_parent() -> None:
+    import ctypes
+    import signal
+
+    ctypes.CDLL("libc.so.6").prctl(1, signal.SIGKILL)  # PR_SET_PDEATHSIG
+
+
+def start_cst_pack(path: str):
+    """Start the child that packs bn1M (the phase-3 graph, from the same
+    seed) into CST on the host and saves it to ``path``.  It is killed
+    when this process exits, however it exits."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", CST_CHILD, root, str(N), str(M), str(SEED),
+         path], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        preexec_fn=_die_with_parent)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def finish_cst_pack(torch, proc, path: str, dev):
+    """Wait for the child and move its pack to ``dev``.  Returns (pack,
+    the child's pack seconds, load and host-to-device seconds)."""
+    from tpu_lanczos_torch.kernels import cst
+
+    out, err = proc.communicate(timeout=900)
+    check(proc.returncode == 0,
+          f"CST pack child: rc {proc.returncode}: {err[-2000:]}")
+    pack_s = json.loads(out.strip().splitlines()[-1])["pack_s"]
+    t0 = time.time()
+    with np.load(path) as z:
+        L = int(z["n_levels"])
+        cg = cst.from_numpy(
+            {k: int(z[k]) for k in ("n", "n_cols", "nnz", "theta")},
+            [z[f"idx1_{i}"] for i in range(L)],
+            [z[f"idx3_{i}"] for i in range(L)],
+            z["realmask"], z["new_of_old"], dev)
+    torch.cuda.synchronize()
+    os.remove(path)
+    return cg, pack_s, time.time() - t0
+
+
+def lineage_chain(torch, spmv_mod, pack, x, kernel, plain):
+    """One SpMV of a CST or GPG pack (``spmv_mod._spmv``) with every level
+    through the kernel and its plain version on the same inputs, the
+    kernel's output carried on.  Returns the max |kernel - plain|."""
+    err = 0.0
+
+    def level(*args):
+        nonlocal err
+        got, want = kernel(*args), plain(*args)
+        check(torch.equal(got, want),
+              f"{kernel.__name__} == {plain.__name__}")
+        err = max(err, float((got - want).abs().max()))
+        return got
+
+    spmv_mod._spmv(pack, x, level)
+    return err
 
 
 def ptxas_report(log: str) -> list:
@@ -293,6 +429,12 @@ def main() -> None:
           "ptxas": ptxas})
     check(sum(k["slab"] for k in ptxas) == 3,
           "three slab instantiations built (plain f32, f64; compensated)")
+    for kernel in ("cst_level_kernel", "gpg_level_kernel", "probe_kernel",
+                   "probe_reduce_kernel"):
+        check(any(kernel in k["kernel"] for k in ptxas), f"{kernel} built")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    cst_path = os.path.join(BUILD_DIR, f"cst_bn1M.{os.getpid()}.npz")
+    cst_job = start_cst_pack(cst_path)
 
     # ---- 2: kernel == plain version on the card, small packs
     rng = np.random.default_rng(0)
@@ -322,7 +464,7 @@ def main() -> None:
         plain_c = "launches_slab" if slab else "launches"
         comp_c = "launches_comp_slab" if slab else "launches_comp"
         L, nb = len(cg.levels), cg.n_bcast
-        reset_counts(spmv_cpg)
+        reset_counts()
         xr = rng.standard_normal(cg.n)
         x32 = torch.from_numpy(cg.permute_in(xr, np.float32)).to(dev)
         max_err[layout] = max(max_err[layout],
@@ -336,11 +478,11 @@ def main() -> None:
         err64 = float(np.abs(y64 - g.to_scipy() @ xr).max())
         check(err64 < 1e-11 * max(1.0, float(np.abs(y64).max())),
               f"{name}: f64 kernel matches scipy ({err64})")
-        check_counts(read_counts(torch, spmv_cpg), {plain_c: 3 * L},
+        check_counts(read_counts(torch), {plain_c: 3 * L},
                      f"{name}: f32 levels, f32 and f64 SpMV")
         # df64: the compensated kernel == plain on every level, the df
         # SpMV == its plain version and, in float64, scipy's
-        reset_counts(spmv_cpg)
+        reset_counts()
         hi, lo = split_dev(torch, cg, xr, dev)
         err_c, (yh, yl) = df_level_chain(torch, spmv_cpg, cg, hi, lo)
         comp_err[layout] = max(comp_err[layout], err_c)
@@ -355,7 +497,7 @@ def main() -> None:
         df_rel = float(np.linalg.norm(y_df - want_df)
                        / np.linalg.norm(want_df))
         check(df_rel < 1e-13, f"{name}: df64 SpMV matches scipy ({df_rel})")
-        counts = read_counts(torch, spmv_cpg)
+        counts = read_counts(torch)
         check_counts(counts, {comp_c: 2 * (L - nb),
                               plain_c: 2 * (L + nb)},
                      f"{name}: two df SpMVs")
@@ -383,12 +525,12 @@ def main() -> None:
 
     # the main path: expm_action, and the top-20 query with the host and
     # with the device eigensolve
-    reset_counts(spmv_cpg)
+    reset_counts()
     res = expm_action(g, k=K, log_scale=True, dg=dg)
     summ = expm_action_summary(g, k=K, topk=TOPK, dg=dg)
     summ_dev = expm_action_summary(g, k=K, topk=TOPK, dg=dg,
                                    eig_impl="device")
-    counts = read_counts(torch, spmv_cpg)
+    counts = read_counts(torch)
     main_launches = counts["launches"]
     check_counts(counts, {"launches": 3 * K * len(dg.levels)},
                  "main path: k*levels per Lanczos run, three runs")
@@ -530,15 +672,15 @@ def main() -> None:
           and torch.equal(xn_lm, st.x_norm),
           "lanczos_alphabeta == stored-Q lanczos (alpha, beta, x_norm)")
     del st, a_lm, b_lm, xn_lm
-    reset_counts(spmv_cpg)
+    reset_counts()
     res_lm = expm_action(g, k=K, log_scale=True, dg=dg, low_mem=True)
-    counts = read_counts(torch, spmv_cpg)
+    counts = read_counts(torch)
     lm_launches = counts["launches"]
     check_counts(counts, {"launches": (2 * K - 1) * L},
                  "low_mem expm_action: (2k-1)*levels")
-    reset_counts(spmv_cpg)
+    reset_counts()
     summ_lm = expm_action_summary(g, k=K, topk=TOPK, dg=dg, low_mem=True)
-    counts = read_counts(torch, spmv_cpg)
+    counts = read_counts(torch)
     lm_summary_launches = counts["launches"]
     check_counts(counts, {"launches": (2 * K - 1) * L},
                  "low_mem expm_action_summary: (2k-1)*levels")
@@ -584,12 +726,12 @@ def main() -> None:
           "summary_query_samples": lm_query_samples})
 
     # df64: one expm_action_df run is the counted main path
-    reset_counts(spmv_cpg)
+    reset_counts()
     t0 = time.time()
     res_df = expm_action_df(g, k=K, dg=dg, log_scale=True)
     torch.cuda.synchronize()
     df_first_s = time.time() - t0
-    counts = read_counts(torch, spmv_cpg)
+    counts = read_counts(torch)
     df_plain_launches = counts["launches"]
     df_comp_launches = counts["launches_comp"]
     check_counts(counts, {"launches_comp": (2 * K - 1) * (L - nb),
@@ -675,9 +817,9 @@ def main() -> None:
     err_cs, _ = df_level_chain(torch, spmv_cpg, ds, hi_s, lo_s)
     comp_err["slab"] = max(comp_err["slab"], err_cs)
 
-    reset_counts(spmv_cpg)
+    reset_counts()
     res_s = expm_action(g, k=K, log_scale=True, dg=ds)
-    counts = read_counts(torch, spmv_cpg)
+    counts = read_counts(torch)
     slab_launches = counts["launches_slab"]
     check_counts(counts, {"launches_slab": K * Ls},
                  "expm_action on the slab pack: k*levels slab launches")
@@ -685,9 +827,9 @@ def main() -> None:
     top_s = set(np.argsort(res_s.ans)[-TOPK:].tolist())
     check(rel_s < 1e-4, f"slab f32 rel_error {rel_s} < 1e-4")
     check(top_s == top_ref, "slab top-20 nodes equal the oracle's")
-    reset_counts(spmv_cpg)
+    reset_counts()
     res_sdf = expm_action_df(g, k=K, dg=ds, log_scale=True)
-    counts = read_counts(torch, spmv_cpg)
+    counts = read_counts(torch)
     comp_slab_launches = counts["launches_comp_slab"]
     check_counts(counts, {"launches_comp_slab": (2 * K - 1) * (Ls - nbs),
                           "launches_slab": (2 * K - 1) * (Ls + nbs)},
@@ -782,9 +924,9 @@ def main() -> None:
     try:
         for eig in ("device", "host"):
             packs.clear()
-            reset_counts(spmv_cpg)
+            reset_counts()
             rc, out, err, secs = run_cli(full + ["--eig", eig])
-            counts = read_counts(torch, spmv_cpg)
+            counts = read_counts(torch)
             check(rc == 0, f"CLI --eig {eig}: rc {rc}: {err[-2000:]}")
             check(len(packs) == 1 and packs[0].layout == "slab",
                   f"CLI --eig {eig} built one slab pack")
@@ -819,9 +961,9 @@ def main() -> None:
     ]
     cli_small = {}
     for name, extra, bar in small_modes:
-        reset_counts(spmv_cpg)
+        reset_counts()
         rc, out, err, secs = run_cli(CLI_SMALL + extra)
-        counts = read_counts(torch, spmv_cpg)
+        counts = read_counts(torch)
         check(rc == 0, f"CLI {name}: rc {rc}: {err[-2000:]}")
         row = {"argv": extra, "wall_s": secs, "launches": counts}
         if bar is None:  # --ks: the diff vanishes at k_max
@@ -840,6 +982,204 @@ def main() -> None:
     check(rc_shards == 2, f"CLI --shards 2 exits 2 (rc {rc_shards})")
     emit({"phase": 7, "full_width": cli_full, "small": cli_small,
           "shards_rc": rc_shards, "total_s": time.time() - t_all})
+
+    # ---- 8: the lineage formats, GPG and CST, at full width
+    from tpu_lanczos_torch.kernels import spmv_cst, spmv_gpg
+    from tpu_lanczos_torch.kernels.gpg import pack_gpg
+    from tpu_lanczos_torch.kernels.cst import pack_cst
+
+    def cst_chain(cg, x):
+        return lineage_chain(torch, spmv_cst, cg, x, spmv_cst.run_level_cst,
+                             spmv_cst.run_level_cst_ref)
+
+    def gpg_chain(gg, x):
+        return lineage_chain(torch, spmv_gpg, gg, x, spmv_gpg.run_level_gpg,
+                             spmv_gpg.run_level_gpg_ref)
+
+    def f64_rel(pack, spmv_fn, gr, xr):
+        """rel 2-norm error of the f64 kernel SpMV against scipy's."""
+        x64 = torch.from_numpy(pack.permute_in(xr, np.float64)).to(dev)
+        want = gr.to_scipy() @ xr
+        got = pack.permute_out(spmv_fn(pack, x64))
+        return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+    # the small packs of tests/test_cst.py and tests/test_gpg.py
+    hub = np.stack([np.zeros(1199, dtype=np.int64),
+                    np.arange(1, 1200, dtype=np.int64)], axis=1)
+    ba1500 = generators.barabasi_albert(1500, 6, seed=2)
+    small_cst = [
+        ("uniform2000", generators.uniform_random(2000, 8000, seed=1)),
+        ("ba2000", g2000), ("stencil40", generators.stencil_2d(40)),
+        ("tiny50", generators.uniform_random(50, 100, seed=0)),
+        ("star3000", star)]
+    small_gpg = [
+        ("uniform1500", generators.uniform_random(1500, 5000, seed=1), {}),
+        ("ba1500", ba1500, {}),
+        ("rmat1500", generators.rmat(1500, 5000, seed=3), {}),
+        ("stencil40", generators.stencil_2d(40), {}),
+        ("hub1200", CSRGraph.from_edges(1200, hub), {}),
+        ("ba1500_sub_d512", ba1500, dict(sub_d=512)),
+        ("ba1500_g_s8", ba1500, dict(g_s=8)),
+        ("ba1500_sub_s128", ba1500, dict(sub_s=128, g_s=16))]
+    lin_err = {"cst": 0.0, "gpg": 0.0}
+    small_rows = []
+    for fmt, cases_f in (("cst", small_cst), ("gpg", small_gpg)):
+        for case in cases_f:
+            name, gs, kw = case if fmt == "gpg" else (*case, {})
+            pk = (pack_cst(gs, device=dev) if fmt == "cst"
+                  else pack_gpg(gs, device=dev, **kw))
+            chain = cst_chain if fmt == "cst" else gpg_chain
+            spmv_fn = spmv_cst.spmv_cst if fmt == "cst" else spmv_gpg.spmv_gpg
+            L = len(pk.idx1) if fmt == "cst" else len(pk.levels)
+            reset_counts()
+            xr = rng.standard_normal(gs.n)
+            for dt in (np.float32, np.float64):
+                x_t = torch.from_numpy(pk.permute_in(xr, dt)).to(dev)
+                lin_err[fmt] = max(lin_err[fmt], chain(pk, x_t))
+            rel64 = f64_rel(pk, spmv_fn, gs, xr)
+            check(rel64 < 1e-12, f"{fmt} {name}: f64 SpMV vs scipy {rel64}")
+            check_counts(read_counts(torch), {f"launches_{fmt}": 3 * L},
+                         f"{fmt} {name}: f32 and f64 levels, f64 SpMV")
+            small_rows.append({"fmt": fmt, "pack": name, "levels": L,
+                               "f64_rel_err": rel64})
+
+    t0 = time.time()
+    gg = pack_gpg(g, device=dev)
+    torch.cuda.synchronize()
+    gpg_pack_s = time.time() - t0
+    cg, cst_pack_s, cst_load_s = finish_cst_pack(torch, cst_job, cst_path,
+                                                 dev)
+    Lg, Lc = len(gg.levels), len(cg.idx1)
+    x1g, x1c = gg.realmask.clone(), cg.realmask.reshape(-1).clone()
+    lin_err["gpg"] = max(lin_err["gpg"], gpg_chain(gg, x1g))
+    lin_err["cst"] = max(lin_err["cst"], cst_chain(cg, x1c))
+    check(lin_err == {"cst": 0.0, "gpg": 0.0},
+          f"lineage kernels == plain versions ({lin_err})")
+    xr = rng.standard_normal(N)
+    rel64 = {"gpg": f64_rel(gg, spmv_gpg.spmv_gpg, g, xr),
+             "cst": f64_rel(cg, spmv_cst.spmv_cst, g, xr)}
+    check(max(rel64.values()) < 1e-12, f"bn1M f64 SpMV vs scipy {rel64}")
+    lineage = {}
+    for fmt, pk, L in (("gpg", gg, Lg), ("cst", cg, Lc)):
+        reset_counts()
+        res_f = expm_action(g, k=K, log_scale=True, dg=pk)
+        counts = read_counts(torch)
+        check_counts(counts, {f"launches_{fmt}": K * L},
+                     f"expm_action through {fmt}: k*levels, no CPG launch")
+        rel_f = rel_to_oracle(res_f)
+        top_f = set(np.argsort(res_f.ans)[-TOPK:].tolist())
+        check(rel_f < 1e-4, f"{fmt} f32 rel_error {rel_f} < 1e-4")
+        check(top_f == top_ref, f"{fmt} top-20 nodes equal the oracle's")
+        lineage[fmt] = {"levels": L, "launches_expm": counts[
+            f"launches_{fmt}"], "rel_error": rel_f, "top20_equal": True}
+    summ_g = expm_action_summary(g, k=K, topk=TOPK, dg=gg)
+    check(set(summ_g.top_nodes.tolist()) == top_ref,
+          "expm_action_summary through GPG: the oracle's top-20")
+
+    spmv_ms_of = {"gpg": spmv_gpg.spmv_gpg, "cst": spmv_cst.spmv_cst}
+    plain_of = {"gpg": spmv_gpg.spmv_gpg_ref, "cst": spmv_cst.spmv_cst_ref}
+    for fmt, pk, x_t in (("gpg", gg, x1g), ("cst", cg, x1c)):
+        row = lineage[fmt]
+        row["spmv_ms"], row["spmv_samples"] = cuda_ms(
+            torch, lambda: spmv_ms_of[fmt](pk, x_t))
+        row["spmv_plain_ms"], row["spmv_plain_samples"] = cuda_ms(
+            torch, lambda: plain_of[fmt](pk, x_t), reps=2)
+        row["lanczos_k50_ms"], row["lanczos_samples"] = cuda_ms(
+            torch, lambda: lanczos(pk, x_t, K))
+        nbytes, adds = (gpg_spmv_cost(pk) if fmt == "gpg"
+                        else cst_spmv_cost(pk))
+        row["bound_ms"], row["bound_by"] = bound(nbytes, adds)
+        row["index_bytes"] = pk.index_bytes()
+        row["index_GBps"] = pk.index_bytes() / (row["spmv_ms"] * 1e-3) / 1e9
+        row["bound_share"] = row["bound_ms"] / row["spmv_ms"]
+    lineage["gpg"].update(pack_s=gpg_pack_s, tiles=list(gg.t_reals),
+                          padded_tiles=[int(lv["d_ids"].shape[0])
+                                        for lv in gg.levels],
+                          n_chunks=gg.n_chunks, sub_d=gg.sub_d,
+                          fill=gg.fill)
+    lineage["cst"].update(pack_s=cst_pack_s, load_h2d_s=cst_load_s,
+                          slots=[int(a.shape[0]) for a in cg.idx1],
+                          n_cols=cg.n_cols, theta=cg.theta, fill=cg.fill)
+
+    reset_counts()
+    rc, out, err, secs = run_cli(CLI_SMALL + ["--fmt", "cst"])
+    counts = read_counts(torch)
+    check(rc == 0, f"CLI --fmt cst: rc {rc}: {err[-2000:]}")
+    rel_cli = float(out.split("relative ")[1].split(")")[0])
+    check(rel_cli < 1e-4, f"CLI --fmt cst: device vs serial {rel_cli}")
+    check(counts["launches_cst"] > 0
+          and sum(counts.values()) == counts["launches_cst"],
+          f"CLI --fmt cst ran the CST kernel only ({counts})")
+    rc_topk = run_cli(CLI_SMALL + ["--fmt", "cst", "--topk", "5"])[0]
+    check(rc_topk == 2, f"CLI --fmt cst --topk 5 exits 2 (rc {rc_topk})")
+    emit({"phase": 8, "graph": f"ba_{N}_{M}_{SEED}_native", "k": K,
+          "small_packs": small_rows, "max_abs_err": lin_err,
+          "bn1M_f64_rel_err": rel64, **lineage,
+          "summary_gpg_top20_equal": True,
+          "cpg_spmv_ms": spmv_ms, "cusparse_spmv_ms": csr_ms,
+          "cli_cst": {"rc": rc, "wall_s": secs, "rel_vs_serial": rel_cli,
+                      "launches": counts}, "cli_cst_topk_rc": rc_topk,
+          "total_s": time.time() - t_all})
+    del gg, cg, x1g, x1c
+
+    # ---- 9: the dense-block probe on the tensor cores
+    from tpu_lanczos_torch.eval import mxu_probe
+
+    def run_probe(argv):
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = mxu_probe.main(argv)
+        return rc, out.getvalue(), err.getvalue()
+
+    rc, _, check_log = run_probe(["--check-only"])
+    check(rc == 0, f"mxu_probe --check-only: rc {rc}")
+    reset_counts()
+    rc, out, probe_log = run_probe([])
+    counts = read_counts(torch)
+    check(rc == 0, f"mxu_probe: rc {rc}")
+    probe_rows = {r["variant"]: r for r in map(json.loads,
+                                               out.strip().splitlines())}
+    check(sorted(probe_rows) == sorted(mxu_probe.VARIANTS),
+          f"mxu_probe timed every variant ({sorted(probe_rows)})")
+    reps = probe_rows["dma"]["wall_samples"]
+    check_counts(counts, {"launches_mxu": len(mxu_probe.VARIANTS) * (
+        len(reps) + 2)}, "mxu_probe: the check and the timed runs")
+    probe_launches = counts["launches_mxu"]
+    blocks = probe_rows["dma"]["blocks"]
+    a_p, xh_p, xl_p = mxu_probe.make_data(blocks, 4, 8)
+    probe_err, probe_rel = {}, {}
+    for v in mxu_probe.VARIANTS:
+        got = mxu_probe.probe(a_p, xh_p, xl_p, 8, v, u=4)
+        want = mxu_probe.probe_ref(a_p, xh_p, xl_p, 8, v)
+        probe_err[v] = float((got - want).abs().max())
+        probe_rel[v] = probe_err[v] / float(want.abs().max())
+    check(probe_err["dma"] == 0.0, "probe dma == plain at full size")
+    check(max(probe_rel.values()) < 1e-5,
+          f"probe mxu within 1e-5 of the plain version's largest value "
+          f"({probe_rel})")
+    probe_plain_ms = cuda_ms(torch, lambda: mxu_probe.probe_ref(
+        a_p, xh_p, xl_p, 8, "mxu1"), reps=3)[0]
+    # the library yardstick: one bf16 matmul of x_hi repeated B times by
+    # the (B*128, 128) block stack (the same sum), never used by the port
+    want = mxu_probe.probe_ref(a_p, xh_p, xl_p, 8, "mxu1")
+    x_rep = xh_p.repeat(1, blocks)
+    lib_out = torch.matmul(x_rep, a_p).float()  # bf16 output: ~2^-8
+    lib_rel = float((lib_out - want).abs().max() / want.abs().max())
+    check(lib_rel < 1e-2, f"bf16 matmul yardstick agrees ({lib_rel})")
+    probe_lib_ms = cuda_ms(torch, lambda: torch.matmul(x_rep, a_p))[0]
+    # the blocks, x_hi and x_lo (bf16) read once, the (8, 128) out written
+    probe_bytes = (blocks * mxu_probe.BLOCK_BYTES + 2 * 8 * 128 * 2
+                   + 8 * 128 * 4)
+    probe_bound = bound(probe_bytes, 2 * 8 * 128 * 128 * blocks,
+                        BF16_OPS_PER_S)
+    emit({"phase": 9, "check_log": check_log.strip(),
+          "probe_log": probe_log.strip(), "launches": probe_launches,
+          "variants": probe_rows, "full_size_max_abs_err": probe_err,
+          "full_size_rel_err": probe_rel, "plain_mxu1_ms": probe_plain_ms,
+          "bf16_matmul_ms": probe_lib_ms, "bf16_matmul_rel": lib_rel,
+          "bound_ms": probe_bound[0], "bound_by": probe_bound[1],
+          "total_s": time.time() - t_all})
+    del a_p, xh_p, xl_p, x_rep, want, lib_out
 
     comp_bound = bound(*level_cost(dg, nb, 4, 2, False, adds_per_entry=7))
     print(smi, flush=True)
@@ -870,6 +1210,27 @@ def main() -> None:
         "ms": comp_slab_ms, "plain_ms": comp_slab_plain_ms,
         "bound_ms": comp_slab_bound[0], "bound_by": comp_slab_bound[1],
         "library_ms": None,
+    }, {
+        "name": "spmv_cst_level", "route": "cuda", "source": CST_SOURCE,
+        "replaces": CST_REPLACES, "launches": lineage["cst"]["launches_expm"],
+        "max_abs_err": lin_err["cst"], "ms": lineage["cst"]["spmv_ms"],
+        "plain_ms": lineage["cst"]["spmv_plain_ms"],
+        "bound_ms": lineage["cst"]["bound_ms"],
+        "bound_by": lineage["cst"]["bound_by"], "library_ms": csr_ms,
+    }, {
+        "name": "spmv_gpg_level", "route": "cuda", "source": GPG_SOURCE,
+        "replaces": GPG_REPLACES, "launches": lineage["gpg"]["launches_expm"],
+        "max_abs_err": lin_err["gpg"], "ms": lineage["gpg"]["spmv_ms"],
+        "plain_ms": lineage["gpg"]["spmv_plain_ms"],
+        "bound_ms": lineage["gpg"]["bound_ms"],
+        "bound_by": lineage["gpg"]["bound_by"], "library_ms": csr_ms,
+    }, {
+        "name": "mxu_block_probe", "route": "cuda", "source": PROBE_SOURCE,
+        "replaces": PROBE_REPLACES, "launches": probe_launches,
+        "max_abs_err": max(probe_err.values()),
+        "ms": probe_rows["mxu1"]["wall_s"] * 1e3,
+        "plain_ms": probe_plain_ms, "bound_ms": probe_bound[0],
+        "bound_by": probe_bound[1], "library_ms": probe_lib_ms,
     }]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
 """The port's CLI (tpu_lanczos_torch.cli.main) on the CPU: the
 counterparts of tests/test_aux.py's single-device CLI cases at the same
-bars, the same argv through both CLIs, every single-device mode, and the
-flags that are not ported yet.
+bars, the same argv through both CLIs, every single-device mode and
+format (``--fmt cst`` included), and the flags that are not ported yet.
 
 Bars: f64 answers within 1e-10 of the oracle (the reference's CLI bar)
 and of the JAX CLI's answer on the same argv, with the same -v top-10;
@@ -88,6 +88,7 @@ def test_cli_topk_fused_and_host(capsys):
 @pytest.mark.parametrize("argv", [
     ["-n", "600", "-b", "4", "-k", "20"],
     ["-n", "500", "-e", "1500", "-k", "20", "--fmt", "hyb"],
+    ["-n", "600", "-b", "4", "-k", "20", "--fmt", "cst"],
 ])
 def test_same_argv_through_both_clis(argv, tmp_path, capsys):
     argv = argv + ["--dtype", "float64", "-v", "--no-serial"]
@@ -140,7 +141,8 @@ def test_cli_ks_and_func(tmp_path, capsys):
                  "--device", "cpu"]) == 2
 
 
-@pytest.mark.parametrize("fmt", ["best", "auto", "ell", "coo", "hyb", "cpg"])
+@pytest.mark.parametrize("fmt", ["best", "auto", "ell", "coo", "hyb", "cpg",
+                                 "cst"])
 def test_cli_each_format(fmt, capsys):
     rc, out = run(["-n", "600", "-b", "4", "-k", "20", "--dtype", "float64",
                    "--fmt", fmt, "--reorthogonalize"], capsys)
@@ -153,7 +155,7 @@ def test_cli_each_format(fmt, capsys):
     (["--subgraph", "8"], "queue 1 item 13"),
     (["--dos", "8"], "queue 1 item 13"),
     (["--shards", "2"], "queue 1 item 14"),
-    (["--fmt", "cst"], "queue 2 item 6"),
+    (["--fmt", "cst", "--shards", "2"], "queue 1 item 14"),
 ])
 def test_cli_unported_flags_exit_2(flags, item, capsys):
     assert main(["-n", "200", "-e", "600", "--device", "cpu"] + flags) == 2
@@ -166,3 +168,22 @@ def test_cli_without_cuda_refuses_to_run_on_the_cpu(monkeypatch, capsys):
     captured = capsys.readouterr()
     assert "--device cpu" in captured.err
     assert "device pipeline" not in captured.out
+
+
+def test_cli_fmt_cst_modes_and_topk_refusal(capsys):
+    """--fmt cst in the single-device modes against the oracle (f64,
+    1e-10), as the JAX CLI runs them; --topk refuses CST in both CLIs
+    with the reference's message."""
+    base = ["-n", "600", "-b", "4", "-k", "20", "--dtype", "float64",
+            "--fmt", "cst"]
+    for extra in (["--low-mem"], ["--pipeline", "2"], ["--func", "heat:0.5"]):
+        rc, out = run(base + extra, capsys)
+        assert rc == 0, extra
+        assert rel_of(out) < 1e-10, extra
+    rc, out = run(base + ["--ks", "10,20"], capsys)
+    assert rc == 0 and "one k_max=20 decomposition" in out
+    argv = ["-n", "300", "-e", "900", "--fmt", "cst", "--topk", "5"]
+    assert ref_main(argv) == 2
+    ref_err = capsys.readouterr().err
+    assert main(argv + ["--device", "cpu"]) == 2
+    assert capsys.readouterr().err == ref_err

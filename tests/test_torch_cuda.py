@@ -1,6 +1,7 @@
-"""The CUDA SpMV kernels (classic and slab layout, plain and compensated)
-against their plain PyTorch versions on the card, and the f32 and df64
-pipelines on CUDA against the float64 oracle.
+"""The CUDA kernels against their plain PyTorch versions on the card: the
+CPG SpMV kernels (classic and slab layout, plain and compensated), the
+CST and GPG level kernels and the dense-block probe; and the f32, df64,
+CST and GPG pipelines on CUDA against the float64 oracle.
 
 Marked ``cuda``: each test skips (with its reason) where no CUDA device
 is present, and runs on a GPU machine with
@@ -15,9 +16,11 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_lanczos_torch import expm_action, expm_action_df, generators
-from tpu_lanczos_torch.kernels import cpg, spmv_cpg
-from tpu_lanczos_torch.eval import oracle
+from tpu_lanczos_torch import (CSRGraph, expm_action, expm_action_df,
+                               generators)
+from tpu_lanczos_torch.kernels import (cpg, cst, gpg, spmv_cpg, spmv_cst,
+                                       spmv_gpg)
+from tpu_lanczos_torch.eval import mxu_probe, oracle
 
 pytestmark = pytest.mark.cuda
 
@@ -159,3 +162,82 @@ def test_serving_paths_on_cuda(dev):
     for kw in (dict(fmt="coo"), dict(reorthogonalize=True)):
         res = expm_action(g, k=30, dtype="float64", device=dev, **kw)
         assert oracle.rel_error(res.ans, ref) < 1e-12, kw
+
+
+def _star(n: int = 3000):
+    hub = np.stack([np.zeros(n - 1, dtype=np.int64),
+                    np.arange(1, n, dtype=np.int64)], axis=1)
+    ring = np.stack([np.arange(1, n - 1), np.arange(2, n)], axis=1)
+    return CSRGraph.from_edges(n, np.concatenate([hub, ring]))
+
+
+def _checked(kernel, plain):
+    def level(*args):
+        got = kernel(*args)
+        assert torch.equal(got, plain(*args)), kernel.__name__
+        return got
+    return level
+
+
+@pytest.mark.parametrize("name", ["ba2000", "star"])
+def test_cst_kernel_equals_plain_version(dev, name):
+    """Every level of the f32 and f64 CST SpMV (the star graph with its
+    reduce levels) through the kernel and its plain version on the same
+    inputs; the counter advances by the levels run; f64 matches scipy."""
+    g = (generators.barabasi_albert(2000, 8, seed=2) if name == "ba2000"
+         else _star())
+    cg = cst.pack_cst(g, device=dev)
+    xr = np.random.default_rng(0).standard_normal(g.n)
+    level = _checked(spmv_cst.run_level_cst, spmv_cst.run_level_cst_ref)
+    before = spmv_cst.launches_cst
+    for np_dtype in (np.float32, np.float64):
+        x = torch.from_numpy(cg.permute_in(xr, np_dtype)).to(dev)
+        y = spmv_cst._spmv(cg, x, level)
+    torch.cuda.synchronize()
+    assert spmv_cst.launches_cst - before == 2 * len(cg.idx1)
+    np.testing.assert_allclose(cg.permute_out(y), g.to_scipy() @ xr,
+                               rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("kw", [{}, dict(sub_d=512), dict(g_s=8),
+                                dict(sub_s=128, g_s=16)])
+def test_gpg_kernel_equals_plain_version(dev, kw):
+    """Every level of the f32 and f64 GPG SpMV, at the default shapes and
+    the parameter variants, through the kernel and its plain version;
+    f64 matches scipy."""
+    g = generators.barabasi_albert(1500, 6, seed=2)
+    gg = gpg.pack_gpg(g, device=dev, **kw)
+    xr = np.random.default_rng(1).standard_normal(g.n)
+    level = _checked(spmv_gpg.run_level_gpg, spmv_gpg.run_level_gpg_ref)
+    before = spmv_gpg.launches_gpg
+    for np_dtype in (np.float32, np.float64):
+        x = torch.from_numpy(gg.permute_in(xr, np_dtype)).to(dev)
+        y = spmv_gpg._spmv(gg, x, level)
+    torch.cuda.synchronize()
+    assert spmv_gpg.launches_gpg - before == 2 * len(gg.levels)
+    np.testing.assert_allclose(gg.permute_out(y), g.to_scipy() @ xr,
+                               rtol=1e-12, atol=1e-12)
+
+
+def test_lineage_pipelines_on_cuda_match_oracle(dev):
+    g = generators.barabasi_albert(2000, 8, seed=2)
+    want = oracle.expm_action(g, np.ones(g.n), 30)
+    res = expm_action(g, k=30, dtype="float64", fmt="cst", device=dev)
+    assert oracle.rel_error(res.ans, want) < 1e-12
+    gg = gpg.pack_gpg(g, device=dev)
+    res = expm_action(g, k=30, dtype="float64", dg=gg)
+    assert oracle.rel_error(res.ans, want) < 1e-12
+
+
+def test_mxu_probe_kernel_equals_plain_version(dev):
+    """The probe's own check (8 blocks: dma exact, mxu within 1e-5), then
+    64 blocks in groups of 4 against the plain version."""
+    a, xh, xl = mxu_probe.make_data(64, 4, 8)
+    mxu_probe.check(a, xh, xl, 8)
+    for variant in mxu_probe.VARIANTS:
+        got = mxu_probe.probe(a, xh, xl, 8, variant, u=4)
+        want = mxu_probe.probe_ref(a, xh, xl, 8, variant)
+        if variant == "dma":
+            assert torch.equal(got, want)
+        else:
+            assert mxu_probe.rel_err(got, want, 8) < 1e-5

@@ -15,8 +15,7 @@ of the reference's ``--platform``.
 
 Flags whose code is not ported yet keep their parser entry and exit 2,
 naming their ROADMAP item: ``--estrada``, ``--subgraph`` and ``--dos``
-(queue 1 item 13), ``--shards`` (queue 1 item 14), ``--fmt cst`` (queue 2
-item 6).
+(queue 1 item 13) and ``--shards`` (queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -49,8 +48,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fmt", default="best",
                    choices=["best", "auto", "ell", "coo", "hyb", "cpg", "cst"],
                    help="best/cpg: the CPG format and its CUDA kernel; "
-                        "auto/ell/coo/hyb: the fallback formats (torch "
-                        "ops); cst: not ported")
+                        "cst: the CST format and its CUDA kernel (one "
+                        "device, no --topk); auto/ell/coo/hyb: the "
+                        "fallback formats (torch ops)")
     p.add_argument("--seed", type=int, default=0)
     # CPG pack knobs (kernels/cpg.py pack_cpg; None/auto = heuristic)
     p.add_argument("--cpg-theta", type=int, default=None, metavar="T",
@@ -188,9 +188,6 @@ def _unported(args) -> str | None:
     if args.shards:
         return ("--shards: the row-sharded multi-device path is not ported "
                 "yet (ROADMAP queue 1 item 14)")
-    if args.fmt == "cst":
-        return ("--fmt cst: the CST format and its kernel are not ported "
-                "yet (ROADMAP queue 2 item 6)")
     return None
 
 
@@ -352,6 +349,10 @@ def _main(args) -> int:
         if args.pipeline:
             print("error: --topk and --pipeline are separate "
                   "serving modes (pick one)", file=sys.stderr)
+            return 2
+        if args.fmt == "cst":
+            print("error: --topk supports fmt best/cpg/ell/coo/hyb",
+                  file=sys.stderr)
             return 2
         if args.dtype == "df64":
             # df64 top-k: the two-pass pipeline materializes the full f64

@@ -25,7 +25,7 @@ class Config:
     log_scale_output: bool = False
 
     # device format selection for the sparse matrix; "best" is the CPG
-    # format (its CUDA kernel on the GPU); "cst" is not ported
+    # format, "cst" the CST format (each its CUDA kernel on the GPU)
     fmt: str = "best"  # "best" | "auto" | "ell" | "coo" | "hyb" | "cpg" | "cst"
     # CPG pack parameters (kernels/cpg.py; None = auto)
     cpg_theta: int | None = None   # virtual-row split threshold

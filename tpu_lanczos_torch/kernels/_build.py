@@ -1,12 +1,12 @@
 """nvcc build and ctypes binding of the port's CUDA kernels.
 
-The sources under ``kernels/csrc/`` have a plain C interface, so they are
-compiled by nvcc straight into one shared library (no PyTorch headers:
-seconds, not minutes) in ``build/tpu_lanczos_torch/`` at first use, and
-loaded with ctypes.  Every pointer and the stream pass as
-``ctypes.c_void_p``; each C entry point returns ``cudaGetLastError()``.
-Nothing here runs at import time, and nothing falls back: a failed build
-raises.
+The sources under ``kernels/csrc/`` have a plain C interface (no PyTorch
+headers: seconds, not minutes).  At first use each is compiled by its own
+nvcc process, all started together, and the objects are linked into one
+shared library in ``build/tpu_lanczos_torch/``, loaded with ctypes.
+Every pointer and the stream pass as ``ctypes.c_void_p``; each C entry
+point returns ``cudaGetLastError()``.  Nothing here runs at import time,
+and nothing falls back: a failed build raises.
 """
 
 from __future__ import annotations
@@ -14,16 +14,18 @@ from __future__ import annotations
 import ctypes
 import os
 import shutil
+import subprocess
 import threading
 
 from tpu_lanczos_torch.utils import BUILD_DIR, build_shared
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = [os.path.join(CSRC_DIR, "spmv_cpg.cu")]
+SOURCES = [os.path.join(CSRC_DIR, name) for name in (
+    "spmv_cpg.cu", "spmv_cst.cu", "spmv_gpg.cu", "mxu_probe.cu")]
 LIB_PATH = os.path.join(BUILD_DIR, "libtlt_kernels.so")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lock = threading.Lock()
@@ -50,7 +52,35 @@ def _bind(lib):
     lib.tlt_spmv_cpg_level_comp.restype = i
     lib.tlt_spmv_cpg_level_comp.argtypes = [p, p, p, p, p, p, p, p,
                                             i, i, i, i, p]
+    lib.tlt_spmv_cst_level.restype = i
+    lib.tlt_spmv_cst_level.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.tlt_spmv_gpg_level.restype = i
+    lib.tlt_spmv_gpg_level.argtypes = [p, p, p, p, p, p, p,
+                                       i, i, i, i, i, p]
+    lib.tlt_mxu_probe.restype = i
+    lib.tlt_mxu_probe.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     return lib
+
+
+def _compile_all(nvcc: str, objs: list[str]) -> str:
+    """One ``nvcc -c`` per source into ``objs``, all running at once.
+    Returns the compilers' stderr; raises on a failure, with every
+    compiler stopped."""
+    procs = [subprocess.Popen([nvcc] + NVCC_FLAGS + ["-c", "-o", obj, src],
+                              stdout=subprocess.DEVNULL,
+                              stderr=subprocess.PIPE, text=True)
+             for src, obj in zip(SOURCES, objs)]
+    try:
+        logs = [proc.communicate(timeout=600)[1] for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for src, proc, log in zip(SOURCES, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src}:\n{log[-4000:]}")
+    return "".join(logs)
 
 
 def library():
@@ -58,8 +88,23 @@ def library():
     global _lib, build_log
     with _lock:
         if _lib is None:
-            log = build_shared([nvcc_path()] + NVCC_FLAGS, SOURCES, LIB_PATH)
-            if log is not None:
-                build_log = log
+            nvcc = nvcc_path()
+            if not _up_to_date():
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                # per-pid names: concurrent first builds must not share one
+                objs = [os.path.join(BUILD_DIR, f"{os.path.basename(src)}."
+                                     f"{os.getpid()}.o") for src in SOURCES]
+                try:
+                    build_log = _compile_all(nvcc, objs)
+                    build_shared([nvcc, "-shared"], objs, LIB_PATH)
+                finally:
+                    for obj in objs:
+                        if os.path.exists(obj):
+                            os.remove(obj)
             _lib = _bind(ctypes.CDLL(LIB_PATH))
         return _lib
+
+
+def _up_to_date() -> bool:
+    return os.path.exists(LIB_PATH) and all(
+        os.path.getmtime(LIB_PATH) >= os.path.getmtime(s) for s in SOURCES)

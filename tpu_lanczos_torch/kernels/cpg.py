@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from tpu_lanczos_torch.graphs.csr import CSRGraph
+from tpu_lanczos_torch.kernels.cst import _greedy_slots, _round_up, _split_rows
 
 LANE = 128
 REAL_LANES = 127           # lane 127 is the structural zero lane
@@ -45,10 +46,6 @@ PACK_VERSION = 5
 # kernel's batched group DMA reads past the last real tile; kept so the
 # arrays equal the reference's)
 GROUP_PAD = 16
-
-
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
 
 
 def _l2_dtype(sub: int):
@@ -180,75 +177,6 @@ def _compact(keys: np.ndarray, return_unique: bool = False):
     if return_unique:
         return inv, uniq
     return inv
-
-
-def _greedy_slots(a_key: np.ndarray, b_key: np.ndarray) -> np.ndarray:
-    """Assign each entry a slot such that within a slot both ``a_key`` and
-    ``b_key`` are unique.  Greedy bipartite edge coloring: slot(e) is the
-    smallest s free on both endpoints.  Returns (E,) slot ids.
-
-    Vectorized round-based greedy: each round selects entries that are the
-    first remaining for BOTH keys, assigns them the round number.
-    """
-    E = a_key.size
-    slot = np.full(E, -1, dtype=np.int32)
-    remaining = np.arange(E)
-    s = 0
-    while remaining.size:
-        a = a_key[remaining]
-        b = b_key[remaining]
-        # first occurrence per a-key among remaining
-        oa = np.argsort(a, kind="stable")
-        first_a = np.zeros(remaining.size, dtype=bool)
-        sa = a[oa]
-        head = np.ones(sa.size, dtype=bool)
-        head[1:] = sa[1:] != sa[:-1]
-        first_a[oa[head]] = True
-        # among those, first per b-key
-        cand = np.where(first_a)[0]
-        bc = b[cand]
-        ob = np.argsort(bc, kind="stable")
-        sb = bc[ob]
-        headb = np.ones(sb.size, dtype=bool)
-        headb[1:] = sb[1:] != sb[:-1]
-        chosen = cand[ob[headb]]
-        slot[remaining[chosen]] = s
-        keep = np.ones(remaining.size, dtype=bool)
-        keep[chosen] = False
-        remaining = remaining[keep]
-        s += 1
-    return slot
-
-
-def _split_rows(rows: np.ndarray, cols: np.ndarray, n_units0: int, theta: int):
-    """Split units with degree > theta into virtual units.
-
-    Returns (unit_of_entry, n_units, parents) where ``parents`` maps each
-    NEW virtual unit id -> its parent unit id (reduce edges, one level).
-    Entries must be sorted by ``rows``.  Dispatches to the native scan
-    (graphcore.cc gc_split_rows, identical id assignment) when available.
-    """
-    try:
-        from tpu_lanczos_torch.graphs import native
-
-        if native.available():
-            return native.split_rows(rows, n_units0, theta)
-    except Exception:
-        pass
-    deg = np.bincount(rows, minlength=n_units0)
-    starts = np.zeros(n_units0 + 1, dtype=np.int64)
-    np.cumsum(deg, out=starts[1:])
-    within = np.arange(rows.size) - starts[rows]
-    part = within // theta  # 0 = stays with parent
-    n_parts = np.maximum(deg + theta - 1, 1) // theta  # parts per unit
-    extra = np.maximum(n_parts - 1, 0)
-    virt_base = np.zeros(n_units0, dtype=np.int64)
-    virt_base[1:] = np.cumsum(extra)[:-1]
-    virt_base += n_units0
-    unit = np.where(part == 0, rows, virt_base[rows] + part - 1)
-    n_units = n_units0 + int(extra.sum())
-    parents = np.repeat(np.arange(n_units0), extra)  # virt id -> parent
-    return unit.astype(np.int64), n_units, parents
 
 
 def _assign_tiers(a_c: np.ndarray, b_c: np.ndarray) -> np.ndarray:

@@ -1,13 +1,13 @@
 """SpMV for the value-free adjacency matrix: y = A @ x.
 
-The port of ``tpu_lanczos/kernels/spmv.py``: ``spmv`` dispatches a CPG
-pack to its CUDA kernel (kernels/spmv_cpg.py) and the ELL / COO / HYB
-packs (kernels/formats.py) to ``spmv_xla``.  The JAX package runs those
-three through XLA, not Pallas, so here they are plain torch ops: a
-masked gather-sum for ELL and a sorted segment sum for COO.  Both are
-deterministic on CUDA too (no atomics: ``index_add_`` would add in a
-different order from run to run).  The CST and GPG formats are not
-ported and raise, naming their ROADMAP item.
+The port of ``tpu_lanczos/kernels/spmv.py``: ``spmv`` dispatches a CPG,
+GPG or CST pack to its CUDA kernels (kernels/spmv_cpg.py, spmv_gpg.py,
+spmv_cst.py) and the ELL / COO / HYB packs (kernels/formats.py) to
+``spmv_xla``.  The JAX package runs those three through XLA, not Pallas,
+so here they are plain torch ops: a masked gather-sum for ELL and a
+sorted segment sum for COO.  Both are deterministic on CUDA too (no
+atomics: ``index_add_`` would add in a different order from run to
+run).
 """
 
 from __future__ import annotations
@@ -15,12 +15,9 @@ from __future__ import annotations
 import torch
 
 from tpu_lanczos_torch.kernels.cpg import CPGGraph
+from tpu_lanczos_torch.kernels.cst import CSTGraph
 from tpu_lanczos_torch.kernels.formats import DeviceGraph
-
-_NOT_PORTED = {
-    "CSTGraph": "the CST format and its kernel are ROADMAP queue 2 item 6",
-    "GPGGraph": "the GPG format and its kernel are ROADMAP queue 2 item 5",
-}
+from tpu_lanczos_torch.kernels.gpg import GPGGraph
 
 
 def _ell_spmv(dg: DeviceGraph, x: torch.Tensor) -> torch.Tensor:
@@ -44,15 +41,21 @@ def _coo_spmv(dg: DeviceGraph, x: torch.Tensor) -> torch.Tensor:
 def spmv(dg, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x with A in a packed format; ``x`` is (n_pad,) with zero
     padding, and the result keeps that invariant."""
+    if isinstance(dg, GPGGraph):
+        from tpu_lanczos_torch.kernels import spmv_gpg
+
+        return spmv_gpg.spmv_gpg(dg, x)
     if isinstance(dg, CPGGraph):
         from tpu_lanczos_torch.kernels import spmv_cpg
 
         return spmv_cpg.spmv_cpg(dg, x)
+    if isinstance(dg, CSTGraph):
+        from tpu_lanczos_torch.kernels import spmv_cst
+
+        return spmv_cst.spmv_cst(dg, x)
     if isinstance(dg, DeviceGraph):
         return spmv_xla(dg, x)
-    name = type(dg).__name__
-    raise NotImplementedError(
-        f"no SpMV for {name}: {_NOT_PORTED.get(name, 'not ported')}")
+    raise NotImplementedError(f"no SpMV for {type(dg).__name__}")
 
 
 def spmv_xla(dg: DeviceGraph, x: torch.Tensor) -> torch.Tensor:
