@@ -10,14 +10,15 @@ jax or of the JAX package.  Each phase prints one JSON line:
      from this checkout's sources, with their build seconds;
   2  the SpMV kernels (plain and compensated, classic and slab layout)
      against their plain PyTorch versions on the card, on every level of
-     small classic and slab packs and on whole SpMVs and df SpMVs: exact
-     equality; the f64 and df64 SpMVs against scipy;
+     small classic and slab packs (f32 and f64) and on whole SpMVs and df
+     SpMVs: exact equality; the f64 and df64 SpMVs against scipy;
   3  the main path at bench.py's size (Barabasi-Albert n=1M, m=10,
      seed 0, native generator; pack sub=512; k=50) through
      ``expm_action`` and ``expm_action_summary`` (host and device
      eigensolve), with the kernel launch count of that run, CUDA-event
-     timings, the cuSPARSE SpMV time beside the kernel's, and the host
-     syncs of each summary path;
+     timings (per level with its per-chunk tile counts and its bound),
+     the cuSPARSE SpMV time beside the kernel's, and the host syncs of
+     each summary path;
   4  accuracy of the f32 answer against the float64 numpy oracle;
   5  the two-pass paths on the same graph, pack and oracle answer: the
      f32 ``low_mem=True`` queries (alpha/beta bit-equal to stored-Q
@@ -291,14 +292,14 @@ def lineage_chain(torch, spmv_mod, pack, x, kernel, plain):
 
 def ptxas_report(log: str) -> list:
     """One entry per compiled kernel: its mangled name, whether it is a
-    slab-layout instantiation (template bool kSlab = true, mangled
-    ``ILb1E``) and ptxas's register line."""
+    slab-layout kernel (``cpg_slab_level_kernel`` and its compensated
+    twin) and ptxas's register line."""
     out, name = [], None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             name = ln.split("'")[1]
         elif "registers" in ln and name is not None:
-            out.append({"kernel": name, "slab": "ILb1E" in name,
+            out.append({"kernel": name, "slab": "cpg_slab_level" in name,
                         "usage": ln.split(":", 1)[1].strip()})
             name = None
     return out
@@ -388,6 +389,7 @@ def main() -> None:
     from tpu_lanczos_torch.core.lanczos_df import lanczos_alphabeta_df
     from tpu_lanczos_torch.utils import BUILD_DIR
     from tpu_lanczos_torch.eval import oracle
+    from tpu_lanczos_torch.eval.cpg_variants import chunk_counts
     from tpu_lanczos_torch.graphs import native
     from tpu_lanczos_torch.kernels import _build, spmv_cpg
     from tpu_lanczos_torch.kernels.cpg import pack_cpg
@@ -429,7 +431,8 @@ def main() -> None:
           "ptxas": ptxas})
     check(sum(k["slab"] for k in ptxas) == 3,
           "three slab instantiations built (plain f32, f64; compensated)")
-    for kernel in ("cst_level_kernel", "gpg_level_kernel", "probe_kernel",
+    for kernel in ("cpg_level_kernel", "cpg_level_comp_kernel",
+                   "cst_level_kernel", "gpg_level_kernel", "probe_kernel",
                    "probe_reduce_kernel"):
         check(any(kernel in k["kernel"] for k in ptxas), f"{kernel} built")
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -472,14 +475,17 @@ def main() -> None:
         y = spmv_cpg.spmv_cpg(cg, x32)
         y_ref = spmv_cpg.spmv_cpg_ref(cg, x32)
         check(torch.equal(y, y_ref), f"{name}: spmv_cpg == plain (f32)")
-        # the float64 instance against scipy (the reference's 1e-11 bar)
+        # the float64 instance: every level == plain, and the SpMV
+        # against scipy (the reference's 1e-11 bar)
         x64 = torch.from_numpy(cg.permute_in(xr, np.float64)).to(dev)
+        max_err[layout] = max(max_err[layout],
+                              level_chain(torch, spmv_cpg, cg, x64))
         y64 = cg.permute_out(spmv_cpg.spmv_cpg(cg, x64))
         err64 = float(np.abs(y64 - g.to_scipy() @ xr).max())
         check(err64 < 1e-11 * max(1.0, float(np.abs(y64).max())),
               f"{name}: f64 kernel matches scipy ({err64})")
-        check_counts(read_counts(torch), {plain_c: 3 * L},
-                     f"{name}: f32 levels, f32 and f64 SpMV")
+        check_counts(read_counts(torch), {plain_c: 4 * L},
+                     f"{name}: f32 and f64 levels and SpMVs")
         # df64: the compensated kernel == plain on every level, the df
         # SpMV == its plain version and, in float64, scipy's
         reset_counts()
@@ -517,7 +523,8 @@ def main() -> None:
     torch.cuda.synchronize()
     pack_s = time.time() - t0
     x1 = dg.realmask.clone()
-    level_err = level_chain(torch, spmv_cpg, dg, x1)
+    level_err = max(level_chain(torch, spmv_cpg, dg, x1),
+                    level_chain(torch, spmv_cpg, dg, x1.double()))
     y = spmv_cpg.spmv_cpg(dg, x1)
     check(torch.equal(y, spmv_cpg.spmv_cpg_ref(dg, x1)),
           "bn1M: spmv_cpg == plain")
@@ -613,6 +620,8 @@ def main() -> None:
     check(lib_rel < 1e-5, f"cuSPARSE SpMV agrees with the kernel ({lib_rel})")
     csr_ms, csr_samples = cuda_ms(torch, lambda: csr @ x_nat)
     spmv_bound_ms, spmv_bound_by = bound(*spmv_cost(dg))
+    level_bound_ms = [bound(*level_cost(dg, i, 4, 1, i != dg.n_bcast))[0]
+                      for i in range(len(dg.levels))]
     emit({"phase": 3, "graph": f"ba_{N}_{M}_{SEED}_native", "nnz": g.nnz,
           "gen_s": gen_s, "pack_s": pack_s, "sub": SUB,
           "n_chunks": dg.n_chunks, "levels": len(dg.levels),
@@ -622,6 +631,10 @@ def main() -> None:
           "spmv_kernel_ms": spmv_ms, "spmv_kernel_samples": spmv_samples,
           "spmv_plain_ms": plain_ms, "spmv_plain_samples": plain_samples,
           "level_kernel_ms": level_ms,
+          "level_tile_counts": chunk_counts(dg),
+          "level_bound_ms": level_bound_ms,
+          "main_level_bound_share": (level_bound_ms[dg.n_bcast]
+                                     / level_ms[dg.n_bcast]),
           "index_GBps": index_bytes / (spmv_ms * 1e-3) / 1e9,
           "spmv_bound_ms": spmv_bound_ms, "spmv_bound_by": spmv_bound_by,
           "index_bound_ms": index_bytes / HBM_BYTES_PER_S * 1e3,
@@ -770,6 +783,7 @@ def main() -> None:
         torch, lambda: spmv_cpg.run_level_comp_ref(x2d_r, main, C, SUB))
     level_main_ms = cuda_ms(
         torch, lambda: spmv_cpg.run_level(x2d_r, main, C, SUB))[0]
+    comp_bound = bound(*level_cost(dg, nb, 4, 2, False, adds_per_entry=7))
     x1_lo = torch.zeros_like(x1)
     ab_df_ms, ab_df_samples = cuda_ms(
         torch, lambda: lanczos_alphabeta_df(dg, x1, x1_lo, K), reps=3)
@@ -788,6 +802,8 @@ def main() -> None:
           "df_spmv_plain_samples": df_spmv_plain_samples,
           "comp_level_ms": comp_ms, "comp_level_samples": comp_samples,
           "comp_level_plain_ms": comp_plain_ms,
+          "comp_level_bound_ms": comp_bound[0],
+          "comp_level_bound_share": comp_bound[0] / comp_ms,
           "comp_level_plain_samples": comp_plain_samples,
           "plain_main_level_ms": level_main_ms,
           "alphabeta_df_k50_ms": ab_df_ms,
@@ -1181,7 +1197,6 @@ def main() -> None:
           "total_s": time.time() - t_all})
     del a_p, xh_p, xl_p, x_rep, want, lib_out
 
-    comp_bound = bound(*level_cost(dg, nb, 4, 2, False, adds_per_entry=7))
     print(smi, flush=True)
     emit({"kernels": [{
         "name": "spmv_cpg_level", "route": "cuda", "source": KERNEL_SOURCE,

@@ -171,6 +171,64 @@ def _star(n: int = 3000):
     return CSRGraph.from_edges(n, np.concatenate([hub, ring]))
 
 
+def _hub(n: int = 1200):
+    return CSRGraph.from_edges(n, np.stack([
+        np.zeros(n - 1, dtype=np.int64), np.arange(1, n, dtype=np.int64)],
+        axis=1))
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+
+
+# name -> (graph, sub): uint8 l2 at sub 128 and 256, int16 at 512; each
+# pack has chunks with count 0 and a chunk with more tiles than one
+# unrolled batch of the walk (8), the star and the hub in the levels of
+# their reduce trees
+_WALK_CASES = {
+    "ba2000_sub128": (lambda: generators.barabasi_albert(2000, 8, seed=2),
+                      128),
+    "ba40000_sub256": (lambda: generators.barabasi_albert(40000, 6, seed=3),
+                       256),
+    "ba40000_sub512": (lambda: generators.barabasi_albert(40000, 6, seed=3),
+                       512),
+    "star_sub128": (_star, 128),
+    "hub_sub512": (_hub, 512),
+}
+
+
+@pytest.mark.parametrize("name", list(_WALK_CASES))
+def test_classic_walk_bit_for_bit(dev, name):
+    """The classic level kernels against their plain versions, bit for
+    bit (int views, so -0.0 != +0.0): every level of the pack; f32 and
+    f64; base given and absent; x holding -0.0 in every lane-127 slot,
+    where the plain version adds x's -0.0 and the compensated kernel
+    skips the ghost's load and adds +0.0 (acc and err)."""
+    build, sub = _WALK_CASES[name]
+    g = build()
+    cg = cpg.pack_cpg(g, sub=sub, device=dev)
+    C, LANE = cg.n_chunks, cpg.LANE
+    counts = [lv["counts"] for lv in cg.levels]
+    assert all(bool((c == 0).any()) for c in counts)
+    assert max(int(c.max()) for c in counts) > 8
+    xr = np.random.default_rng(4).standard_normal(g.n)
+    for np_dtype in (np.float32, np.float64):
+        x2d = torch.from_numpy(cg.permute_in(xr, np_dtype)).to(dev).reshape(
+            cg.n_sub, LANE)
+        x2d[:, LANE - 1] = -0.0
+        for level in cg.levels:
+            for base in (None, x2d):
+                got = spmv_cpg.run_level(x2d, level, C, sub, base=base)
+                want = spmv_cpg.run_level_ref(x2d, level, C, sub, base=base)
+                assert torch.equal(_bits(got), _bits(want))
+            if np_dtype == np.float32:
+                got = spmv_cpg.run_level_comp(x2d, level, C, sub)
+                want = spmv_cpg.run_level_comp_ref(x2d, level, C, sub)
+                assert all(torch.equal(_bits(a), _bits(b))
+                           for a, b in zip(got, want))
+    torch.cuda.synchronize()
+
+
 def _checked(kernel, plain):
     def level(*args):
         got = kernel(*args)

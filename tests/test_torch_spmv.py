@@ -1,7 +1,8 @@
 """The whole CPG SpMV (broadcast, main and reduce levels, realmask) of the
 port against the reference's ``spmv_cpg(cg, x, interpret=True)`` on the
 same pack, bit for bit, and against scipy in float64 within 1e-11 (the
-reference's own bar, tests/test_cpg.py:38).  Plus the wrapper's argument
+reference's own bar, tests/test_cpg.py:38).  Plus the premise of the
+compensated kernel's ghost skip (lane-127 slots), the wrapper's argument
 checks and the format dispatch."""
 
 import jax.numpy as jnp
@@ -50,6 +51,68 @@ def test_spmv_cpg_matches_scipy_f64(case):
     # ghost and padding positions of y stay zero
     y = spmv_cpg.spmv_cpg_ref(port, x).numpy()
     assert not y[port.realmask.numpy() == 0].any()
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lane_127_sign_leaves_every_level_unchanged(case, dtype):
+    """The premise of the compensated kernel's ghost skip: a ghost's term
+    is x's lane-127 slot, and whether that slot holds -0.0 or +0.0 (the
+    +0.0 the kernel adds in its place) leaves the plain level (base given
+    or absent) and the compensated level (acc and err) unchanged bit for
+    bit, on every level of the pack."""
+    _, _, port = case
+    C, sub = port.n_chunks, port.sub
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (port.n_sub, LANE))).to(dtype)
+    neg, pos = x.clone(), x.clone()
+    neg[:, LANE - 1] = -0.0
+    pos[:, LANE - 1] = 0.0
+    for level in port.levels:
+        for base in (False, True):
+            a = spmv_cpg.run_level_ref(neg, level, C, sub,
+                                       base=neg if base else None)
+            b = spmv_cpg.run_level_ref(pos, level, C, sub,
+                                       base=pos if base else None)
+            assert torch.equal(_bits(a), _bits(b))
+        for a, b in zip(spmv_cpg.run_level_comp_ref(neg, level, C, sub),
+                        spmv_cpg.run_level_comp_ref(pos, level, C, sub)):
+            assert torch.equal(_bits(a), _bits(b))
+
+
+def test_every_level_input_is_zero_in_lane_127(case):
+    """Every level's input through spmv_cpg_ref and spmv_cpg_df_ref holds
+    +-0.0 in every lane-127 slot (the broadcast levels' outputs, the main
+    level's output fed to the reduce levels, the df error streams), for a
+    random x with zero lane-127 slots: the pack places no unit there."""
+    _, _, port = case
+    seen = []
+
+    def zero_in_lane_127(x2d):
+        seen.append(x2d)
+        assert not x2d[:, LANE - 1].any()
+
+    def plain(x2d, level, n_chunks, sub, base=None, slab=False):
+        zero_in_lane_127(x2d)
+        return spmv_cpg.run_level_ref(x2d, level, n_chunks, sub, base, slab)
+
+    def comp(x2d, level, n_chunks, sub, slab=False):
+        zero_in_lane_127(x2d)
+        return spmv_cpg.run_level_comp_ref(x2d, level, n_chunks, sub, slab)
+
+    xr = np.random.default_rng(5).standard_normal(port.n)
+    x64 = port.permute_in(xr, np.float64)
+    assert not x64.reshape(-1, LANE)[:, LANE - 1].any()
+    spmv_cpg._spmv(port, torch.from_numpy(x64.astype(np.float32)), plain)
+    hi = x64.astype(np.float32)
+    lo = (x64 - hi).astype(np.float32)
+    spmv_cpg._spmv_df(port, torch.from_numpy(hi), torch.from_numpy(lo),
+                      plain, comp)
+    L, nb = len(port.levels), port.n_bcast
+    assert len(seen) == L + (2 * nb + 2 * (L - nb))
 
 
 def _level_args(port, dtype=torch.float32):

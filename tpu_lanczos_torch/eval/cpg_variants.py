@@ -1,0 +1,254 @@
+"""Time other versions of the CPG level kernel beside the package's own
+on one CUDA GPU.
+
+    python -m tpu_lanczos_torch.eval.cpg_variants \\
+        [--n 1000000] [--m 10] [--seed 0] [--sub 512] \\
+        [--source NAME=PATH ...]
+
+Builds ``kernels/csrc/spmv_cpg.cu`` (as "package") and each ``--source``
+file, which must have the same C interface (an earlier version of the
+kernel, for example the parent commit's, from ``git archive``), each into
+its own library.  On the graph (Barabasi-Albert, native generator) packed
+at ``--sub``, classic layout, it prints one JSON line with each level's
+per-chunk tile counts, then one line per build: its ptxas report,
+equality with the package's kernel on every level (plain, and
+compensated on the main level), and CUDA-event medians of each level,
+the whole SpMV and the compensated main level, the builds timed in turns
+(forward, then backward).  Last, one line with the device time by kernel
+of one ``lanczos`` run of ``--k`` steps through the package's kernel
+(torch.profiler), its wall time and the device's idle share.  Needs a
+CUDA GPU and nvcc.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from tpu_lanczos_torch.kernels import _build
+
+HBM_BYTES_PER_S = 3.35e12  # the H100 SXM's published HBM rate
+
+
+def _lib_path(name: str) -> str:
+    tag = "".join(ch if ch.isalnum() else "_" for ch in name)
+    return os.path.join(_build.BUILD_DIR, "variants", f"libcpg_{tag}.so")
+
+
+def build(builds: dict) -> dict:
+    """``builds``: name -> source.  One nvcc per build, all at once;
+    returns name -> ptxas report lines."""
+    nvcc = _build.nvcc_path()
+    os.makedirs(os.path.dirname(_lib_path("x")), exist_ok=True)
+    procs = {name: subprocess.Popen(
+        [nvcc] + _build.NVCC_FLAGS + ["-shared", "-o", _lib_path(name), src],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        for name, src in builds.items()}
+    logs = {name: p.communicate(timeout=600)[1] for name, p in procs.items()}
+    for name, p in procs.items():
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{logs[name][-4000:]}")
+    return {name: [ln.split(":")[-1].strip() for ln in log.splitlines()
+                   if "registers" in ln or "spill" in ln]
+            for name, log in logs.items()}
+
+
+def level_fns(name: str):
+    """(plain level, compensated level) of one build, with
+    ``spmv_cpg.run_level``'s and ``run_level_comp``'s signatures."""
+    lib = _build.bind_cpg(ctypes.CDLL(_lib_path(name)))
+
+    def plain(x2d, level, n_chunks, sub, base=None, slab=False):
+        out = torch.empty_like(x2d)
+        err = lib.tlt_spmv_cpg_level(
+            x2d.data_ptr(), level["l1"].data_ptr(), level["l2"].data_ptr(),
+            level["s_ids"].data_ptr(), level["starts"].data_ptr(),
+            level["counts"].data_ptr(),
+            None if base is None else base.data_ptr(), out.data_ptr(),
+            n_chunks, sub, level["l2"].element_size(), x2d.element_size(),
+            int(slab), torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{name}: launch failed: CUDA error {err}")
+        return out
+
+    def comp(x2d, level, n_chunks, sub, slab=False):
+        out, e = torch.empty_like(x2d), torch.empty_like(x2d)
+        err = lib.tlt_spmv_cpg_level_comp(
+            x2d.data_ptr(), level["l1"].data_ptr(), level["l2"].data_ptr(),
+            level["s_ids"].data_ptr(), level["starts"].data_ptr(),
+            level["counts"].data_ptr(), out.data_ptr(), e.data_ptr(),
+            n_chunks, sub, level["l2"].element_size(), int(slab),
+            torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{name}: comp launch failed: CUDA error {err}")
+        return out, e
+
+    return plain, comp
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Median CUDA-event time of fn in ms, after one warm run."""
+    fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end))
+    return float(np.median(samples))
+
+
+def chunk_counts(cg) -> list:
+    """Per level: real tiles and the min / median / max of the per-chunk
+    tile counts, with the number of chunks that have any."""
+    rows = []
+    for i, level in enumerate(cg.levels):
+        c = level["counts"].cpu().numpy()
+        rows.append({"level": i, "tiles": int(cg.t_reals[i]),
+                     "min": int(c.min()), "median": float(np.median(c)),
+                     "max": int(c.max()), "chunks_nonzero": int((c > 0).sum()),
+                     "chunks": int(c.size)})
+    return rows
+
+
+def lanczos_profile(cg, k: int) -> dict:
+    """Device time by kernel (name up to its template arguments) of one
+    ``lanczos(cg, realmask, k)`` after a warm run, the wall time of the
+    profiled run, the union of kernel intervals and the idle share."""
+    from torch.autograd import DeviceType
+
+    from tpu_lanczos_torch.core.lanczos import lanczos
+
+    x1 = cg.realmask.clone()
+    lanczos(cg, x1, k)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.time()
+        lanczos(cg, x1, k)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    by_name, busy_us, reach = {}, 0.0, float("-inf")
+    for start, end, name in spans:
+        name = name.replace("(anonymous namespace)::", "")
+        name = name[5:] if name.startswith("void ") else name
+        key = name.split("<")[0].split("(")[0].split("::")[-1][:60]
+        row = by_name.setdefault(key, {"ms": 0.0, "count": 0})
+        row["ms"] += (end - start) / 1e3
+        row["count"] += 1
+        busy_us += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    return {"lanczos_k": k, "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+            "idle_share": 1 - busy_us / 1e3 / wall_ms,
+            "kernels": dict(sorted(by_name.items(),
+                                   key=lambda kv: -kv[1]["ms"]))}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--n", type=int, default=1_000_000)
+    ap.add_argument("--m", type=int, default=10)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sub", type=int, default=512)
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--k", type=int, default=50)
+    ap.add_argument("--source", action="append", default=[])
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("cpg_variants needs a CUDA GPU")
+    from tpu_lanczos_torch import generators
+    from tpu_lanczos_torch.kernels import spmv_cpg
+    from tpu_lanczos_torch.kernels.cpg import LANE, pack_cpg
+
+    builds = {"package": _build.SOURCES[0]}
+    for item in args.source:
+        name, path = item.split("=", 1)
+        builds[name] = os.path.abspath(path)
+    ptxas = build(builds)
+    fns = {name: level_fns(name) for name in builds}
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    g = generators.barabasi_albert(args.n, args.m, seed=args.seed,
+                                   use_native=True)
+    cg = pack_cpg(g, sub=args.sub, device="cuda")
+    C, sub, nb = cg.n_chunks, cg.sub, cg.n_bcast
+    print(json.dumps({"nvidia_smi": smi, "n": args.n, "m": args.m,
+                      "sub": sub, "n_chunks": C, "n_bcast": nb,
+                      "index_bytes": cg.index_bytes(),
+                      "counts": chunk_counts(cg)}), flush=True)
+
+    # each level's input and base as spmv_cpg gives them, x = realmask
+    x2d = cg.realmask.clone().reshape(cg.n_sub, LANE)
+    inputs = []
+    for i, level in enumerate(cg.levels):
+        base = None if i == nb else x2d
+        inputs.append((x2d, level, base))
+        x2d = spmv_cpg.run_level(x2d, level, C, sub, base=base)
+    rng = np.random.default_rng(1)
+    xr = torch.from_numpy(cg.permute_in(rng.standard_normal(cg.n),
+                                        np.float32)).cuda()
+    main_in = xr.reshape(cg.n_sub, LANE)
+    want = [spmv_cpg.run_level(xi, lv, C, sub, base=b)
+            for xi, lv, b in inputs]
+    want_comp = spmv_cpg.run_level_comp(main_in, cg.levels[nb], C, sub)
+    plain_equal = all(torch.equal(spmv_cpg.run_level_ref(
+        xi, lv, C, sub, base=b), w) for (xi, lv, b), w in zip(inputs, want))
+    plain_equal = plain_equal and all(torch.equal(a, b) for a, b in zip(
+        spmv_cpg.run_level_comp_ref(main_in, cg.levels[nb], C, sub),
+        want_comp))
+    print(json.dumps({"package_kernel_equals_plain_version": plain_equal}),
+          flush=True)
+
+    rows = {}
+    for name, (plain, comp) in fns.items():
+        equal = all(torch.equal(plain(xi, lv, C, sub, base=b), w)
+                    for (xi, lv, b), w in zip(inputs, want))
+        got_comp = comp(main_in, cg.levels[nb], C, sub)
+        equal_comp = all(torch.equal(a, b)
+                         for a, b in zip(got_comp, want_comp))
+        rows[name] = {"build": name, "source": builds[name],
+                      "ptxas": ptxas[name], "equal": equal,
+                      "equal_comp": equal_comp, "level_ms": [], "spmv_ms": [],
+                      "comp_main_ms": []}
+    x1 = cg.realmask.clone()
+    order = list(fns) + list(fns)[::-1]
+    for name in order:
+        plain, comp = fns[name]
+        row = rows[name]
+        row["level_ms"].append([cuda_ms(
+            lambda: plain(xi, lv, C, sub, base=b), args.reps)
+            for xi, lv, b in inputs])
+        row["spmv_ms"].append(cuda_ms(
+            lambda: spmv_cpg._spmv(cg, x1, plain), args.reps))
+        row["comp_main_ms"].append(cuda_ms(
+            lambda: comp(main_in, cg.levels[nb], C, sub), args.reps))
+    for row in rows.values():
+        row["level_ms_median"] = np.median(row["level_ms"], axis=0).tolist()
+        row["spmv_ms_median"] = float(np.median(row["spmv_ms"]))
+        row["comp_main_ms_median"] = float(np.median(row["comp_main_ms"]))
+        row["index_GBps"] = cg.index_bytes() / row["spmv_ms_median"] / 1e6
+        print(json.dumps(row), flush=True)
+    print(json.dumps(lanczos_profile(cg, args.k)), flush=True)
+    return 0 if plain_equal and all(r["equal"] and r["equal_comp"]
+                                    for r in rows.values()) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

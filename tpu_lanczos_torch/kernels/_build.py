@@ -44,7 +44,8 @@ def nvcc_path() -> str:
     return found
 
 
-def _bind(lib):
+def bind_cpg(lib):
+    """Argument types of spmv_cpg.cu's two entry points on ``lib``."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.tlt_spmv_cpg_level.restype = i
     lib.tlt_spmv_cpg_level.argtypes = [p, p, p, p, p, p, p, p,
@@ -52,6 +53,12 @@ def _bind(lib):
     lib.tlt_spmv_cpg_level_comp.restype = i
     lib.tlt_spmv_cpg_level_comp.argtypes = [p, p, p, p, p, p, p, p,
                                             i, i, i, i, p]
+    return lib
+
+
+def _bind(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    bind_cpg(lib)
     lib.tlt_spmv_cst_level.restype = i
     lib.tlt_spmv_cst_level.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.tlt_spmv_gpg_level.restype = i
