@@ -43,7 +43,15 @@ jax or of the JAX package.  Each phase prints one JSON line:
   9  the tensor-core dense-block probe (``python -m
      tpu_lanczos_torch.eval.mxu_probe``): its check, its default run of
      16,384 blocks in three variants, the kernel against the plain
-     version at that size, and a bf16 matmul as the yardstick.
+     version at that size, and a bf16 matmul as the yardstick;
+ 10  the stochastic estimators on phase 3's pack (``estrada_index``,
+     ``subgraph_centrality``, ``spectral_density`` at their library
+     defaults): kernel 1's launches per call, CUDA-event and wall time,
+     host syncs, the first two Estrada probes against the float64
+     oracle, float32 against float64, tests/test_stochastic.py's ba200
+     graph through the CLI against its dense oracle; and the stored-Q
+     checkpoint at k=50 (cut after one chunk, resumed, uninterrupted),
+     bit for bit against ``lanczos``.
 
 Then the card's name and power limit (nvidia-smi), one JSON line of
 per-kernel results (with each kernel's bound: the larger of its bytes
@@ -97,6 +105,16 @@ COUNTERS = tuple(("tpu_lanczos_torch.kernels.spmv_cpg", c) for c in (
     ("tpu_lanczos_torch.eval.mxu_probe", "launches_mxu"),
 )
 CLI_SMALL = ["-b", "4", "-n", "20000", "-k", "50"]
+# phase 10: the library defaults of estrada_index and subgraph_centrality,
+# spectral_density's default k and probes, and tests/test_stochastic.py's
+# ba200 graph through the CLI against its dense oracle
+ESTRADA = dict(k=30, probes=32, deflate=8)
+SUBGRAPH = dict(k=20, probes=16, deflate=8)
+DOS = dict(k=80, probes=16)
+CLI_ESTIMATORS = ["-b", "3", "-n", "200", "--seed", "1", "-k", "40",
+                  "--dtype", "float64", "--estrada", "32", "--subgraph",
+                  "32", "--dos", "32", "--deflate", "8"]
+CKPT_Q_CHUNK = 25
 
 
 def emit(obj) -> None:
@@ -128,6 +146,44 @@ def cuda_ms(torch, fn, reps: int = REPS):
         end.synchronize()
         samples.append(start.elapsed_time(end))
     return float(np.median(samples)), samples
+
+
+def wall_s(torch, fn, reps: int = REPS):
+    """Median and all samples of fn's host wall in s, synchronised, after
+    one warm run."""
+    fn()
+    samples = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        samples.append(time.time() - t0)
+    return float(np.median(samples)), samples
+
+
+def syncs(torch, fn) -> int:
+    """Host syncs torch reports while fn runs (sync debug mode)."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def run_cli(argv):
+    """The port's CLI in process: (rc, stdout, stderr, wall seconds)."""
+    from tpu_lanczos_torch.cli import main as cli
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    return rc, out.getvalue(), err.getvalue(), time.time() - t0
 
 
 def reset_counts() -> None:
@@ -375,6 +431,259 @@ def split_dev(torch, cg, x64, dev):
     return torch.from_numpy(hi).to(dev), torch.from_numpy(lo).to(dev)
 
 
+class _Preempted(Exception):
+    """Raised by a spy to cut a checkpointed run after its first chunk."""
+
+
+def timed_call(torch, fn):
+    """fn() once: (result, CUDA-event ms, host wall s, launch counts),
+    the counters set to 0 just before and read just after."""
+    reset_counts()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.time()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    wall = time.time() - t0
+    return out, start.elapsed_time(end), wall, read_counts(torch)
+
+
+def estimators_phase(torch, g, dg, top_ritz: float) -> dict:
+    """Phase 10: the stochastic estimators and the stored-Q checkpoint on
+    the bn1M classic pack ``dg``: kernel 1's launches per call (exactly,
+    with the deflation attempts and diagonal retries), CUDA-event and
+    wall times, host syncs, accuracy against the float64 oracle and
+    between float32 and float64, the ba200 CLI run against its dense
+    oracle, and a bit-identical resume at bn1M."""
+    from tpu_lanczos_torch.core import checkpoint, stochastic, tridiag
+    from tpu_lanczos_torch.core.lanczos import lanczos, lanczos_alphabeta
+    from tpu_lanczos_torch.eval import oracle
+    from tpu_lanczos_torch.utils import BUILD_DIR
+
+    L = len(dg.levels)
+    k_defl = stochastic._defl_depth(ESTRADA["deflate"], None, g.n - 1)[0]
+    attempts = []  # one entry per deflation run (one lanczos_init each)
+    real_init = stochastic.lanczos_init
+
+    def counting_init(*a, **kw):
+        attempts.append(1)
+        return real_init(*a, **kw)
+
+    out = {"phase": 10, "graph": f"ba_{N}_{M}_{SEED}_native", "levels": L,
+           "k_deflate": k_defl}
+    stochastic.lanczos_init = counting_init
+    try:
+        # ---- the Estrada index, f32 and f64, each counted and timed; a
+        # first f32 call counts the host syncs and warms the path
+        out["estrada_syncs"] = syncs(torch, lambda: stochastic.estrada_index(
+            g, dg=dg, **ESTRADA))
+        runs = {}
+        for dt in ("float32", "float64"):
+            attempts.clear()
+            r, ms, wall, counts = timed_call(torch, lambda: (
+                stochastic.estrada_index(g, dtype=dt, dg=dg, **ESTRADA)))
+            want = (len(attempts) * k_defl
+                    + ESTRADA["probes"] * ESTRADA["k"]) * L
+            check_counts(counts, {"launches": want},
+                         f"estrada_index {dt}: (attempts*k_defl + "
+                         f"probes*k)*levels")
+            check(np.isfinite(r.log_estimate) and np.isfinite(r.estimate)
+                  and r.dropped == 0 and r.deflated > 0,
+                  f"estrada_index {dt}: finite, nothing dropped, deflated")
+            runs[dt] = r
+            out[f"estrada_{dt}"] = {
+                "launches": counts["launches"], "attempts": len(attempts),
+                "cuda_ms": ms, "wall_s": wall,
+                "log_estimate": r.log_estimate,
+                "rel_stderr": r.rel_stderr, "deflated": r.deflated,
+                "dropped": r.dropped}
+        d_log = abs(runs["float32"].log_estimate
+                    - runs["float64"].log_estimate)
+        check(d_log < 1e-3, f"estrada f32 vs f64 log_estimate {d_log}")
+        out["estrada_log_f32_vs_f64"] = d_log
+
+        # the first two Estrada probes against the float64 oracle: the
+        # probes of a 2-probe run are the first two of any longer run
+        k = ESTRADA["k"]
+        per_probe = {}
+        for dt in ("float32", "float64"):
+            rows, _ = stochastic._probe_stats_device(
+                dg, dg.realmask.to(getattr(torch, dt)), 2, 0, k)
+            per_probe[dt] = [stochastic.gauss_quadrature_logexp(
+                a, b[: k - 1], xn ** 2) for a, b, xn, _ in rows]
+        mask64 = dg.realmask.double()
+        oracle_logs = []
+        t0 = time.time()
+        for i in range(2):
+            z = dg.permute_out(stochastic._masked_rademacher(
+                mask64, 0, stochastic._TRACE_STREAM, 0, i))
+            dec = oracle.lanczos(g, z, k)
+            oracle_logs.append(stochastic.gauss_quadrature_logexp(
+                dec.alpha, dec.beta, float(z @ z)))
+        err64 = max(abs(a - b) for a, b in zip(per_probe["float64"],
+                                               oracle_logs))
+        err32 = max(abs(a - b) for a, b in zip(per_probe["float32"],
+                                               oracle_logs))
+        check(err64 < 1e-7, f"f64 per-probe log(z^T e^A z) vs oracle {err64}")
+        check(err32 < 1e-3, f"f32 per-probe log(z^T e^A z) vs oracle {err32}")
+        out["probe_logs"] = {"oracle": oracle_logs, **per_probe,
+                             "f64_abs_err": err64, "f32_abs_err": err32,
+                             "oracle_s": time.time() - t0}
+
+        # ---- subgraph centrality as the Estrada index, and its eigh
+        out["subgraph_syncs"] = syncs(
+            torch, lambda: stochastic.subgraph_centrality(g, dg=dg,
+                                                          **SUBGRAPH))
+        diag = {}
+        for dt in ("float32", "float64"):
+            attempts.clear()
+            dr, ms, wall, counts = timed_call(torch, lambda: (
+                stochastic.subgraph_centrality(g, dtype=dt, dg=dg,
+                                               **SUBGRAPH)))
+            want = (len(attempts) * k_defl + (dr.retries + 1)
+                    * SUBGRAPH["probes"] * SUBGRAPH["k"]) * L
+            check_counts(counts, {"launches": want},
+                         f"subgraph_centrality {dt}: (attempts*k_defl + "
+                         f"(retries+1)*probes*k)*levels")
+            check(bool(np.all(np.isfinite(dr.diag_scaled)))
+                  and dr.diag_scaled.shape == (N,) and dr.deflated > 0,
+                  f"subgraph_centrality {dt}: finite (n,), deflated")
+            diag[dt] = dr
+            out[f"subgraph_{dt}"] = {
+                "launches": counts["launches"], "attempts": len(attempts),
+                "retries": dr.retries, "cuda_ms": ms, "wall_s": wall,
+                "log_scale": dr.log_scale, "deflated": dr.deflated,
+                "top_nodes": dr.top_nodes(10).tolist()}
+        d32, d64 = diag["float32"], diag["float64"]
+        # full_diag() compared in float64 on the float64 run's scale
+        a = d32.diag_scaled.astype(np.float64) * np.exp(
+            d32.log_scale - d64.log_scale)
+        rel = float(np.linalg.norm(a - d64.diag_scaled)
+                    / np.linalg.norm(d64.diag_scaled))
+        top_eq = int(d32.top_nodes(1)[0]) == int(d64.top_nodes(1)[0])
+        check(top_eq, "subgraph f32 and f64: the same top-1 node")
+        check(rel < 5e-3, f"subgraph f32 vs f64 full_diag rel l2 {rel}")
+        out["subgraph_f32_vs_f64_rel_l2"] = rel
+        a0, b0, _ = lanczos_alphabeta(dg, dg.realmask, SUBGRAPH["k"])
+        b0 = b0[: SUBGRAPH["k"] - 1]
+        eigh_ms = cuda_ms(torch, lambda: tridiag.eigh_device(a0, b0))[0]
+        eigh_wall = wall_s(torch, lambda: tridiag.eigh_device(a0, b0))[0]
+        out["eigh_per_probe"] = {
+            "k": SUBGRAPH["k"], "cuda_ms": eigh_ms, "wall_ms": eigh_wall * 1e3,
+            "syncs": syncs(torch, lambda: tridiag.eigh_device(a0, b0)),
+            "per_call_wall_ms": eigh_wall * 1e3 * SUBGRAPH["probes"]}
+
+        # ---- the spectral density, likewise
+        dos_syncs = syncs(torch, lambda: stochastic.spectral_density(
+            g, dg=dg, **DOS))
+        d, ms, wall, counts = timed_call(torch, lambda: (
+            stochastic.spectral_density(g, dg=dg, **DOS)))
+        check_counts(counts, {"launches": DOS["probes"] * DOS["k"] * L},
+                     "spectral_density: probes*k*levels")
+        mass = float(np.trapezoid(d.density, d.grid))
+        lmax_rel = abs(d.lambda_max - top_ritz) / abs(top_ritz)
+        check(abs(mass - 1.0) < 1e-3, f"DOS mass {mass}")
+        check(lmax_rel < 1e-3, f"DOS lambda_max {d.lambda_max} vs the top "
+              f"Ritz value {top_ritz}")
+        check(bool(np.all(np.isfinite(d.density))), "DOS finite")
+        out["dos"] = {"launches": counts["launches"], "cuda_ms": ms,
+                      "wall_s": wall, "mass": mass,
+                      "lambda_min": d.lambda_min,
+                      "lambda_max": d.lambda_max,
+                      "lambda_max_rel_vs_ritz": lmax_rel,
+                      "syncs": dos_syncs}
+    finally:
+        stochastic.lanczos_init = real_init
+
+    # ---- tests/test_stochastic.py's ba200 through the CLI on the card
+    reset_counts()
+    rc, cli_out, cli_err, secs = run_cli(CLI_ESTIMATORS)
+    counts = read_counts(torch)
+    check(rc == 0, f"CLI estimators: rc {rc}: {cli_err[-2000:]}")
+    est_rel = float(cli_out.split("Estrada index")[1].split("rel err ")[1]
+                    .split()[0])
+    sub_rel = float(cli_out.split("rel l2 err ")[1].split(",")[0])
+    cli_mass = float(cli_out.split("mass=")[1].split()[0])
+    check(counts["launches"] > 0
+          and sum(counts.values()) == counts["launches"],
+          f"CLI estimators ran the classic CPG kernel only ({counts})")
+    check(est_rel < 2e-3, f"CLI deflated Estrada rel err {est_rel} < 2e-3")
+    check(sub_rel < 0.02 and "top-1 match: True" in cli_out,
+          f"CLI subgraph rel l2 {sub_rel} < 0.02, top-1 equal")
+    check(abs(cli_mass - 1.0) < 1e-3, f"CLI DOS mass {cli_mass}")
+    out["cli_ba200"] = {"rc": rc, "wall_s": secs, "launches": counts,
+                        "estrada_rel_err": est_rel,
+                        "subgraph_rel_l2": sub_rel, "dos_mass": cli_mass}
+
+    # ---- the stored-Q checkpoint at bn1M: preempted after one chunk,
+    # resumed, and uninterrupted, each against lanczos bit for bit
+    kq = K
+    x1 = dg.realmask.clone()
+    want = lanczos(dg, x1, kq)
+    real_range = checkpoint.lanczos_range
+    chunks = []
+
+    def cut_after_one(*a, **kw):
+        if chunks:
+            raise _Preempted
+        chunks.append(1)
+        return real_range(*a, **kw)
+
+    def same(st, what):
+        check(torch.equal(st.alpha, want.alpha)
+              and torch.equal(st.beta, want.beta)
+              and torch.equal(st.q_basis, want.q_basis),
+              f"{what}: alpha, beta and Q equal lanczos bit for bit")
+
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    ck = {"k": kq, "chunk": CKPT_Q_CHUNK}
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        p, p2 = os.path.join(tmp, "q.npz"), os.path.join(tmp, "q2.npz")
+
+        def run(path):
+            return checkpoint.lanczos_checkpointed(
+                dg, x1, kq, checkpoint_path=path, chunk=CKPT_Q_CHUNK)
+
+        checkpoint.lanczos_range = cut_after_one
+        try:
+            reset_counts()
+            try:
+                run(p)
+                check(False, "the cut checkpointed run was not cut")
+            except _Preempted:
+                pass
+        finally:
+            checkpoint.lanczos_range = real_range
+        ck["launches_cut"] = read_counts(torch)["launches"]
+        j_done = checkpoint.LanczosCheckpoint.load(p).j_done
+        check(j_done == CKPT_Q_CHUNK, f"snapshot after one chunk: {j_done}")
+        st, _, ck["resume_wall_s"], counts = timed_call(torch, lambda: run(p))
+        check_counts(counts, {"launches": L + (kq - CKPT_Q_CHUNK) * L},
+                     "resume: structure probe + the second chunk")
+        same(st, "resumed checkpointed run")
+        ck["launches_resume"] = counts["launches"]
+        st, _, ck["full_wall_s"], counts = timed_call(torch, lambda: run(p2))
+        check_counts(counts, {"launches": L + kq * L},
+                     "uninterrupted: structure probe + k*levels")
+        same(st, "uninterrupted checkpointed run")
+        ck["launches_full"] = counts["launches"]
+        ck["snapshot_bytes"] = os.path.getsize(p2)
+        t0 = time.time()
+        snap = checkpoint.LanczosCheckpoint.load(p2)
+        ck["snapshot_load_s"] = time.time() - t0
+        t0 = time.time()
+        snap.save(p)
+        ck["snapshot_save_s"] = time.time() - t0
+        del snap, st
+    ck["lanczos_wall_s"] = wall_s(torch, lambda: lanczos(dg, x1, kq),
+                                  reps=3)[0]
+    out["checkpoint"] = ck
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -559,22 +868,11 @@ def main() -> None:
     check(dev_vs_host < 1e-2, f"device-eig top-20 values within 1e-2 of "
           f"the host path's ({dev_vs_host})")
 
-    def syncs(fn) -> int:
-        """Host syncs torch reports while fn runs (sync debug mode)."""
-        torch.cuda.synchronize()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                fn()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        return sum("synchroniz" in str(w.message) for w in caught)
-
-    sync_host = syncs(lambda: expm_action_summary(g, k=K, topk=TOPK, dg=dg))
-    sync_dev = syncs(lambda: expm_action_summary(
+    sync_host = syncs(torch, lambda: expm_action_summary(
+        g, k=K, topk=TOPK, dg=dg))
+    sync_dev = syncs(torch, lambda: expm_action_summary(
         g, k=K, topk=TOPK, dg=dg, eig_impl="device"))
-    sync_eigh = syncs(lambda: torch.linalg.eigh(torch.eye(
+    sync_eigh = syncs(torch, lambda: torch.linalg.eigh(torch.eye(
         K, device=dev)))
 
     spmv_ms, spmv_samples = cuda_ms(torch, lambda: spmv_cpg.spmv_cpg(dg, x1))
@@ -590,20 +888,9 @@ def main() -> None:
     lanczos_ms, lanczos_samples = cuda_ms(torch, lambda: lanczos(dg, x1, K))
     peak_lanczos = torch.cuda.max_memory_allocated()
 
-    def wall_s(fn, reps=REPS):
-        fn()
-        samples = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.time()
-            fn()
-            torch.cuda.synchronize()
-            samples.append(time.time() - t0)
-        return float(np.median(samples)), samples
-
-    query_med, query_s = wall_s(lambda: expm_action_summary(
+    query_med, query_s = wall_s(torch, lambda: expm_action_summary(
         g, k=K, topk=TOPK, dg=dg))
-    query_dev_med, query_dev_s = wall_s(lambda: expm_action_summary(
+    query_dev_med, query_dev_s = wall_s(torch, lambda: expm_action_summary(
         g, k=K, topk=TOPK, dg=dg, eig_impl="device"))
     index_bytes = dg.index_bytes()
 
@@ -727,7 +1014,7 @@ def main() -> None:
         check(saved >= q_bytes, f"low_mem {what} peak is lower by "
               f"{saved} >= 0.8*k*n_pad*4 = {q_bytes} bytes")
 
-    lm_query_s, lm_query_samples = wall_s(lambda: expm_action_summary(
+    lm_query_s, lm_query_samples = wall_s(torch, lambda: expm_action_summary(
         g, k=K, topk=TOPK, dg=dg, low_mem=True))
     emit({"phase": 5, "part": "f32_two_pass", "k": K,
           "launches_expm": lm_launches,
@@ -787,7 +1074,7 @@ def main() -> None:
     x1_lo = torch.zeros_like(x1)
     ab_df_ms, ab_df_samples = cuda_ms(
         torch, lambda: lanczos_alphabeta_df(dg, x1, x1_lo, K), reps=3)
-    df_query_s, df_query_samples = wall_s(lambda: expm_action_df(
+    df_query_s, df_query_samples = wall_s(torch, lambda: expm_action_df(
         g, k=K, dg=dg, log_scale=True), reps=3)
     emit({"phase": 5, "part": "df64", "k": K, "levels": L, "n_bcast": nb,
           "launches_comp": df_comp_launches,
@@ -913,15 +1200,7 @@ def main() -> None:
     del ds, x1s, hi_s, lo_s, x2d_s, hs2d, main_s
 
     # ---- 7: the CLI, in process, its output parsed
-    from tpu_lanczos_torch.cli import main as cli
     from tpu_lanczos_torch.kernels import cpg as cpg_mod
-
-    def run_cli(argv):
-        out, err = io.StringIO(), io.StringIO()
-        t0 = time.time()
-        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-            rc = cli.main(argv)
-        return rc, out.getvalue(), err.getvalue(), time.time() - t0
 
     # the full-width slab query; the packs the CLI builds are recorded
     # to read their level count
@@ -1196,6 +1475,10 @@ def main() -> None:
           "bound_ms": probe_bound[0], "bound_by": probe_bound[1],
           "total_s": time.time() - t_all})
     del a_p, xh_p, xl_p, x_rep, want, lib_out
+
+    # ---- 10: the stochastic estimators and the stored-Q checkpoint
+    emit({**estimators_phase(torch, g, dg, res.log_scale),
+          "total_s": time.time() - t_all})
 
     print(smi, flush=True)
     emit({"kernels": [{

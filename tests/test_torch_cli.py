@@ -7,6 +7,11 @@ Bars: f64 answers within 1e-10 of the oracle (the reference's CLI bar)
 and of the JAX CLI's answer on the same argv, with the same -v top-10;
 the slab layout within 1e-10 of the classic one (f64); df64 below 1e-12
 against the oracle; --topk's fused and host paths give the same nodes.
+The estimators (--estrada/--subgraph/--dos) on tests/test_stochastic.py's
+ba200 graph in float64 print the dense oracle's values exactly as the
+JAX CLI does, and meet that file's bands against them (the seeded
+estimates themselves differ: torch's generator is not JAX's); their
+refusals print the JAX CLI's messages.
 """
 
 import numpy as np
@@ -151,9 +156,9 @@ def test_cli_each_format(fmt, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--estrada", "8"], "queue 1 item 13"),
-    (["--subgraph", "8"], "queue 1 item 13"),
-    (["--dos", "8"], "queue 1 item 13"),
+    (["--estrada", "8", "--shards", "2"], "queue 1 item 14"),
+    (["--subgraph", "8", "--shards", "2"], "queue 1 item 14"),
+    (["--dos", "8", "--shards", "2"], "queue 1 item 14"),
     (["--shards", "2"], "queue 1 item 14"),
     (["--fmt", "cst", "--shards", "2"], "queue 1 item 14"),
 ])
@@ -183,6 +188,69 @@ def test_cli_fmt_cst_modes_and_topk_refusal(capsys):
     rc, out = run(base + ["--ks", "10,20"], capsys)
     assert rc == 0 and "one k_max=20 decomposition" in out
     argv = ["-n", "300", "-e", "900", "--fmt", "cst", "--topk", "5"]
+    assert ref_main(argv) == 2
+    ref_err = capsys.readouterr().err
+    assert main(argv + ["--device", "cpu"]) == 2
+    assert capsys.readouterr().err == ref_err
+
+
+ESTIMATORS = ["-b", "3", "-n", "200", "--seed", "1", "-k", "40", "--dtype",
+              "float64", "--estrada", "32", "--subgraph", "32", "--dos",
+              "32", "--deflate", "8"]
+
+
+def _oracle_lines(out: str) -> list:
+    return [ln.split("dense oracle: ")[1].split("   rel err")[0].split(
+        ", top-1")[0].split("rel l2 err")[0]
+            for ln in out.splitlines() if "dense oracle: " in ln]
+
+
+def test_cli_estimators_against_the_dense_oracle(tmp_path, capsys):
+    """The fast ELL pack (--fmt auto) here; chip_smoke.py runs the same
+    argv through the default CPG pack and its kernel on the card."""
+    ap = str(tmp_path / "diag.txt")
+    rc, out = run(ESTIMATORS + ["--fmt", "auto", "--write-ans", ap], capsys)
+    assert rc == 0
+    est = float(out.split("Estrada index")[1].split("rel err ")[1].split()[0])
+    assert est < 2e-3
+    sub = out.split("rel l2 err ")[1]
+    assert float(sub.split(",")[0]) < 0.02
+    assert "top-1 match: True" in out
+    mass = float(out.split("mass=")[1].split()[0])
+    assert abs(mass - 1.0) < 1e-3
+    assert read_ans(ap).shape == (200,)
+    assert np.loadtxt(ap + ".dos").shape == (512, 2)
+    assert ref_main(ESTIMATORS + ["--fmt", "auto"]) == 0
+    out_ref = capsys.readouterr().out
+    want = _oracle_lines(out_ref)
+    assert len(want) == 2 and _oracle_lines(out) == want
+
+
+def test_cli_trace_fa_and_cpg_estimators(capsys):
+    rc, out = run(["-b", "3", "-n", "200", "--seed", "1", "-k", "40",
+                   "--dtype", "float64", "--estrada", "32", "--func",
+                   "heat:1", "--fmt", "auto"], capsys)
+    assert rc == 0 and "tr(exp(-1.0A)) ~=" in out
+    assert float(out.split("rel err ")[1].split()[0]) < 0.05
+    # the default pack (CPG) on a few probes
+    rc, out = run(["-b", "3", "-n", "200", "--seed", "1", "-k", "10",
+                   "--dtype", "float64", "--estrada", "2", "--subgraph", "2",
+                   "--deflate", "4"], capsys)
+    assert rc == 0
+    assert float(out.split("rel err ")[1].split()[0]) < 0.05
+
+
+@pytest.mark.parametrize("flags", [
+    ["--estrada", "8", "--topk", "5"],
+    ["--subgraph", "8", "--low-mem"],
+    ["--dos", "8", "--dtype", "df64"],
+    ["--estrada", "8", "--reorthogonalize"],
+    ["--dos", "8", "--pipeline", "2"],
+    ["--subgraph", "8", "--func", "heat:0.5"],
+    ["--ks", "10,20", "--estrada", "8"],
+])
+def test_cli_estimator_refusals_match_reference(flags, capsys):
+    argv = ["-n", "300", "-e", "900", "-k", "10"] + flags
     assert ref_main(argv) == 2
     ref_err = capsys.readouterr().err
     assert main(argv + ["--device", "cpu"]) == 2

@@ -19,7 +19,10 @@ Bars and why:
   30 steps on the graph where the plain recurrence departs at j ~ 23;
 - pipelined answers bit-identical to sequential ``expm_action``;
 - ``spectral_bounds`` brackets lambda_max (tests/test_core.py:403);
-- ``run_config`` equal to ``expm_action`` with the same knobs.
+- ``run_config`` equal to ``expm_action`` with the same knobs;
+- ``fmt="best"`` packs CPG up to ``CPG_MAX_N`` nodes and the ``auto``
+  ELL/COO/HYB format past it, as the reference; the answer matches the
+  oracle either way (1e-10, f64).
 """
 
 import jax.numpy as jnp
@@ -35,7 +38,7 @@ from tpu_lanczos.kernels import formats as ref_formats
 from tpu_lanczos_torch import (Config, expm_action, expm_action_ks,
                                expm_action_pipelined, expm_action_summary,
                                fa_action, run_config, spectral_bounds)
-from tpu_lanczos_torch.core import tridiag
+from tpu_lanczos_torch.core import pipeline, tridiag
 from tpu_lanczos_torch.core.lanczos import lanczos, lanczos_init, lanczos_range
 from tpu_lanczos_torch.eval import oracle
 from tpu_lanczos_torch.kernels import cpg, formats
@@ -256,3 +259,16 @@ def test_run_config_equals_expm_action(fmt, layout):
     assert res.log_scale == want.log_scale
     with pytest.raises(NotImplementedError, match="queue 1 item 14"):
         run_config(Config(shards=2), device="cpu")
+
+
+def test_best_pack_past_the_cpg_cap(monkeypatch):
+    g = to_port_graph(generators.uniform_random(500, 1500, seed=3))
+    want = oracle.expm_action(g, np.ones(g.n), 20)
+    assert isinstance(pipeline.best_device_pack(g, device="cpu"),
+                      cpg.CPGGraph)
+    monkeypatch.setattr(pipeline, "CPG_MAX_N", g.n - 1)
+    dg = pipeline.best_device_pack(g, device="cpu")
+    assert isinstance(dg, formats.DeviceGraph)
+    assert dg.fmt in ("ell", "coo", "hyb")
+    res = expm_action(g, k=20, dtype="float64", fmt="best", device="cpu")
+    assert oracle.rel_error(res.ans, want) < 1e-10

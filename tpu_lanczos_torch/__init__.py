@@ -16,7 +16,10 @@ one-decomposition k-sweep (``expm_action_ks``), general f(A).x
 (``fa_action``), pipelined serving (``expm_action_pipelined``),
 ``spectral_bounds``, ``run_config`` over ``Config``; the f64-grade df64
 pipeline on (hi, lo) float32 pairs (``expm_action_df`` with a pass-1
-checkpoint, ``expm_action_ks_df``); and the CLI
+checkpoint, ``expm_action_ks_df``); the stochastic estimators
+(``estrada_index``, ``subgraph_centrality``, ``spectral_density``,
+``trace_fa``); the stored-Q checkpoint
+(``core.checkpoint.lanczos_checkpointed``); and the CLI
 (``python -m tpu_lanczos_torch.cli.main``).
 """
 
@@ -39,6 +42,15 @@ from tpu_lanczos_torch.core.lanczos_df import (
     expm_action_df,
     expm_action_ks_df,
 )
+from tpu_lanczos_torch.core.stochastic import (
+    estrada_index,
+    subgraph_centrality,
+    spectral_density,
+    trace_fa,
+    TraceResult,
+    DiagResult,
+    DOSResult,
+)
 from tpu_lanczos_torch.config import Config
 
 __all__ = [
@@ -55,6 +67,13 @@ __all__ = [
     "best_device_pack",
     "expm_action_df",
     "expm_action_ks_df",
+    "estrada_index",
+    "subgraph_centrality",
+    "spectral_density",
+    "trace_fa",
+    "TraceResult",
+    "DiagResult",
+    "DOSResult",
     "LanczosResult",
     "SummaryResult",
     "Config",

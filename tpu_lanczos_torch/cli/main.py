@@ -13,9 +13,10 @@ Without a GPU and without ``--device cpu`` the CLI exits with an error;
 it never falls back to the CPU by itself.  ``--device`` takes the place
 of the reference's ``--platform``.
 
-Flags whose code is not ported yet keep their parser entry and exit 2,
-naming their ROADMAP item: ``--estrada``, ``--subgraph`` and ``--dos``
-(queue 1 item 13) and ``--shards`` (queue 1 item 14).
+``--shards``, whose code is not ported yet, keeps its parser entry and
+exits 2, naming its ROADMAP item (queue 1 item 14), alone or with the
+stochastic estimators (``--estrada``, ``--subgraph``, ``--dos``), which
+run on one device.
 """
 
 from __future__ import annotations
@@ -89,17 +90,23 @@ def build_parser() -> argparse.ArgumentParser:
                         " or cos.  Non-exp functions run the host-eig "
                         "pipeline (fa_action)")
     p.add_argument("--estrada", type=int, default=0, metavar="PROBES",
-                   help="Estrada index tr(e^A) by Hutchinson probes (not "
-                        "ported, ROADMAP queue 1 item 13)")
+                   help="estimate the Estrada index tr(e^A) with PROBES "
+                        "Hutchinson probes (one Q-free Lanczos quadrature "
+                        "each; core/stochastic.py); with --func, tr(f(A))")
     p.add_argument("--subgraph", type=int, default=0, metavar="PROBES",
-                   help="subgraph centrality diag(e^A) by Hutchinson "
-                        "probes (not ported, ROADMAP queue 1 item 13)")
+                   help="estimate subgraph centrality diag(e^A) for every "
+                        "node with PROBES Hutchinson probes; prints the "
+                        "top-10 nodes")
     p.add_argument("--dos", type=int, default=0, metavar="PROBES",
-                   help="spectral density by stochastic Lanczos "
-                        "quadrature (not ported, ROADMAP queue 1 item 13)")
+                   help="estimate the spectral density (DOS) of A by "
+                        "stochastic Lanczos quadrature with PROBES "
+                        "probes; prints the spectral interval and "
+                        "density peaks (use --write-ans to dump the "
+                        "grid/density table)")
     p.add_argument("--deflate", type=int, default=8, metavar="M",
-                   help="rank of the deflation basis for --estrada/"
-                        "--subgraph (not ported, ROADMAP queue 1 item 13)")
+                   help="rank of the top-Ritz deflation basis for "
+                        "--estrada/--subgraph variance reduction (0 = "
+                        "plain Hutchinson)")
     p.add_argument("--log-scale", action="store_true",
                    help="return e^(A - lambda_max I).x plus the shift "
                         "(avoids f32 overflow)")
@@ -182,9 +189,6 @@ def _custom_cpg_dg(args, g):
 
 def _unported(args) -> str | None:
     """The message for a flag whose code is not ported yet, or None."""
-    if args.estrada or args.subgraph or args.dos:
-        return ("--estrada/--subgraph/--dos: the stochastic estimators are "
-                "not ported yet (ROADMAP queue 1 item 13)")
     if args.shards:
         return ("--shards: the row-sharded multi-device path is not ported "
                 "yet (ROADMAP queue 1 item 14)")
@@ -218,6 +222,122 @@ def _print_summary(label: str, t_device: float, topk: int, norm: float,
           + " ".join(f"{v:.6e}" for v in values))
 
 
+def _estimators(args, g, k: int) -> int:
+    """--estrada/--subgraph/--dos on one device, with the dense oracle
+    beside each estimate for graphs of at most 4,000 nodes."""
+    if (args.topk or args.low_mem
+            or args.dtype == "df64" or args.reorthogonalize
+            or args.ks or args.pipeline):
+        print("error: --estrada/--subgraph/--dos run the f32/f64 "
+              "pipeline (no --topk/--low-mem/df64/"
+              "--reorthogonalize/--ks/--pipeline)", file=sys.stderr)
+        return 2
+    fa_est = _parse_func(args.func)
+    if fa_est is not None and args.subgraph:
+        print("error: --func composes with --estrada only (the "
+              "diagonal estimator's fused shifted-space program is "
+              "exp-specific)", file=sys.stderr)
+        return 2
+    from tpu_lanczos_torch.core import stochastic
+    from tpu_lanczos_torch.core.pipeline import _resolve_dg
+    from tpu_lanczos_torch.eval import oracle
+
+    if args.log_scale:
+        print("note: --log-scale is implied by the estimators (they "
+              "work in shifted space); flag ignored", file=sys.stderr)
+    if args.write_ans and not (args.subgraph or args.dos):
+        print("note: --write-ans applies to --subgraph/--dos only "
+              "(--estrada yields a scalar); flag ignored",
+              file=sys.stderr)
+    dgc = _custom_cpg_dg(args, g)
+    if dgc is None:
+        dgc = _resolve_dg(g, args.fmt, args.ell_pct, args.device)
+    dense = not args.no_serial and g.n <= 4000
+    if args.estrada:
+        t0 = time.time()
+        if fa_est is not None:
+            # general-f trace: tr(f(A)) by deflated Hutchinson with
+            # |f(theta)|-ranked Ritz deflation (heat kernels deflate the
+            # bottom of the spectrum, exp-like f the top)
+            f, label = fa_est
+            r = stochastic.trace_fa(
+                g, f=f, k=k, probes=args.estrada, deflate=args.deflate,
+                seed=args.seed, dtype=args.dtype, dg=dgc)
+            dt = time.time() - t0
+            print(f"tr({label}) ~= {r.estimate:.6e}")
+            print(f"  probes={r.probes} k={r.k} deflation rank="
+                  f"{r.deflated}  rel stderr={r.rel_stderr:.2e}  "
+                  f"[{dt:.4f}s incl. kernel build on first run]")
+            if dense:
+                tr_true = oracle.trace_fa_dense(g, f)
+                print(f"  dense oracle: {tr_true:.6e}   rel err "
+                      f"{abs(r.estimate - tr_true) / abs(tr_true):.3e}")
+        else:
+            r = stochastic.estrada_index(
+                g, k=k, probes=args.estrada, deflate=args.deflate,
+                seed=args.seed, dtype=args.dtype, dg=dgc)
+            dt = time.time() - t0
+            print(f"Estrada index tr(e^A) ~= {r.estimate:.6e}   "
+                  f"(log: {r.log_estimate:.6f})")
+            print(f"  probes={r.probes} k={r.k} deflation rank="
+                  f"{r.deflated}  rel stderr={r.rel_stderr:.2e}  "
+                  f"[{dt:.4f}s incl. kernel build on first run]")
+            if dense:
+                tr_true = oracle.trace_expm_dense(g)
+                print(f"  dense oracle: {tr_true:.6e}   rel err "
+                      f"{abs(r.estimate - tr_true) / tr_true:.3e}")
+    if args.subgraph:
+        t0 = time.time()
+        dr = stochastic.subgraph_centrality(
+            g, k=k, probes=args.subgraph, deflate=args.deflate,
+            seed=args.seed, dtype=args.dtype, dg=dgc)
+        dt = time.time() - t0
+        print(f"subgraph centrality diag(e^A), scaled by "
+              f"e^{dr.log_scale:.4f}:")
+        print(f"  probes={dr.probes} k={dr.k} deflation rank="
+              f"{dr.deflated}  [{dt:.4f}s incl. kernel build on first run]")
+        top = dr.top_nodes(10)
+        print("  top-10 nodes: " + ", ".join(
+            f"{i} ({dr.diag_scaled[i]:.4g})" for i in top))
+        if dense:
+            d_true = oracle.diag_expm_dense(g)
+            d_est = dr.full_diag()
+            if np.all(np.isfinite(d_est)):
+                rel = (np.linalg.norm(d_est - d_true)
+                       / np.linalg.norm(d_true))
+                print(f"  dense oracle: rel l2 err {rel:.3e}, top-1 "
+                      f"match: {int(top[0]) == int(np.argmax(d_true))}")
+        if args.write_ans:
+            from tpu_lanczos_torch.eval.check import write_ans
+
+            write_ans(dr.diag_scaled, args.write_ans)
+            print(f"scaled diagonal written to {args.write_ans} "
+                  f"(true diag = value * e^{dr.log_scale:.4f})")
+    if args.dos:
+        t0 = time.time()
+        d = stochastic.spectral_density(
+            g, k=k, probes=args.dos, seed=args.seed, dtype=args.dtype,
+            dg=dgc)
+        dt = time.time() - t0
+        mass = float(np.trapezoid(d.density, d.grid))
+        print(f"spectral density (DOS): lambda in "
+              f"[{d.lambda_min:.4f}, {d.lambda_max:.4f}], "
+              f"sigma={d.sigma:.4f}")
+        print(f"  probes={d.probes} k={d.k} mass={mass:.4f}  "
+              f"[{dt:.4f}s incl. kernel build on first run]")
+        idx = np.argsort(d.density)[::-1][:3]
+        print("  density peaks near lambda ~ " + ", ".join(
+            f"{d.grid[i]:.3f} ({d.density[i]:.4g})" for i in sorted(idx)))
+        if args.write_ans:
+            # two-column (lambda, density) table; suffixed when
+            # --subgraph already claimed the path
+            path = (args.write_ans + ".dos" if args.subgraph
+                    else args.write_ans)
+            np.savetxt(path, np.column_stack([d.grid, d.density]))
+            print(f"DOS table (lambda, density) written to {path}")
+    return 0
+
+
 def _main(args) -> int:
     from tpu_lanczos_torch.utils import enable_heap_reuse
 
@@ -236,10 +356,11 @@ def _main(args) -> int:
     # ---------------- all-k convergence study (--ks)
     if args.ks:
         if (args.topk or args.low_mem or args.func != "exp"
-                or args.reorthogonalize or args.pipeline):
-            print("error: --ks runs the single-device exp pipeline (no "
-                  "--topk/--low-mem/--func/--reorthogonalize/--pipeline)",
-                  file=sys.stderr)
+                or args.reorthogonalize or args.estrada or args.subgraph
+                or args.pipeline):
+            print("error: --ks runs the single-chip exp pipeline (no "
+                  "--shards/--topk/--low-mem/--func/--reorthogonalize/"
+                  "--estrada/--subgraph/--pipeline)", file=sys.stderr)
             return 2
         ks = [int(s) for s in args.ks.split(",")]
         t0 = time.time()
@@ -273,6 +394,10 @@ def _main(args) -> int:
                 write_ans(results[kk].ans, f"{args.write_ans}.k{kk}")
             print(f"answers written to {args.write_ans}.k<K>")
         return 0
+
+    # -------- stochastic spectral estimators (--estrada/--subgraph/--dos)
+    if args.estrada or args.subgraph or args.dos:
+        return _estimators(args, g, k)
 
     # ---------------- general spectral function (--func != exp)
     fa = _parse_func(args.func)

@@ -16,7 +16,8 @@ O(topk) values come back.
   eigh, then a pass that regenerates q_j and accumulates the answer), O(n)
   device memory in place of the (k, n_pad) basis.
 
-Formats (``fmt``): "best" and "cpg" pack CPG and "cst" packs CST, each
+Formats (``fmt``): "cpg", and "best" up to ``CPG_MAX_N`` nodes, pack
+CPG, and "cst" packs CST, each
 with its hand-written CUDA kernel on the GPU (its plain version on the
 CPU); "auto", "ell", "coo" and "hyb" pack the fallback formats, whose
 SpMV is plain torch ops.  A GPG pack (kernels/gpg.py, its own CUDA
@@ -82,10 +83,20 @@ class SummaryResult:
     k: int
 
 
-def best_device_pack(graph: CSRGraph, device="cuda") -> CPGGraph:
-    """The fastest ported format: CPG on every device (the reference picks
-    CPG on the TPU; the port's CPG kernel is its CUDA kernel)."""
-    return pack_cpg(graph, device=device)
+# the largest graph ``fmt="best"`` packs as CPG: the reference's cap
+# (tpu_lanczos/kernels/spmv_cpg.py:486-491), kept until the pack's bytes
+# per node are measured on the 80 GB card
+CPG_MAX_N = 80_000_000
+
+
+def best_device_pack(graph: CSRGraph, device="cuda"):
+    """The fastest ported format: CPG on every device up to
+    ``CPG_MAX_N`` nodes (the reference picks CPG on the TPU up to the same
+    size; the port's CPG kernel is its CUDA kernel), the ``auto``
+    ELL/COO/HYB format past it, as the reference."""
+    if graph.n <= CPG_MAX_N:
+        return pack_cpg(graph, device=device)
+    return pack(graph, fmt="auto", device=device)
 
 
 def _resolve_dg(graph: CSRGraph, fmt: str, ell_pct: float = 98.0,

@@ -1,0 +1,113 @@
+"""Time the main path of two checkouts of the port on one GPU, in turns.
+
+    python -m tpu_lanczos_torch.eval.main_path_times --other DIR [--tag NAME]
+
+Each turn is a child process that imports ``tpu_lanczos_torch`` from one
+checkout (this one, or ``DIR``: another commit unpacked with ``git
+archive``), builds its kernels, packs bench.py's graph (Barabasi-Albert
+n=1M, m=10, seed 0, native generator; sub=512) and times what chip_smoke
+phase 3 times on it: one SpMV and ``lanczos(dg, realmask, 50)`` (CUDA
+events) and the top-20 query ``expm_action_summary`` with the host and
+the device eigensolve (host wall, synchronised); medians of 5 after one
+warm run.  The turns run other, this, this, other, so drift on the card
+or its host shows in the other checkout's two rows.  One JSON line per
+turn; the first line is the card's name and power limit.  Needs a CUDA
+GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+THIS_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+TURN = r"""
+import json, sys, time
+root, tag = sys.argv[1], sys.argv[2]
+sys.path.insert(0, root)
+import numpy as np, torch
+import tpu_lanczos_torch
+assert tpu_lanczos_torch.__file__.startswith(root), tpu_lanczos_torch.__file__
+from tpu_lanczos_torch import generators, expm_action_summary
+from tpu_lanczos_torch.core.lanczos import lanczos
+from tpu_lanczos_torch.kernels import spmv_cpg
+from tpu_lanczos_torch.kernels.cpg import pack_cpg
+
+
+def cuda_ms(fn, reps=5):
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        out.append(s.elapsed_time(e))
+    return float(np.median(out)), out
+
+
+def wall_s(fn, reps=5):
+    fn()
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.time() - t0)
+    return float(np.median(out)), out
+
+
+g = generators.barabasi_albert(1_000_000, 10, seed=0, use_native=True)
+dg = pack_cpg(g, sub=512, device="cuda")
+x1 = dg.realmask.clone()
+row = {"tag": tag, "root": root, "device": torch.cuda.get_device_name(0)}
+row["spmv_ms"], row["spmv_samples"] = cuda_ms(
+    lambda: spmv_cpg.spmv_cpg(dg, x1))
+row["lanczos_k50_ms"], row["lanczos_samples"] = cuda_ms(
+    lambda: lanczos(dg, x1, 50))
+row["query_host_eig_s"], row["query_host_eig_samples"] = wall_s(
+    lambda: expm_action_summary(g, k=50, topk=20, dg=dg))
+row["query_device_eig_s"], row["query_device_eig_samples"] = wall_s(
+    lambda: expm_action_summary(g, k=50, topk=20, dg=dg, eig_impl="device"))
+print(json.dumps(row), flush=True)
+"""
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--other", required=True,
+                   help="root of the other checkout (holds "
+                        "tpu_lanczos_torch/)")
+    p.add_argument("--tag", default="other", help="the other checkout's tag")
+    args = p.parse_args(argv)
+    other = os.path.abspath(args.other)
+    if not os.path.isdir(os.path.join(other, "tpu_lanczos_torch")):
+        p.error(f"{other} holds no tpu_lanczos_torch/")
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip(), flush=True)
+    for root, tag in ((other, args.tag), (THIS_ROOT, "this"),
+                      (THIS_ROOT, "this"), (other, args.tag)):
+        # each turn builds its own checkout's kernels into its build/
+        proc = subprocess.run([sys.executable, "-c", TURN, root, tag],
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            return proc.returncode
+        row = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(json.dumps(row), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -49,6 +49,10 @@ def lanczos(
     the working full-reorthogonalization variant mirrors
     decompose_with_arnoldi, lanczos.cc:58-132, applied every iteration)."""
     n = graph.n
+    # scipy's CSR product adds each row's entries in storage order, the
+    # order ``spmv``'s np.add.at adds them, so it is the same SpMV bit for
+    # bit, and ~10x faster at a million nodes
+    a = graph.to_scipy()
     x = np.asarray(x, dtype=np.float64)
     x_norm = float(np.linalg.norm(x))
     q_basis = np.zeros((n, k), dtype=np.float64)
@@ -58,7 +62,7 @@ def lanczos(
     q_prev = np.zeros(n, dtype=np.float64)
     for j in range(k):
         q_basis[:, j] = q
-        v = spmv(graph, q)
+        v = a @ q
         alpha[j] = float(v @ q)
         v = v - alpha[j] * q
         if j > 0:

@@ -167,7 +167,14 @@ def run_level_comp(x2d: torch.Tensor, level: dict, n_chunks: int,
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """One compensated CPG level, float32 only, classic or (``slab``)
     slab layout: the CUDA kernel on a CUDA tensor, the plain version on a
-    CPU tensor.  Returns (acc, err)."""
+    CPU tensor.  Returns (acc, err).
+
+    Precondition: x is +-0.0 in lane 127 of every row.  The classic CUDA
+    walk adds +0.0 for a ghost cell without loading x
+    (csrc/spmv_cpg.cu:61-72, :150-151), while the plain version and the
+    reference's kernel add x[..., 127]; they agree bit for bit only where
+    that lane holds zeros.  Every level input that ``spmv_cpg_df`` gives
+    it does (the pack keeps lane 127 empty)."""
     global launches_comp, launches_comp_slab
     if x2d.device.type == "cpu":
         return run_level_comp_ref(x2d, level, n_chunks, sub, slab)
