@@ -1,7 +1,8 @@
 """The port's CLI (tpu_lanczos_torch.cli.main) on the CPU: the
 counterparts of tests/test_aux.py's single-device CLI cases at the same
 bars, the same argv through both CLIs, every single-device mode and
-format (``--fmt cst`` included), and the flags that are not ported yet.
+format (``--fmt cst`` included), and ``--shards N`` (the port on N CPU
+shards) alone, with the estimators and with df64.
 
 Bars: f64 answers within 1e-10 of the oracle (the reference's CLI bar)
 and of the JAX CLI's answer on the same argv, with the same -v top-10;
@@ -11,7 +12,9 @@ The estimators (--estrada/--subgraph/--dos) on tests/test_stochastic.py's
 ba200 graph in float64 print the dense oracle's values exactly as the
 JAX CLI does, and meet that file's bands against them (the seeded
 estimates themselves differ: torch's generator is not JAX's); their
-refusals print the JAX CLI's messages.
+refusals print the JAX CLI's messages.  The --shards runs meet the bars
+of their single-device twins, and their refusals print the JAX CLI's
+messages too.
 """
 
 import numpy as np
@@ -155,16 +158,81 @@ def test_cli_each_format(fmt, capsys):
     assert rel_of(out) < 1e-10
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--estrada", "8", "--shards", "2"], "queue 1 item 14"),
-    (["--subgraph", "8", "--shards", "2"], "queue 1 item 14"),
-    (["--dos", "8", "--shards", "2"], "queue 1 item 14"),
-    (["--shards", "2"], "queue 1 item 14"),
-    (["--fmt", "cst", "--shards", "2"], "queue 1 item 14"),
+def _both(argv, capsys):
+    """argv through the JAX CLI and the port's (--device cpu): (rc, out,
+    err) of each."""
+    rc_ref = ref_main(argv)
+    ref = capsys.readouterr()
+    rc = main(argv + ["--device", "cpu"])
+    port = capsys.readouterr()
+    return (rc_ref, ref.out, ref.err), (rc, port.out, port.err)
+
+
+SHARDS_BASE = ["-b", "3", "-n", "200", "--seed", "1", "-k", "40", "--dtype",
+               "float64", "--deflate", "8", "--fmt", "auto"]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--estrada", "32", "--shards", "2"],
+    ["--subgraph", "32", "--shards", "2"],
+    ["--dos", "32", "--shards", "2"],
+    ["--shards", "2"],
+    ["--fmt", "cst", "--shards", "2"],
 ])
-def test_cli_unported_flags_exit_2(flags, item, capsys):
-    assert main(["-n", "200", "-e", "600", "--device", "cpu"] + flags) == 2
-    assert item in capsys.readouterr().err
+def test_cli_shards_through_both_clis(flags, tmp_path, capsys):
+    """The same --shards argv through both CLIs: rc 0 and the printed
+    numbers within the bars of the matching single-device cases (the
+    estimators on ba200 against the dense oracle, whose lines both print
+    alike; e^A.x in float64 within 1e-10 of the serial oracle and of the
+    JAX CLI's answer, with its top-10); --fmt cst exits 2 in both with the
+    reference's stderr.  --fmt auto: the JAX CLI packs CPG for "best" on
+    a TPU only."""
+    argv = SHARDS_BASE + flags
+    if flags[0] == "--shards":
+        argv += ["-v", "--write-ans", str(tmp_path / "ans.txt")]
+    (rc_ref, out_ref, err_ref), (rc, out, err) = _both(argv, capsys)
+    if "cst" in flags:
+        assert rc_ref == rc == 2 and err == err_ref
+        return
+    assert rc_ref == 0 and rc == 0, err
+    if flags[0] == "--shards":
+        assert "2-shard mesh pipeline (float64)" in out
+        assert rel_of(out) < 1e-10 and rel_of(out_ref) < 1e-10
+        assert top10(out) == top10(out_ref)
+        return
+    assert "2-shard mesh (stochastic estimators, ShardedGraph)" in out
+    assert _oracle_lines(out) == _oracle_lines(out_ref)
+    if flags[0] == "--estrada":
+        assert float(out.split("rel err ")[1].split()[0]) < 2e-3
+    elif flags[0] == "--subgraph":
+        assert float(out.split("rel l2 err ")[1].split(",")[0]) < 0.02
+        assert "top-1 match: True" in out
+    else:
+        for o in (out, out_ref):
+            assert abs(float(o.split("mass=")[1].split()[0]) - 1.0) < 1e-3
+        lam = [[float(v) for v in o.split("lambda in [")[1].split("]")[0]
+                .split(", ")] for o in (out, out_ref)]
+        np.testing.assert_allclose(lam[0], lam[1], atol=1e-3)
+
+
+def test_cli_shards_df64_cpg_and_refusals(capsys):
+    """--shards with df64 and with the CPG pack (the port's sharded CPG
+    kernel path) against the serial oracle, and every --shards refusal
+    with the JAX CLI's stderr."""
+    base = ["-n", "600", "-b", "4", "-k", "20", "--shards", "2"]
+    rc, out = run(base + ["--dtype", "df64"], capsys)
+    assert rc == 0 and "2-shard mesh pipeline (df64)" in out
+    assert rel_of(out) < 1e-12
+    rc, out = run(base + ["--dtype", "float64", "--fmt", "cpg",
+                          "--cpg-sub", "256"], capsys)
+    assert rc == 0 and rel_of(out) < 1e-10
+    for flags in (["--topk", "5"], ["--pipeline", "2"], ["--ks", "5,10"],
+                  ["--func", "heat:0.5"], ["--fmt", "cpg", "--cpg-layout",
+                                            "slab"],
+                  ["--dtype", "df64", "--cpg-layout", "slab"],
+                  ["--estrada", "4", "--fmt", "cst"]):
+        (rc_ref, _, err_ref), (rc, _, err) = _both(base + flags, capsys)
+        assert rc_ref == rc == 2 and err == err_ref, flags
 
 
 def test_cli_without_cuda_refuses_to_run_on_the_cpu(monkeypatch, capsys):

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions on the card: the
-CPG SpMV kernels (classic and slab layout, plain and compensated), the
-CST and GPG level kernels and the dense-block probe; and the f32, df64,
-CST and GPG pipelines on CUDA against the float64 oracle.
+CPG SpMV kernels (classic and slab layout, plain and compensated, on one
+device and on every shard level of the row-sharded path), the CST and GPG
+level kernels and the dense-block probe; and the f32, df64, CST, GPG and
+row-sharded pipelines on CUDA against the float64 oracle.
 
 Marked ``cuda``: each test skips (with its reason) where no CUDA device
 is present, and runs on a GPU machine with
@@ -299,3 +300,97 @@ def test_mxu_probe_kernel_equals_plain_version(dev):
             assert torch.equal(got, want)
         else:
             assert mxu_probe.rel_err(got, want, 8) < 1e-5
+
+
+# ------------------------------------------------------ the row-sharded path
+
+
+def _sharded(dev, n_shards, sub=128):
+    """A 40,000-node power-law pack split over ``n_shards`` shards of one
+    card (its tiles span two shards at sub=128: own, cross and reduce
+    passes), and its mesh."""
+    from tpu_lanczos_torch.dist import make_mesh
+    from tpu_lanczos_torch.dist.cpg_sharded import pack_cpg_sharded
+
+    g = generators.barabasi_albert(40000, 4, seed=5)
+    mesh = make_mesh(devices=[dev] * n_shards)
+    return g, mesh, pack_cpg_sharded(g, n_shards, mesh=mesh, sub=sub)
+
+
+def test_sharded_levels_equal_plain_versions(dev):
+    """Every shard level of one SpMV and one df SpMV, on 4 shards of the
+    card, through kernels 1 and 1c and their plain versions on the same
+    inputs: equal; the sharded SpMVs equal their plain versions."""
+    from tpu_lanczos_torch.core.lanczos_df import split_f64
+    from tpu_lanczos_torch.dist import cpg_sharded as cs, lanczos_df as ldf
+
+    g, mesh, sg = _sharded(dev, 4)
+    assert sg.overlap and min(sg.t_reals) > 0
+
+    def plain(x2d, level, n_chunks, sub, base=None, slab=False):
+        got = spmv_cpg.run_level(x2d, level, n_chunks, sub, base)
+        assert torch.equal(got, spmv_cpg.run_level_ref(x2d, level, n_chunks,
+                                                       sub, base))
+        return got
+
+    def comp(x2d, level, n_chunks, sub, slab=False):
+        got = spmv_cpg.run_level_comp(x2d, level, n_chunks, sub)
+        want = spmv_cpg.run_level_comp_ref(x2d, level, n_chunks, sub)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        return got
+
+    x64 = sg.permute_in(np.random.default_rng(0).standard_normal(g.n),
+                        np.float64)
+    for dt in (np.float32, np.float64):
+        xs = mesh.split(x64.astype(dt), sg.n_loc)
+        before = spmv_cpg.launches
+        y = cs._local_spmv(sg, mesh, xs, plain)
+        torch.cuda.synchronize()
+        passes = sum(1 for i in range(len(sg.levels))
+                     if i >= sg.n_main or sg.t_reals[i] > 0)
+        assert spmv_cpg.launches - before == 4 * passes
+        assert all(torch.equal(a, b) for a, b in zip(
+            y, cs.spmv_cpg_sharded_ref(sg, mesh, xs)))
+    hi, lo = split_f64(x64)
+    hi, lo = mesh.split(hi, sg.n_loc), mesh.split(lo, sg.n_loc)
+    got = ldf._local_spmv_df(sg, mesh, list(zip(hi, lo)), plain, comp)
+    want = ldf.spmv_cpg_df_sharded_ref(sg, mesh, hi, lo)
+    assert all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+               for a, b in zip(got, want))
+
+
+def test_one_shard_spmv_equals_single_device(dev):
+    from tpu_lanczos_torch.dist import make_mesh
+    from tpu_lanczos_torch.dist.cpg_sharded import (
+        ShardedCPG, dest_only_kw, split_cpg, spmv_cpg_sharded)
+
+    g = generators.barabasi_albert(40000, 4, seed=5)
+    cg = cpg.pack_cpg(g, sub=256, device=dev, **dest_only_kw())
+    split = split_cpg(cg, 1)
+    mesh = make_mesh(devices=[dev])
+    sg = ShardedCPG.from_numpy(split["meta"], split["levels"],
+                               split["realmask"], split["new_of_old"], mesh)
+    for dt in (np.float32, np.float64):
+        x = torch.from_numpy(cg.permute_in(np.random.default_rng(1)
+                                           .standard_normal(g.n), dt)).to(dev)
+        (y,) = spmv_cpg_sharded(sg, mesh, x)
+        assert torch.equal(y, spmv_cpg.spmv_cpg(cg, x))
+
+
+def test_sharded_pipelines_on_cuda_match_oracle(dev):
+    """f64 e^A.x and df64 through 4 shards of the card against the
+    oracle, and a mesh of more GPUs than the machine has refused with the
+    reference's message."""
+    from tpu_lanczos_torch.dist import expm_action_sharded, make_mesh
+    from tpu_lanczos_torch.dist.lanczos_df import expm_action_df_sharded
+
+    g, mesh, sg = _sharded(dev, 4)
+    want = oracle.expm_action(g, np.ones(g.n), 30)
+    ans, _, _, _ = expm_action_sharded(sg, k=30, mesh=mesh, dtype="float64")
+    assert oracle.rel_error(ans, want) < 1e-12
+    res = expm_action_df_sharded(g, k=30, mesh=mesh, sg=sg)
+    assert oracle.rel_error(res.ans, want) < 1e-11
+    have = torch.cuda.device_count()
+    with pytest.raises(ValueError,
+                       match=f"need {have + 1} devices, have {have}"):
+        make_mesh(have + 1)

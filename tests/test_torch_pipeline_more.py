@@ -19,11 +19,15 @@ Bars and why:
   30 steps on the graph where the plain recurrence departs at j ~ 23;
 - pipelined answers bit-identical to sequential ``expm_action``;
 - ``spectral_bounds`` brackets lambda_max (tests/test_core.py:403);
-- ``run_config`` equal to ``expm_action`` with the same knobs;
+- ``run_config`` equal to ``expm_action`` with the same knobs, and with
+  ``shards=2`` within 1e-10 of the reference's ``run_config`` (f64; the
+  sharded sums run in other orders);
 - ``fmt="best"`` packs CPG up to ``CPG_MAX_N`` nodes and the ``auto``
   ELL/COO/HYB format past it, as the reference; the answer matches the
   oracle either way (1e-10, f64).
 """
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -31,6 +35,7 @@ import pytest
 import scipy.linalg
 import torch
 
+from tpu_lanczos.config import Config as RefConfig
 from tpu_lanczos.core import pipeline as ref_pipeline
 from tpu_lanczos.core.lanczos import lanczos as ref_lanczos
 from tpu_lanczos.graphs import generators
@@ -257,8 +262,22 @@ def test_run_config_equals_expm_action(fmt, layout):
                        dg=dg, log_scale=True, device="cpu")
     np.testing.assert_array_equal(res.ans, want.ans)
     assert res.log_scale == want.log_scale
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        run_config(Config(shards=2), device="cpu")
+    # Config.shards: the row-sharded path on 2 CPU shards, against the
+    # reference's run_config on 2 of its virtual CPU devices; the slab
+    # layout is refused there with the reference's text
+    cfg = dataclasses.replace(cfg, shards=2)
+    if layout == "slab":
+        with pytest.raises(ValueError) as got:
+            run_config(cfg, device="cpu")
+        with pytest.raises(ValueError) as ref_err:
+            ref_pipeline.run_config(RefConfig(**dataclasses.asdict(cfg)))
+        assert str(got.value) == str(ref_err.value)
+        cfg = dataclasses.replace(cfg, cpg_layout="classic")
+    ans, shift, _, sg = run_config(cfg, device="cpu")
+    ref_ans, ref_shift, _, _ = ref_pipeline.run_config(
+        RefConfig(**dataclasses.asdict(cfg)))
+    assert sg.n_shards == 2 and shift is not None
+    assert oracle.rel_error(ans * np.exp(shift - ref_shift), ref_ans) < 1e-10
 
 
 def test_best_pack_past_the_cpg_cap(monkeypatch):

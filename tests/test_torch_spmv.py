@@ -2,8 +2,10 @@
 port against the reference's ``spmv_cpg(cg, x, interpret=True)`` on the
 same pack, bit for bit, and against scipy in float64 within 1e-11 (the
 reference's own bar, tests/test_cpg.py:38).  Plus the premise of the
-compensated kernel's ghost skip (lane-127 slots), the wrapper's argument
-checks and the format dispatch."""
+compensated kernel's ghost skip (lane-127 slots), on one device and on
+every buffer a shard reads in the row-sharded SpMVs, the wrapper's
+argument checks (a source of another chunk count than the dest's
+included) and the format dispatch."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,11 +14,16 @@ import torch
 
 from tpu_lanczos.kernels import cpg as ref_cpg
 from tpu_lanczos.kernels.spmv_cpg import spmv_cpg as ref_spmv_cpg
+from tpu_lanczos.graphs import generators
+from tpu_lanczos_torch.core.lanczos_df import split_f64
+from tpu_lanczos_torch.dist import cpg_sharded as cs
+from tpu_lanczos_torch.dist import lanczos_df as ldf
+from tpu_lanczos_torch.dist.mesh import make_mesh
 from tpu_lanczos_torch.kernels import spmv_cpg
-from tpu_lanczos_torch.kernels.cpg import LANE
+from tpu_lanczos_torch.kernels.cpg import LANE, pack_cpg
 from tpu_lanczos_torch.kernels.spmv import spmv
 
-from _torch_cases import PACK_CASES, port_pack
+from _torch_cases import PACK_CASES, port_pack, star_graph, to_port_graph
 
 
 @pytest.fixture(scope="module", params=list(PACK_CASES))
@@ -115,6 +122,77 @@ def test_every_level_input_is_zero_in_lane_127(case):
     assert len(seen) == L + (2 * nb + 2 * (L - nb))
 
 
+SHARDED_GRAPHS = {
+    # tests/test_cpg_sharded.py's graphs: a power-law pack (full
+    # gathers), the 360k-node stencil (the halo path) and the hub (deep
+    # reduce levels, compact exchanges); and a 40,000-node power-law pack
+    # at sub=128 whose tiles span two shards (a cross pass that is not
+    # empty: below ~16,000 units every tile is in shard 0's block)
+    "barabasi": (lambda: generators.barabasi_albert(
+        3000, 8, seed=2, use_native=False), None),
+    "stencil600": (lambda: generators.stencil_2d(600), None),
+    "hub": (lambda: star_graph(2000), None),
+    "barabasi40k": (lambda: generators.barabasi_albert(
+        40000, 4, seed=5, use_native=False), 128),
+}
+
+
+@pytest.fixture(scope="module", params=list(SHARDED_GRAPHS))
+def dest_only_pack(request):
+    build, sub = SHARDED_GRAPHS[request.param]
+    g = to_port_graph(build())
+    return g, pack_cpg(g, sub=sub, device="cpu", **cs.dest_only_kw())
+
+
+@pytest.mark.parametrize("n_shards", [2, 4, 5])
+def test_every_sharded_level_input_is_zero_in_lane_127(dest_only_pack,
+                                                       n_shards):
+    """The ghost-skip premise on the row-sharded path: every buffer a
+    shard's level reads (its own rows, the gathered vector, its rows
+    followed by the halo, the halo buffer, the compact reduce buffer,
+    each with its padded chunks) holds +-0.0 in every lane-127 slot, in
+    the plain SpMV and in both streams of the df SpMV, with the main
+    level split (overlap) and unsplit."""
+    g, cg = dest_only_pack
+    mesh = make_mesh(n_shards, device="cpu")
+    xr = np.random.default_rng(6).standard_normal(g.n)
+    for overlap in (True, False):
+        split = cs.split_cpg(cg, n_shards, overlap)
+        sg = cs.ShardedCPG.from_numpy(split["meta"], split["levels"],
+                                      split["realmask"],
+                                      split["new_of_old"], mesh)
+        n = {"calls": 0}
+
+        def check(x2d):
+            assert not x2d[:, LANE - 1].any()
+            assert x2d.shape[0] % sg.sub == 0
+
+        def plain(x2d, level, n_chunks, sub, base=None, slab=False):
+            check(x2d)
+            if base is not None:
+                check(base)
+            n["calls"] += 1
+            return spmv_cpg.run_level_ref(x2d, level, n_chunks, sub, base)
+
+        def comp(x2d, level, n_chunks, sub, slab=False):
+            check(x2d)
+            n["calls"] += 1
+            return spmv_cpg.run_level_comp_ref(x2d, level, n_chunks, sub)
+
+        x64 = sg.permute_in(xr, np.float64)
+        x32 = mesh.split(x64.astype(np.float32), sg.n_loc)
+        cs._local_spmv(sg, mesh, x32, plain)
+        hi, lo = split_f64(x64)
+        ldf._local_spmv_df(sg, mesh, list(zip(mesh.split(hi, sg.n_loc),
+                                              mesh.split(lo, sg.n_loc))),
+                           plain, comp)
+        # every pass of every shard, thrice: the plain SpMV, and the df
+        # SpMV's compensated and plain runs (an empty main pass is skipped)
+        passes = sum(1 for i in range(len(sg.levels))
+                     if i >= sg.n_main or sg.t_reals[i] > 0)
+        assert n["calls"] == 3 * n_shards * passes
+
+
 def _level_args(port, dtype=torch.float32):
     x2d = torch.zeros((port.n_sub, LANE), dtype=dtype)
     return x2d, dict(port.levels[0]), port.n_chunks, port.sub
@@ -154,6 +232,23 @@ def test_kernel_wrapper_accepts_pack_arrays(case):
         x2d, _, C, sub = _level_args(port, dtype)
         for level in port.levels:
             spmv_cpg._check(x2d, level, C, sub, x2d)
+
+
+def test_kernel_wrapper_takes_a_source_of_other_chunks(case):
+    """A shard's level reads a source of another chunk count than its
+    dest (``n_chunks``): any whole number of sub-row chunks passes, a
+    partial chunk does not, and base must be shaped like the dest."""
+    _, _, port = case
+    _, level, C, sub = _level_args(port)
+    level = dict(level)
+    for extra in (-C + 1, 3):
+        x2d = torch.zeros(((C + extra) * sub, LANE))
+        spmv_cpg._check(x2d, level, C, sub, torch.zeros((C * sub, LANE)))
+    with pytest.raises(ValueError, match="whole number"):
+        spmv_cpg._check(torch.zeros((C * sub + 1, LANE)), level, C, sub, None)
+    x2d = torch.zeros(((C + 3) * sub, LANE))
+    with pytest.raises(ValueError, match="base must be"):
+        spmv_cpg._check(x2d, level, C, sub, x2d)
 
 
 def test_spmv_rejects_unported_formats():

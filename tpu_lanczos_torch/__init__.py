@@ -7,7 +7,7 @@ compensated), or on the CPU through the kernels' plain PyTorch versions.
 Imports torch, numpy and scipy, never jax; the JAX package
 ``tpu_lanczos`` is the reference the port is tested against.
 
-The slice served so far, on one device: CSR graphs (.mtx I/O,
+The slice served: on one device, CSR graphs (.mtx I/O,
 generators), the CPG packer and the ELL/COO/HYB fallback formats,
 Lanczos (with optional full reorthogonalization), the host LAPACK or
 device eigensolve, and the e^A.x answer or its top-k (``expm_action``,
@@ -19,8 +19,11 @@ pipeline on (hi, lo) float32 pairs (``expm_action_df`` with a pass-1
 checkpoint, ``expm_action_ks_df``); the stochastic estimators
 (``estrada_index``, ``subgraph_centrality``, ``spectral_density``,
 ``trace_fa``); the stored-Q checkpoint
-(``core.checkpoint.lanczos_checkpointed``); and the CLI
-(``python -m tpu_lanczos_torch.cli.main``).
+(``core.checkpoint.lanczos_checkpointed``); the row-sharded path over a
+mesh of devices (``tpu_lanczos_torch.dist``: the ELL/COO and CPG sharded
+Lanczos, ``expm_action_sharded``, sharded df64, and the four
+``*_sharded`` estimators); and the CLI
+(``python -m tpu_lanczos_torch.cli.main``, ``--shards N``).
 """
 
 from tpu_lanczos_torch.graphs.csr import CSRGraph
@@ -44,9 +47,13 @@ from tpu_lanczos_torch.core.lanczos_df import (
 )
 from tpu_lanczos_torch.core.stochastic import (
     estrada_index,
+    estrada_index_sharded,
     subgraph_centrality,
+    subgraph_centrality_sharded,
     spectral_density,
+    spectral_density_sharded,
     trace_fa,
+    trace_fa_sharded,
     TraceResult,
     DiagResult,
     DOSResult,
@@ -68,9 +75,13 @@ __all__ = [
     "expm_action_df",
     "expm_action_ks_df",
     "estrada_index",
+    "estrada_index_sharded",
     "subgraph_centrality",
+    "subgraph_centrality_sharded",
     "spectral_density",
+    "spectral_density_sharded",
     "trace_fa",
+    "trace_fa_sharded",
     "TraceResult",
     "DiagResult",
     "DOSResult",

@@ -13,10 +13,11 @@ Without a GPU and without ``--device cpu`` the CLI exits with an error;
 it never falls back to the CPU by itself.  ``--device`` takes the place
 of the reference's ``--platform``.
 
-``--shards``, whose code is not ported yet, keeps its parser entry and
-exits 2, naming its ROADMAP item (queue 1 item 14), alone or with the
-stochastic estimators (``--estrada``, ``--subgraph``, ``--dos``), which
-run on one device.
+``--shards N`` row-shards the query over a mesh of N devices
+(``tpu_lanczos_torch.dist``): N GPUs with ``--device cuda`` (short of
+them it fails with the reference's "need N devices, have M"), N CPU
+shards with ``--device cpu``; e^A.x in f32/f64 or df64, and the
+stochastic estimators.
 """
 
 from __future__ import annotations
@@ -73,7 +74,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="hybrid format: ELL width percentile (rest -> COO)")
     p.add_argument("--shards", type=int, default=0,
                    help="row-shard over this many devices (0 = single "
-                        "device; not ported, ROADMAP queue 1 item 14)")
+                        "device): GPUs with --device cuda, CPU shards "
+                        "with --device cpu")
     p.add_argument("--pipeline", type=int, default=0, metavar="N",
                    help="serve the query N times through the pipelined "
                         "path (query i's answer D2H rides behind query "
@@ -187,20 +189,8 @@ def _custom_cpg_dg(args, g):
                     device=args.device)
 
 
-def _unported(args) -> str | None:
-    """The message for a flag whose code is not ported yet, or None."""
-    if args.shards:
-        return ("--shards: the row-sharded multi-device path is not ported "
-                "yet (ROADMAP queue 1 item 14)")
-    return None
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    msg = _unported(args)
-    if msg is not None:
-        print(f"error: {msg}", file=sys.stderr)
-        return 2
     import torch
 
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -223,8 +213,9 @@ def _print_summary(label: str, t_device: float, topk: int, norm: float,
 
 
 def _estimators(args, g, k: int) -> int:
-    """--estrada/--subgraph/--dos on one device, with the dense oracle
-    beside each estimate for graphs of at most 4,000 nodes."""
+    """--estrada/--subgraph/--dos on one device or, with --shards, on a
+    row mesh, with the dense oracle beside each estimate for graphs of
+    at most 4,000 nodes."""
     if (args.topk or args.low_mem
             or args.dtype == "df64" or args.reorthogonalize
             or args.ks or args.pipeline):
@@ -241,6 +232,7 @@ def _estimators(args, g, k: int) -> int:
     from tpu_lanczos_torch.core import stochastic
     from tpu_lanczos_torch.core.pipeline import _resolve_dg
     from tpu_lanczos_torch.eval import oracle
+    from tpu_lanczos_torch.utils import torch_dtype
 
     if args.log_scale:
         print("note: --log-scale is implied by the estimators (they "
@@ -249,9 +241,30 @@ def _estimators(args, g, k: int) -> int:
         print("note: --write-ans applies to --subgraph/--dos only "
               "(--estrada yields a scalar); flag ignored",
               file=sys.stderr)
-    dgc = _custom_cpg_dg(args, g)
-    if dgc is None:
-        dgc = _resolve_dg(g, args.fmt, args.ell_pct, args.device)
+    mesh = sg = dgc = None
+    if args.shards:
+        from tpu_lanczos_torch.dist import make_mesh
+
+        if args.fmt == "cst":
+            print("error: --fmt cst is single-chip only (sharded "
+                  "estimators support best/cpg/auto/ell/hyb/coo)",
+                  file=sys.stderr)
+            return 2
+        if args.fmt == "coo":
+            print("note: sharded --fmt coo runs the hybrid ELL+COO "
+                  "format (pure COO has no sharded packer)",
+                  file=sys.stderr)
+        mesh = make_mesh(args.shards, device=args.device)
+        # one pack for every estimator: fmt cpg/best rides the CUDA CPG
+        # kernel on each shard, the ELL/COO torch ops otherwise
+        sg, _ = stochastic._sharded_setup(
+            g, mesh, args.fmt, torch_dtype(args.dtype), args.ell_pct)
+        print(f"{args.shards}-shard mesh (stochastic estimators, "
+              f"{type(sg).__name__})")
+    else:
+        dgc = _custom_cpg_dg(args, g)
+        if dgc is None:
+            dgc = _resolve_dg(g, args.fmt, args.ell_pct, args.device)
     dense = not args.no_serial and g.n <= 4000
     if args.estrada:
         t0 = time.time()
@@ -260,9 +273,14 @@ def _estimators(args, g, k: int) -> int:
             # |f(theta)|-ranked Ritz deflation (heat kernels deflate the
             # bottom of the spectrum, exp-like f the top)
             f, label = fa_est
-            r = stochastic.trace_fa(
-                g, f=f, k=k, probes=args.estrada, deflate=args.deflate,
-                seed=args.seed, dtype=args.dtype, dg=dgc)
+            if mesh is not None:
+                r = stochastic.trace_fa_sharded(
+                    sg, f=f, k=k, probes=args.estrada, mesh=mesh,
+                    deflate=args.deflate, seed=args.seed, dtype=args.dtype)
+            else:
+                r = stochastic.trace_fa(
+                    g, f=f, k=k, probes=args.estrada, deflate=args.deflate,
+                    seed=args.seed, dtype=args.dtype, dg=dgc)
             dt = time.time() - t0
             print(f"tr({label}) ~= {r.estimate:.6e}")
             print(f"  probes={r.probes} k={r.k} deflation rank="
@@ -273,9 +291,14 @@ def _estimators(args, g, k: int) -> int:
                 print(f"  dense oracle: {tr_true:.6e}   rel err "
                       f"{abs(r.estimate - tr_true) / abs(tr_true):.3e}")
         else:
-            r = stochastic.estrada_index(
-                g, k=k, probes=args.estrada, deflate=args.deflate,
-                seed=args.seed, dtype=args.dtype, dg=dgc)
+            if mesh is not None:
+                r = stochastic.estrada_index_sharded(
+                    sg, k=k, probes=args.estrada, mesh=mesh,
+                    deflate=args.deflate, seed=args.seed, dtype=args.dtype)
+            else:
+                r = stochastic.estrada_index(
+                    g, k=k, probes=args.estrada, deflate=args.deflate,
+                    seed=args.seed, dtype=args.dtype, dg=dgc)
             dt = time.time() - t0
             print(f"Estrada index tr(e^A) ~= {r.estimate:.6e}   "
                   f"(log: {r.log_estimate:.6f})")
@@ -288,9 +311,14 @@ def _estimators(args, g, k: int) -> int:
                       f"{abs(r.estimate - tr_true) / tr_true:.3e}")
     if args.subgraph:
         t0 = time.time()
-        dr = stochastic.subgraph_centrality(
-            g, k=k, probes=args.subgraph, deflate=args.deflate,
-            seed=args.seed, dtype=args.dtype, dg=dgc)
+        if mesh is not None:
+            dr = stochastic.subgraph_centrality_sharded(
+                sg, k=k, probes=args.subgraph, mesh=mesh,
+                deflate=args.deflate, seed=args.seed, dtype=args.dtype)
+        else:
+            dr = stochastic.subgraph_centrality(
+                g, k=k, probes=args.subgraph, deflate=args.deflate,
+                seed=args.seed, dtype=args.dtype, dg=dgc)
         dt = time.time() - t0
         print(f"subgraph centrality diag(e^A), scaled by "
               f"e^{dr.log_scale:.4f}:")
@@ -315,9 +343,14 @@ def _estimators(args, g, k: int) -> int:
                   f"(true diag = value * e^{dr.log_scale:.4f})")
     if args.dos:
         t0 = time.time()
-        d = stochastic.spectral_density(
-            g, k=k, probes=args.dos, seed=args.seed, dtype=args.dtype,
-            dg=dgc)
+        if mesh is not None:
+            d = stochastic.spectral_density_sharded(
+                sg, k=k, probes=args.dos, mesh=mesh, seed=args.seed,
+                dtype=args.dtype)
+        else:
+            d = stochastic.spectral_density(
+                g, k=k, probes=args.dos, seed=args.seed, dtype=args.dtype,
+                dg=dgc)
         dt = time.time() - t0
         mass = float(np.trapezoid(d.density, d.grid))
         print(f"spectral density (DOS): lambda in "
@@ -355,9 +388,9 @@ def _main(args) -> int:
 
     # ---------------- all-k convergence study (--ks)
     if args.ks:
-        if (args.topk or args.low_mem or args.func != "exp"
-                or args.reorthogonalize or args.estrada or args.subgraph
-                or args.pipeline):
+        if (args.shards or args.topk or args.low_mem
+                or args.func != "exp" or args.reorthogonalize
+                or args.estrada or args.subgraph or args.pipeline):
             print("error: --ks runs the single-chip exp pipeline (no "
                   "--shards/--topk/--low-mem/--func/--reorthogonalize/"
                   "--estrada/--subgraph/--pipeline)", file=sys.stderr)
@@ -403,11 +436,12 @@ def _main(args) -> int:
     fa = _parse_func(args.func)
     if fa is not None:
         f, label = fa
-        if (args.topk or args.low_mem or args.dtype == "df64"
-                or args.log_scale or args.pipeline):
-            print("error: --func runs the single-device host-eig pipeline "
-                  "(no --topk/--low-mem/df64/--log-scale/--pipeline)",
-                  file=sys.stderr)
+        if (args.shards or args.topk or args.low_mem
+                or args.dtype == "df64" or args.log_scale
+                or args.pipeline):
+            print("error: --func runs the single-chip host-eig pipeline "
+                  "(no --shards/--topk/--low-mem/df64/--log-scale/"
+                  "--pipeline)", file=sys.stderr)
             return 2
         ans_serial_f = None
         if not args.no_serial:
@@ -467,6 +501,12 @@ def _main(args) -> int:
     from tpu_lanczos_torch.core.pipeline import expm_action
 
     t0 = time.time()
+    if args.shards:
+        out = _sharded(args, g, k)
+        if isinstance(out, int):
+            return out
+        return _report(args, *out, f"{args.shards}-shard mesh",
+                       time.time() - t0, t_serial, ans_serial)
     dg = _custom_cpg_dg(args, g)
     if args.topk:
         from tpu_lanczos_torch.core.pipeline import expm_action_summary
@@ -554,9 +594,88 @@ def _main(args) -> int:
             reorthogonalize=args.reorthogonalize,
             log_scale=args.log_scale, device=device,
         )
-    ans, shift = res.ans, res.log_scale
-    t_device = time.time() - t0
-    print(f"device pipeline ({args.dtype}): {t_device:.4f}s "
+    return _report(args, res.ans, res.log_scale, "device", time.time() - t0,
+                   t_serial, ans_serial)
+
+
+def _sharded_pack_kw(args) -> dict:
+    """The --cpg-* knobs a sharded CPG pack takes (pack_cpg_sharded)."""
+    pack_kw = {}
+    if args.cpg_theta is not None:
+        pack_kw["theta"] = args.cpg_theta
+    if args.cpg_sub is not None:
+        pack_kw["sub"] = args.cpg_sub
+    if args.cpg_order != "auto":
+        pack_kw["order"] = args.cpg_order
+    if args.cpg_redeal != "auto":
+        pack_kw["redeal"] = args.cpg_redeal == "on"
+    return pack_kw
+
+
+def _sharded(args, g, k: int):
+    """The device pass on a row mesh of --shards devices: e^A.x (f32/f64,
+    the CPG or the ELL/COO formats) or df64.  Returns (ans, shift), or an
+    exit code."""
+    from tpu_lanczos_torch.dist import expm_action_sharded, make_mesh
+
+    if args.topk or args.low_mem:
+        print("error: --topk/--low-mem are single-chip modes",
+              file=sys.stderr)
+        return 2
+    if args.pipeline:
+        print("error: --pipeline is a single-chip serving mode "
+              "(no --shards)", file=sys.stderr)
+        return 2
+    if args.dtype == "df64":
+        # f64-grade e^A.x over the row mesh: the df64 two-pass Q-free
+        # Lanczos (dist/lanczos_df.py)
+        from tpu_lanczos_torch.dist.lanczos_df import expm_action_df_sharded
+
+        if args.fmt not in ("best", "cpg") or args.reorthogonalize:
+            print("note: sharded df64 always runs the two-pass CPG "
+                  "pipeline (--fmt/--reorthogonalize ignored)",
+                  file=sys.stderr)
+        if args.cpg_layout == "slab":
+            print("error: --cpg-layout slab is single-chip only "
+                  "(the sharded CPG splitter needs the classic "
+                  "layout)", file=sys.stderr)
+            return 2
+        res = expm_action_df_sharded(
+            g, k=k, mesh=make_mesh(args.shards, device=args.device),
+            log_scale=args.log_scale, **_sharded_pack_kw(args))
+        return res.ans, res.log_scale
+    if args.fmt == "cst":
+        # the CST layout is single-device only; silently running the
+        # hybrid format here would misattribute its numbers
+        print("error: --fmt cst is single-chip only (the sharded "
+              "path supports best/cpg/auto/ell/hyb; coo runs hyb)",
+              file=sys.stderr)
+        return 2
+    if args.fmt == "coo":
+        print("note: sharded --fmt coo runs the hybrid ELL+COO "
+              "format (pure COO has no sharded packer)",
+              file=sys.stderr)
+    pack_kw = None
+    if args.fmt in ("cpg", "best"):
+        pack_kw = _sharded_pack_kw(args)
+        if args.cpg_layout == "slab":
+            print("error: --cpg-layout slab is single-chip only "
+                  "(the sharded CPG splitter needs the classic "
+                  "layout)", file=sys.stderr)
+            return 2
+    ans, shift, _, _ = expm_action_sharded(
+        g, k=k, mesh=make_mesh(args.shards, device=args.device),
+        dtype=args.dtype, fmt=args.fmt,
+        reorthogonalize=args.reorthogonalize, log_scale=args.log_scale,
+        pack_kw=pack_kw, ell_pct=args.ell_pct)
+    return ans, shift
+
+
+def _report(args, ans, shift, label: str, t_device: float, t_serial,
+            ans_serial) -> int:
+    """The device pass's lines: its time, the shift, the speedup and the
+    cross-check against the serial oracle, then -v and --write-ans."""
+    print(f"{label} pipeline ({args.dtype}): {t_device:.4f}s "
           f"(includes kernel build on first run)")
     if shift is not None:
         print(f"  log-scale shift: {shift:.6f} (true ans = ans * e^shift)")

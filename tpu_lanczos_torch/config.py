@@ -42,8 +42,7 @@ class Config:
     ell_pct: float = 98.0  # hybrid: ELL width percentile; rest spills to COO
     lane_tile: int = 128
 
-    # distribution: row-shard over this many devices (0 = single device;
-    # the sharded path is not ported, ROADMAP queue 1 item 14)
+    # distribution: row-shard over this many devices (0 = single device)
     shards: int = 0
 
     # graph source (CLI parity with reference getopt flags -f -k -n -e -b -v,

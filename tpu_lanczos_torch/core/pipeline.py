@@ -509,14 +509,12 @@ def spectral_bounds(
 
 
 def run_config(cfg, graph: CSRGraph | None = None,
-               x: np.ndarray | None = None, device="cuda") -> LanczosResult:
+               x: np.ndarray | None = None, device="cuda"):
     """Run the pipeline from a :class:`tpu_lanczos_torch.config.Config`
-    (the one-dataclass flag surface).  Single device only: ``cfg.shards``
-    raises until the row-sharded path is ported."""
-    if cfg.shards:
-        raise NotImplementedError(
-            "Config.shards: the row-sharded multi-device path is ROADMAP "
-            "queue 1 item 14")
+    (the one-dataclass flag surface).  Returns a LanczosResult (one
+    device) or, with ``cfg.shards``, the tuple of
+    ``dist.expm_action_sharded`` on ``make_mesh(cfg.shards,
+    device=device)``."""
     if graph is None:
         from tpu_lanczos_torch.graphs import generators, io as gio
 
@@ -527,13 +525,32 @@ def run_config(cfg, graph: CSRGraph | None = None,
                                                seed=cfg.seed)
         else:
             graph = generators.uniform_random(cfg.n, cfg.edges, seed=cfg.seed)
+    common = dict(k=cfg.krylov_dim, dtype=cfg.dtype,
+                  reorthogonalize=cfg.reorthogonalize,
+                  log_scale=cfg.log_scale_output)
+    if cfg.shards:
+        from tpu_lanczos_torch.dist import expm_action_sharded, make_mesh
+
+        if cfg.fmt == "cst":
+            import warnings
+
+            warnings.warn("fmt='cst' is single-chip only; the sharded "
+                          "path runs the hybrid XLA format instead",
+                          stacklevel=2)
+        fmt = "auto" if cfg.fmt == "cst" else cfg.fmt
+        pack_kw = None
+        if fmt in ("cpg", "best"):
+            pack_kw = dict(theta=cfg.cpg_theta, sub=cfg.cpg_sub,
+                           order=cfg.cpg_order, layout=cfg.cpg_layout,
+                           redeal=cfg.cpg_redeal)
+        return expm_action_sharded(
+            graph, x, mesh=make_mesh(cfg.shards, device=device), fmt=fmt,
+            pack_kw=pack_kw, ell_pct=cfg.ell_pct, **common)
     dg = None
     if cfg.fmt == "cpg":
         dg = pack_cpg(graph, theta=cfg.cpg_theta, sub=cfg.cpg_sub,
                       order=cfg.cpg_order, theta_s=cfg.cpg_theta_s,
                       redeal=cfg.cpg_redeal, layout=cfg.cpg_layout,
                       device=device)
-    return expm_action(graph, x, k=cfg.krylov_dim, dtype=cfg.dtype,
-                       fmt=cfg.fmt, dg=dg, ell_pct=cfg.ell_pct,
-                       reorthogonalize=cfg.reorthogonalize,
-                       log_scale=cfg.log_scale_output, device=device)
+    return expm_action(graph, x, fmt=cfg.fmt, dg=dg, ell_pct=cfg.ell_pct,
+                       device=device, **common)

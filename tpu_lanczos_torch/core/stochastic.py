@@ -1,10 +1,11 @@
 """Stochastic trace and diagonal estimators for spectral functions of A.
 
-The port of ``tpu_lanczos/core/stochastic.py``'s single-device half:
-tr(f(A)) (``trace_fa``; the Estrada index tr(e^A), ``estrada_index``),
-diag(e^A) (subgraph centrality, ``subgraph_centrality``) and the spectral
-density (``spectral_density``), by Hutchinson probing and Lanczos
-quadrature with optional top-m Ritz deflation:
+The port of ``tpu_lanczos/core/stochastic.py``: tr(f(A)) (``trace_fa``;
+the Estrada index tr(e^A), ``estrada_index``), diag(e^A) (subgraph
+centrality, ``subgraph_centrality``) and the spectral density
+(``spectral_density``), on one device and, as ``*_sharded``, on a
+row-sharded mesh (dist/mesh.py; the section at the end), by Hutchinson
+probing and Lanczos quadrature with optional top-m Ritz deflation:
 
 - a TRACE probe is one Q-free alpha/beta pass
   (``core/lanczos.py::lanczos_alphabeta``); for the Lanczos
@@ -34,7 +35,9 @@ the probe), 1 for the deflation start vector (i 0, attempt the retry),
 depends on nothing else, so the first 8 probes of a 32-probe run are the
 probes of an 8-probe run, as ``fold_in`` gives the reference.  Signs are
 drawn as integers and then cast, so a float32 and a float64 run with one
-seed see the same probes.
+seed see the same probes.  On a mesh each shard draws its slice from
+(seed, stream, attempt, i, shard), as the reference folds the shard
+index into its key.
 
 Host syncs.  The trace probes (``trace_fa``, ``estrada_index``,
 ``spectral_density``) queue their coefficients into stacked device
@@ -111,11 +114,16 @@ def gauss_quadrature_logexp(alpha, beta, x_norm_sq: float) -> float:
 
 
 def _masked_rademacher(mask: torch.Tensor, seed: int, stream: int,
-                       attempt: int, i: int) -> torch.Tensor:
+                       attempt: int, i: int,
+                       shard: int | None = None) -> torch.Tensor:
     """Rademacher probe on mask's device: +-1 on the pack's real cells, 0
     on padding, drawn by a generator seeded from (seed, stream, attempt,
-    i) alone."""
-    state = np.random.SeedSequence([seed % 2**64, stream, attempt, i])
+    i) alone, and on a row-sharded mesh (dist/mesh.py) from (seed, stream,
+    attempt, i, shard): each shard's slice is a stream of its own."""
+    entropy = [seed % 2**64, stream, attempt, i]
+    if shard is not None:
+        entropy.append(shard)
+    state = np.random.SeedSequence(entropy)
     gen = torch.Generator(device=mask.device)
     gen.manual_seed(int(state.generate_state(1, np.uint64)[0]))
     bits = torch.randint(0, 2, mask.shape, generator=gen,
@@ -177,15 +185,20 @@ def _probe_stats_device(dg, mask: torch.Tensor, probes: int, seed: int,
     m = 0 if u_rows is None else int(u_rows.shape[0])
     u = u_rows if u_rows is not None else mask.new_zeros((0, mask.shape[0]))
     A, B, XN, C = _trace_probes_device(dg, mask, seed, k, probes, u)
-    # the one fetch: every probe's coefficients in one copy
+    return _stats_filter(_fetch_probe_rows(A, B, XN, C, m))
+
+
+def _fetch_probe_rows(A, B, XN, C, m: int) -> list:
+    """Every probe's coefficients in ONE device->host copy: a list of
+    (alpha, beta, x_norm, c) numpy tuples (c None when m is 0)."""
+    probes, k = A.shape
     h = torch.cat([A.reshape(-1), B.reshape(-1), XN,
                    C.reshape(-1)]).cpu().numpy()
     pk = probes * k
     A, B = h[:pk].reshape(probes, k), h[pk:2 * pk].reshape(probes, k)
     XN, C = h[2 * pk:2 * pk + probes], h[2 * pk + probes:].reshape(probes, m)
-    rows = [(A[i], B[i], float(XN[i]), C[i] if m else None)
+    return [(A[i], B[i], float(XN[i]), C[i] if m else None)
             for i in range(probes)]
-    return _stats_filter(rows)
 
 
 # ----------------------------------------------------------------- deflation
@@ -207,18 +220,15 @@ def _defl_depth(m: int, k_defl: int | None, n_cap: int):
     return k_defl, min(m, k_defl - 1)
 
 
-def _ritz_pairs_from(alpha, beta_full, q_basis: torch.Tensor, m: int,
-                     dtype, resid_rtol: float = 1e-2,
-                     select=None) -> _Deflation | None:
-    """Select the m converged Ritz pairs ranked by ``select(evals)``
-    (default: the eigenvalues themselves, the top of the spectrum, right
-    for f = exp) from a reorthogonalized run whose FULL (k,) beta is
-    given (slot k-1 = residual norm beta_k), and form u_j = V[:, j]^T Q on
-    Q's device.  For general f pass ``select=lambda ev: np.abs(f(ev))``,
-    so the pairs where f(A) carries its mass are deflated.  Pairs with
-    Ritz residual beta_k |V[k-1, j]| above ``resid_rtol * max(|theta|,
-    1)`` are dropped: the estimator stays unbiased for any deflation
-    basis, poor pairs only remove less variance."""
+def _ritz_select(alpha, beta_full, m: int, resid_rtol: float = 1e-2,
+                 select=None):
+    """The m converged Ritz pairs of a reorthogonalized run whose FULL
+    (k,) beta is given (slot k-1 = residual norm beta_k), ranked by
+    ``select(evals)`` (default: the eigenvalues themselves, the top of the
+    spectrum, right for f = exp).  Pairs with Ritz residual beta_k
+    |V[k-1, j]| above ``resid_rtol * max(|theta|, 1)`` are dropped: the
+    estimator stays unbiased for any deflation basis, poor pairs only
+    remove less variance.  Returns (evals, kept indices), or None."""
     k_defl = int(alpha.shape[0])
     evals, evecs = tridiag.eigh_host(alpha, beta_full[: k_defl - 1])
     b_last = abs(float(beta_full[k_defl - 1]))  # residual norm beta_k
@@ -229,6 +239,20 @@ def _ritz_pairs_from(alpha, beta_full, q_basis: torch.Tensor, m: int,
     keep = idx[resid <= resid_rtol * np.maximum(np.abs(evals[idx]), 1.0)]
     if keep.size == 0:
         return None
+    return evals, evecs, keep
+
+
+def _ritz_pairs_from(alpha, beta_full, q_basis: torch.Tensor, m: int,
+                     dtype, resid_rtol: float = 1e-2,
+                     select=None) -> _Deflation | None:
+    """The deflation basis of :func:`_ritz_select`'s pairs: u_j = V[:, j]^T
+    Q formed on Q's device.  For general f pass ``select=lambda ev:
+    np.abs(f(ev))``, so the pairs where f(A) carries its mass are
+    deflated."""
+    picked = _ritz_select(alpha, beta_full, m, resid_rtol, select)
+    if picked is None:
+        return None
+    evals, evecs, keep = picked
     v_sel = evecs[:, keep]  # (k_defl, m_kept)
     v_rows = np.ascontiguousarray(v_sel.T.astype(numpy_dtype(dtype)))
     u_rows = torch.from_numpy(v_rows).to(q_basis.device) @ q_basis
@@ -665,6 +689,273 @@ def subgraph_centrality(
         )
     return DiagResult(
         diag_scaled=dg.permute_out(acc_h),
+        log_scale=float(shift),
+        probes=probes,
+        k=k,
+        deflated=m_used,
+        retries=attempt,
+    )
+
+
+# ------------------------------------------------------------------ sharded
+#
+# The row-sharded half (the reference's ``*_sharded`` estimators): the
+# same combiners over the mesh bodies of dist/mesh.py, on a ShardedCPG
+# (the CUDA level kernel on every shard) or a ShardedGraph (ELL/COO torch
+# ops).  The probes are shard-local: shard s of probe i is drawn from
+# (seed, stream, attempt, i, s), on either kind of mesh, so seeded values
+# differ from the single-device ones at the Monte-Carlo level while
+# staying unbiased.  The k x k eigensolves run once per process, not once
+# per shard.
+
+
+def _sharded_setup(graph, mesh, fmt: str, dt, ell_pct: float):
+    """The sharded estimators' preamble: resolve or pack the sharded
+    graph (a ShardedCPG for fmt "cpg" and "best", whose kernel is native
+    on the GPU; the reference picks CPG for "best" on a TPU only; the
+    ELL/COO formats otherwise) and the ones-at-real-cells mask as a
+    per-shard list."""
+    from tpu_lanczos_torch.dist.cpg_sharded import (ShardedCPG,
+                                                    pack_cpg_sharded)
+    from tpu_lanczos_torch.dist.partition import ShardedGraph, pack_sharded
+
+    if isinstance(graph, (ShardedGraph, ShardedCPG)):
+        sg = graph
+    elif fmt in ("best", "cpg"):
+        sg = pack_cpg_sharded(graph, mesh.n_shards, mesh=mesh)
+    elif fmt in ("auto", "ell", "hyb", "coo"):
+        # pack_sharded's hybrid packer covers coo (pure COO has no
+        # sharded packer)
+        sg = pack_sharded(graph, mesh.n_shards,
+                          fmt="auto" if fmt == "coo" else fmt,
+                          ell_pct=ell_pct, mesh=mesh)
+    else:
+        raise ValueError(
+            f"sharded estimators support fmt best/cpg/auto/ell/hyb/"
+            f"coo, not {fmt!r}")
+    if isinstance(sg, ShardedCPG):
+        # the permuted all-ones vector IS the pack's realmask
+        return sg, [r.to(dt) for r in sg.realmask]
+    return sg, mesh.split(sg.permute_in(np.ones(sg.n), numpy_dtype(dt)),
+                          sg.n_loc)
+
+
+def _sharded_alphabeta_fn(sg, k: int, mesh):
+    """The backend's Q-free pass, z (per-shard list) -> (alpha, beta,
+    x_norm)."""
+    from tpu_lanczos_torch.dist.lanczos import local_spmv_fn
+    from tpu_lanczos_torch.dist.mesh import sharded_alphabeta_body
+
+    local = local_spmv_fn(sg, mesh)
+    return lambda z: sharded_alphabeta_body(mesh, local, z, k)
+
+
+def _probe_stats_sharded(sg, mask: list, mesh, probes: int, seed: int,
+                         k: int, u_rows=None):
+    """Every trace probe on the mesh, then one host fetch.  Same return
+    as :func:`_probe_stats_device`."""
+    from tpu_lanczos_torch.dist.lanczos import local_spmv_fn
+    from tpu_lanczos_torch.dist.mesh import sharded_trace_probes_body
+
+    m = 0 if u_rows is None else int(u_rows[0].shape[0])
+    u = (u_rows if u_rows is not None
+         else [ms.new_zeros((0, ms.shape[0])) for ms in mask])
+    A, B, XN, C = sharded_trace_probes_body(
+        mesh, local_spmv_fn(sg, mesh), mask, seed, _TRACE_STREAM, k, probes,
+        u)
+    return _stats_filter(_fetch_probe_rows(A, B, XN, C, m))
+
+
+def _deflation_pairs_sharded(sg, mask: list, mesh, m: int, dt, seed: int,
+                             k_defl: int | None = None,
+                             select=None) -> _Deflation | None:
+    """Sharded deflation: one reorthogonalized Lanczos run on the mesh
+    (full (k,) beta) feeding :func:`_ritz_select`, up to 3 attempts on
+    non-finite coefficients; u_rows stays a per-shard list of (m, n_loc)
+    column slices and ||u_j||^2 is psum'd."""
+    from tpu_lanczos_torch.dist import mesh as dmesh
+    from tpu_lanczos_torch.dist.lanczos import local_spmv_fn
+
+    k_defl, m = _defl_depth(m, k_defl, sg.n - 1)
+    if m <= 0:
+        return None
+    local = local_spmv_fn(sg, mesh)
+    for attempt in range(3):  # retry on a transient device fault
+        z0 = dmesh.shard_probes(mesh, mask, seed, _DEFLATE_STREAM, attempt,
+                                0)
+        alpha_d, beta_d, q_basis, _ = dmesh.sharded_lanczos_body(
+            mesh, local, z0, k_defl, reorthogonalize=True)
+        h = torch.cat([alpha_d, beta_d]).cpu().numpy()
+        alpha, beta = h[:k_defl], h[k_defl:]
+        if np.isfinite(h).all():
+            break
+    else:
+        _deflation_warn(stacklevel=5)
+        return None
+    picked = _ritz_select(alpha, beta, m, select=select)
+    if picked is None:
+        return None
+    evals, evecs, keep = picked
+    v_rows = mesh.replicate(torch.from_numpy(np.ascontiguousarray(
+        evecs[:, keep].T.astype(numpy_dtype(dt)))).to(mesh.devices[0]))
+    u_rows = [v @ q for v, q in zip(v_rows, q_basis)]
+    u_norm_sq = mesh.psum([(u * u).sum(dim=1) for u in u_rows])[0]
+    return _Deflation(theta=evals[keep], u_rows=u_rows,
+                      u_norm_sq=u_norm_sq.cpu().numpy().astype(np.float64),
+                      shift=float(evals.max()))
+
+
+def trace_fa_sharded(
+    graph,
+    f=np.exp,
+    k: int = 30,
+    probes: int = 32,
+    *,
+    mesh,
+    deflate: int = 0,
+    k_deflate: int | None = None,
+    seed: int = 0,
+    dtype="float32",
+    fmt: str = "auto",
+    ell_pct: float = 90.0,
+) -> TraceResult:
+    """tr(f(A)) on a row-sharded mesh (dist/mesh.py ``make_mesh``): every
+    probe one Q-free sharded alpha/beta pass, with |f(theta)|-ranked Ritz
+    deflation as in :func:`trace_fa`.  ``graph`` is a CSRGraph (packed
+    here) or a pre-packed ShardedGraph/ShardedCPG."""
+    dt = torch_dtype(dtype)
+    sg, mask = _sharded_setup(graph, mesh, fmt, dt, ell_pct)
+    k = int(max(min(k, sg.n - 1), 1))
+    defl = (_deflation_pairs_sharded(sg, mask, mesh, deflate, dt, seed,
+                                     k_defl=k_deflate,
+                                     select=lambda ev: np.abs(
+                                         np.asarray(f(ev), np.float64)))
+            if deflate > 0 else None)
+
+    def stats_fn(probes, seed, u_rows=None):
+        return _probe_stats_sharded(sg, mask, mesh, probes, seed, k, u_rows)
+
+    return _trace_fa_estimate(stats_fn, probes, seed, k, f, defl)
+
+
+def estrada_index_sharded(
+    graph,
+    k: int = 30,
+    probes: int = 32,
+    *,
+    mesh,
+    deflate: int = 8,
+    k_deflate: int | None = None,
+    seed: int = 0,
+    dtype="float32",
+    fmt: str = "auto",
+    ell_pct: float = 90.0,
+) -> TraceResult:
+    """The Estrada index on a row-sharded mesh: every probe one Q-free
+    sharded alpha/beta pass (the CUDA CPG kernel on every shard for fmt
+    "cpg"/"best", as the reference CUDA code ran its kernel on every
+    card, parallel-two-cards/lib/cu_lanczos.cu:120-122; the ELL/COO
+    formats otherwise), the deflation basis column-sharded on the mesh,
+    and the k x k quadratures on the host as in :func:`estrada_index`.
+    ``graph`` is a CSRGraph (packed here) or a pre-packed
+    ShardedGraph/ShardedCPG."""
+    dt = torch_dtype(dtype)
+    sg, mask = _sharded_setup(graph, mesh, fmt, dt, ell_pct)
+    k = int(max(min(k, sg.n - 1), 1))
+    defl = (_deflation_pairs_sharded(sg, mask, mesh, deflate, dt, seed,
+                                     k_defl=k_deflate)
+            if deflate > 0 else None)
+
+    def stats_fn(probes, seed, u_rows=None):
+        return _probe_stats_sharded(sg, mask, mesh, probes, seed, k, u_rows)
+
+    return _estrada_estimate(stats_fn, probes, seed, k, defl)
+
+
+def spectral_density_sharded(
+    graph,
+    k: int = 80,
+    probes: int = 16,
+    *,
+    mesh,
+    grid: np.ndarray | int = 512,
+    sigma: float | None = None,
+    seed: int = 0,
+    dtype="float32",
+    fmt: str = "auto",
+    ell_pct: float = 90.0,
+) -> DOSResult:
+    """The spectral density on a row-sharded mesh: every probe on the
+    mesh, then the host pooling of :func:`spectral_density`.  ``graph``
+    is a CSRGraph (packed here) or a pre-packed ShardedGraph/ShardedCPG."""
+    dt = torch_dtype(dtype)
+    sg, mask = _sharded_setup(graph, mesh, fmt, dt, ell_pct)
+    k = int(max(min(k, sg.n - 1), 1))
+    stats, _ = _probe_stats_sharded(sg, mask, mesh, probes, seed, k)
+    return _dos_from_stats(stats, k, grid, sigma)
+
+
+def subgraph_centrality_sharded(
+    graph,
+    k: int = 20,
+    probes: int = 16,
+    *,
+    mesh,
+    deflate: int = 8,
+    k_deflate: int | None = None,
+    seed: int = 0,
+    dtype="float32",
+    fmt: str = "auto",
+    ell_pct: float = 90.0,
+) -> DiagResult:
+    """Subgraph centrality diag(e^A) on a row-sharded mesh: per probe a
+    sharded Lanczos, one replicated on-device (k, k) eigensolve per
+    process, the local multiply-out, the rank-m deflation correction and
+    the z * ans accumulation (dist/mesh.py sharded_diag_probes_body); one
+    vector crosses to the host.  fmt "cpg"/"best" rides the CUDA CPG
+    kernel.  ``graph`` is a CSRGraph (packed here) or a pre-packed
+    ShardedGraph/ShardedCPG."""
+    from tpu_lanczos_torch.dist.lanczos import local_spmv_fn
+    from tpu_lanczos_torch.dist.mesh import sharded_diag_probes_body
+
+    dt = torch_dtype(dtype)
+    sg, mask = _sharded_setup(graph, mesh, fmt, dt, ell_pct)
+    k = int(max(min(k, sg.n - 1), 1))
+    defl = (_deflation_pairs_sharded(sg, mask, mesh, deflate, dt, seed,
+                                     k_defl=k_deflate)
+            if deflate > 0 else None)
+    dev = mask[0].device
+    if defl is not None:
+        u_rows = [u.to(dt) for u in defl.u_rows]
+        w_defl = torch.from_numpy(np.exp(defl.theta - defl.shift).astype(
+            numpy_dtype(dt))).to(dev)
+        shift = defl.shift
+        m_used = int(defl.theta.size)
+    else:
+        u_rows = [ms.new_zeros((0, ms.shape[0])) for ms in mask]
+        w_defl = mask[0].new_zeros((0,))
+        k_anchor = max(min(max(k, 10), sg.n - 1), 1)
+        a0, b0, xn0 = _sharded_alphabeta_fn(sg, k_anchor, mesh)(mask)
+        a0, b0, _ = expmv.fetch_tridiag(a0, b0, xn0)
+        shift = float(tridiag.eigh_host(a0, b0)[0].max())
+        m_used = 0
+    shift_dev = torch.tensor(shift, dtype=dt, device=dev)
+    local = local_spmv_fn(sg, mesh)
+
+    for attempt in range(2):  # retry once on a transient device fault
+        acc = sharded_diag_probes_body(mesh, local, mask, seed, _DIAG_STREAM,
+                                       attempt, k, probes, u_rows, w_defl,
+                                       shift_dev)
+        acc_h = mesh.to_host(acc)
+        if np.isfinite(acc_h).all():
+            break
+    else:
+        raise RuntimeError(
+            "sharded diagonal estimator returned non-finite values "
+            "twice — device state is suspect, re-run"
+        )
+    return DiagResult(
+        diag_scaled=sg.permute_out(acc_h),
         log_scale=float(shift),
         probes=probes,
         k=k,

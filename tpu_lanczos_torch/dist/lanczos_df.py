@@ -1,0 +1,273 @@
+"""Row-sharded df64 Lanczos: f64-grade e^A.x over a mesh.
+
+The port of ``tpu_lanczos/dist/lanczos_df.py``: the two-pass Q-free df64
+scheme of core/lanczos_df.py on the row mesh, with
+
+- the sharded CPG SpMV in compensated arithmetic: on every level the hi
+  stream rides the compensated level kernel (``run_level_comp``, kernel
+  1c, which emits an error stream) and the lo stream the plain one
+  (``run_level``, kernel 1), and elementwise two-sums fold the pairs
+  between levels: the single-device ``spmv_cpg_df`` structure per
+  shard, with the exchanges carrying BOTH streams;
+- cross-shard dots done exactly in df arithmetic: each shard's df dot
+  (hi, lo) pair is gathered (2 floats a shard) and folded with
+  ``df_add`` in shard order.  A plain psum of hi and lo separately
+  would round the hi partials and lose the compensation;
+- the main level's own/cross-source overlap split of the sharded pack.
+
+Every operation keeps the reference's order, and every df op is a chain
+of separate eager torch ops (core/df64.py), so no multiply is fused into
+an add.  The cross-shard fold changes the order of summation, so results
+differ from single-device df64 at the df roundoff level, not above it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tpu_lanczos_torch.core import df64 as df
+from tpu_lanczos_torch.core import expmv
+from tpu_lanczos_torch.core.df64 import two_sum
+from tpu_lanczos_torch.core.lanczos_df import split_f64
+from tpu_lanczos_torch.core.pipeline import LanczosResult
+from tpu_lanczos_torch.dist.cpg_sharded import (ShardedCPG, _exchange,
+                                                pack_cpg_sharded)
+from tpu_lanczos_torch.dist.mesh import Mesh, make_mesh, per_replica
+from tpu_lanczos_torch.kernels.cpg import LANE
+from tpu_lanczos_torch.kernels.spmv_cpg import (
+    run_level, run_level_comp, run_level_comp_ref, run_level_ref)
+
+
+def _df_allsum(mesh: Mesh, pairs: list) -> list:
+    """Exact cross-shard sum of a df scalar: gather the (hi, lo) pairs
+    and fold them with df_adds in shard order, on every held shard."""
+    gathered = mesh.all_gather([torch.stack(p) for p in pairs])
+
+    def fold(g):
+        acc = (g[0], g[1])
+        for i in range(1, mesh.n_shards):
+            acc = df.df_add(acc, (g[2 * i], g[2 * i + 1]))
+        return acc
+
+    return per_replica(gathered, fold)
+
+
+def _df_pdot(mesh: Mesh, x: list, y: list) -> list:
+    return _df_allsum(mesh, [df.df_dot(a, b) for a, b in zip(x, y)])
+
+
+def _local_spmv_df(sg: ShardedCPG, mesh: Mesh, q: list, level_fn,
+                   comp_fn) -> list:
+    """Every held shard's df y = A (q_hi + q_lo) (q a per-shard list of
+    (hi, lo) pairs): the reference's per-shard body (lanczos_df.py:64-169)
+    with each level run compensated on hi (``comp_fn``) and plain on lo
+    (``level_fn``), in its order of additions."""
+    c_loc, sub = sg.c_loc, sg.sub
+    rows = c_loc * sub
+
+    def run(fn, level, src):
+        return [fn(x.reshape(-1, LANE), lv, c_loc, sub)
+                for x, lv in zip(src, level)]
+
+    def gather_cross(level, vec):
+        return _exchange(sg, mesh, level, vec, "halo_sel")
+
+    q_hi = [p[0] for p in q]
+    q_lo = [p[1] for p in q]
+    if sg.overlap:
+        lv_own, lv_cross = sg.levels[0], sg.levels[1]
+        own_empty, cross_empty = sg.t_reals[0] == 0, sg.t_reals[1] == 0
+        # both exchanges first, then the own passes, then the cross passes
+        if not cross_empty:
+            g_hi = gather_cross(lv_cross, q_hi)
+            g_lo = gather_cross(lv_cross, q_lo)
+        if own_empty:
+            y2d = [t.new_zeros((rows, LANE)) for t in q_hi]
+            e2d = [t.new_zeros((rows, LANE)) for t in q_hi]
+        else:
+            comp = run(comp_fn, lv_own, q_hi)
+            lt = run(level_fn, lv_own, q_lo)
+            y2d = [c[0] for c in comp]
+            e2d = [c[1] + b for c, b in zip(comp, lt)]
+        if not cross_empty:
+            comp = run(comp_fn, lv_cross, g_hi)
+            lt = run(level_fn, lv_cross, g_lo)
+            for s, (c, b) in enumerate(zip(comp, lt)):
+                y2d[s], t = two_sum(y2d[s], c[0])
+                e2d[s] = ((e2d[s] + t) + c[1]) + b
+        base = 2
+    else:
+        lv0 = sg.levels[0]
+        src_hi, src_lo = gather_cross(lv0, q_hi), gather_cross(lv0, q_lo)
+        if "halo_sel" in lv0[0]:
+            # the shard's own chunks, then the halo (s_ids past c_loc)
+            src_hi = [torch.cat([t, h]) for t, h in zip(q_hi, src_hi)]
+            src_lo = [torch.cat([t, h]) for t, h in zip(q_lo, src_lo)]
+        comp = run(comp_fn, lv0, src_hi)
+        lt = run(level_fn, lv0, src_lo)
+        y2d = [c[0] for c in comp]
+        e2d = [c[1] + b for c, b in zip(comp, lt)]
+        base = 1
+
+    y = [t.reshape(-1) for t in y2d]
+    e = [t.reshape(-1) for t in e2d]
+    for level in sg.levels[base:]:
+        # the compact reduce-level exchange, of BOTH partial streams
+        comp = run(comp_fn, level, _exchange(sg, mesh, level, y, "sel"))
+        lt = run(level_fn, level, _exchange(sg, mesh, level, e, "sel"))
+        out_y, out_e = [], []
+        for ys, es, c, b in zip(y, e, comp, lt):
+            ys, t = two_sum(ys, c[0].reshape(-1))
+            out_y.append(ys)
+            out_e.append(((es + t) + c[1].reshape(-1)) + b.reshape(-1))
+        y, e = out_y, out_e
+    out = []
+    for ys, es, r in zip(y, e, sg.realmask):
+        # two_sum, not fast_two_sum: after cancellation |e| can exceed |y|
+        hi, lo = two_sum(ys, es)
+        out.append((hi * r, lo * r))  # exact 0/1 multiply
+    return out
+
+
+def spmv_cpg_df_sharded(sg: ShardedCPG, mesh: Mesh, q_hi: list,
+                        q_lo: list) -> list:
+    """Double-word y = A (q_hi + q_lo) on the mesh, every shard level
+    through ``run_level_comp`` and ``run_level``.  Returns the per-shard
+    list of (hi, lo) float32 pairs."""
+    return _local_spmv_df(sg, mesh, list(zip(q_hi, q_lo)), run_level,
+                          run_level_comp)
+
+
+def spmv_cpg_df_sharded_ref(sg: ShardedCPG, mesh: Mesh, q_hi: list,
+                            q_lo: list) -> list:
+    """The same df SpMV through the plain versions on any device."""
+    return _local_spmv_df(sg, mesh, list(zip(q_hi, q_lo)), run_level_ref,
+                          run_level_comp_ref)
+
+
+def _body_core_sh(sg, mesh, q, q_prev, beta_prev):
+    """One df64 recurrence step on the mesh: returns (alpha_j, beta_j,
+    q_next), each a per-shard list of pairs; the sharded twin of
+    core/lanczos_df.py ``_body_core`` with exact-fold dots."""
+    v = _local_spmv_df(sg, mesh, q, run_level, run_level_comp)
+    a = _df_pdot(mesh, v, q)
+    v = [df.df_sub(vs, df.df_add(df.df_scale(av, qs), df.df_scale(bp, qp)))
+         for vs, av, qs, bp, qp in zip(v, a, q, beta_prev, q_prev)]
+    b = [df.df_sqrt(p) for p in _df_pdot(mesh, v, v)]
+    q_next = []
+    for vs, bs in zip(v, b):
+        ok = bs[0] > 0
+        safe_b = (torch.where(ok, bs[0], 1.0), torch.where(ok, bs[1], 0.0))
+        inv_b = df.df_div(df.df_from(1.0, device=ok.device), safe_b)
+        qn = df.df_scale(inv_b, vs)
+        q_next.append((torch.where(ok, qn[0], 0.0),
+                       torch.where(ok, qn[1], 0.0)))
+    return a, b, q_next
+
+
+def _df_start(mesh: Mesh, x: list):
+    """The normalised df start state: per-shard q0 pairs and the df
+    x_norm (replicated)."""
+    x_norm = [df.df_sqrt(p) for p in _df_pdot(mesh, x, x)]
+    q0 = [df.df_scale(df.df_div(df.df_from(1.0, device=xn[0].device), xn),
+                      xs) for xn, xs in zip(x_norm, x)]
+    return q0, x_norm
+
+
+def _zero_pairs(q: list) -> list:
+    return [(p[0].new_zeros(()), p[0].new_zeros(())) for p in q]
+
+
+def lanczos_alphabeta_df_sharded(sg: ShardedCPG, mesh: Mesh, x: list,
+                                 k: int):
+    """Pass 1 on the mesh: df64 alpha and beta, each a (hi, lo) pair of
+    (k,) tensors on the first held shard's device (beta's slot k-1
+    written but unused), and the df x_norm.  ``x`` is the per-shard list
+    of (hi, lo) pairs."""
+    q, x_norm = _df_start(mesh, x)
+    q_prev = [(torch.zeros_like(p[0]), torch.zeros_like(p[0])) for p in q]
+    zk = q[0][0].new_zeros((k,))
+    ah, al, bh, bl = zk, zk.clone(), zk.clone(), zk.clone()
+    b_prev = _zero_pairs(q)
+    for j in range(k):
+        a, b, q_next = _body_core_sh(sg, mesh, q, q_prev, b_prev)
+        ah[j], al[j] = a[0]
+        bh[j], bl[j] = b[0]
+        q_prev, q, b_prev = q, q_next, b
+    return (ah, al), (bh, bl), x_norm[0]
+
+
+def lanczos_recombine_df_sharded(sg: ShardedCPG, mesh: Mesh, x: list,
+                                 coeff_hi: torch.Tensor,
+                                 coeff_lo: torch.Tensor, k: int) -> list:
+    """Pass 2 on the mesh: ans = sum_j coeff[j] * q_j in df64, q_j
+    regenerated by the identical recurrence (k-1 steps: q_{k-1} needs no
+    further SpMV).  Returns the per-shard (hi, lo) pairs."""
+    q, _ = _df_start(mesh, x)
+    q_prev = [(torch.zeros_like(p[0]), torch.zeros_like(p[0])) for p in q]
+    ans = [(torch.zeros_like(p[0]), torch.zeros_like(p[0])) for p in q]
+    ch, cl = mesh.replicate(coeff_hi), mesh.replicate(coeff_lo)
+    b = _zero_pairs(q)
+
+    def accum(ans, j, q):
+        return [df.df_add(a, df.df_scale((h[j], l_[j]), qs))
+                for a, h, l_, qs in zip(ans, ch, cl, q)]
+
+    for j in range(k - 1):
+        ans = accum(ans, j, q)
+        _, b, q_next = _body_core_sh(sg, mesh, q, q_prev, b)
+        q_prev, q = q, q_next
+    return accum(ans, k - 1, q)
+
+
+def expm_action_df_sharded(graph, x: np.ndarray | None = None,
+                           k: int = 50, *, n_shards: int | None = None,
+                           mesh: Mesh | None = None,
+                           sg: ShardedCPG | None = None,
+                           log_scale: bool = False, device: str = "cuda",
+                           **pack_kw) -> LanczosResult:
+    """f64-grade e^A.x row-sharded over ``n_shards`` devices (``mesh``;
+    default ``make_mesh(n_shards, device=device)``, on the GPUs): the
+    df64 two-pass Lanczos on the mesh and a host LAPACK eigensolve
+    between the passes.  Returns a LanczosResult with float64 host
+    arrays."""
+    k = int(max(min(k, graph.n - 1), 1))
+    if mesh is None:
+        mesh = make_mesh(n_shards, device=device)
+    if sg is None:
+        sg = pack_cpg_sharded(graph, mesh.n_shards, mesh=mesh, **pack_kw)
+    if x is None:
+        # the all-ones start: the pack's realmask, lo part zero
+        x_hi = [r.to(torch.float32) for r in sg.realmask]
+        x_lo = [torch.zeros_like(t) for t in x_hi]
+    else:
+        hi, lo = split_f64(sg.permute_in(np.asarray(x, np.float64),
+                                         np.float64))
+        x_hi, x_lo = mesh.split(hi, sg.n_loc), mesh.split(lo, sg.n_loc)
+    xs = list(zip(x_hi, x_lo))
+
+    (ah, al), (bh, bl), (xh, xl) = lanczos_alphabeta_df_sharded(
+        sg, mesh, xs, k)
+    h = torch.cat([ah, al, bh, bl, xh.reshape(1), xl.reshape(1)])
+    h = h.cpu().numpy()  # the one fetch of pass 1's coefficients
+    ah, al, bh, bl = h[:4 * k].reshape(4, k)
+    alpha64 = df.df_to_f64((ah, al))
+    beta64 = df.df_to_f64((bh, bl))[: k - 1]
+    xn64 = float(df.df_to_f64((h[-2], h[-1])))
+
+    coeff, shift = expmv.host_coefficients(alpha64, beta64, xn64)
+    ch, cl = split_f64(coeff)
+    dev = x_hi[0].device
+    ans = lanczos_recombine_df_sharded(
+        sg, mesh, xs, torch.from_numpy(ch).to(dev),
+        torch.from_numpy(cl).to(dev), k)
+    ans64 = df.df_to_f64((mesh.to_host([a[0] for a in ans]),
+                          mesh.to_host([a[1] for a in ans])))
+    if not log_scale:
+        ans64 = ans64 * np.exp(shift)
+    return LanczosResult(
+        ans=sg.permute_out(ans64),
+        log_scale=float(shift) if log_scale else None,
+        alpha=alpha64, beta=beta64, x_norm=xn64, k=k,
+    )

@@ -1,0 +1,330 @@
+"""The row mesh of the sharded path, and the per-shard bodies that every
+sharded backend runs.
+
+The port of ``tpu_lanczos/dist/mesh.py``.  One logical axis, ``ROWS``:
+the matrix rows are split into ``n_shards`` contiguous blocks, one a
+shard.  The reference writes each sharded step once as an SPMD body
+inside ``shard_map``, with a collective in the middle of every step: the
+halo ``all_gather``, the compact reduce-level ``all_gather``, the
+``psum`` of every dot and the df64 pair fold.
+
+How a mesh maps onto PyTorch.  A :class:`Mesh` is that axis over
+``n_shards`` shards, of which this process holds some, in one of two
+kinds:
+
+- in-process (no process group): every shard lives in this process, each
+  on a ``torch.device`` of its own, and the list of devices may repeat
+  one device: N CPU shards in the tests (where the reference's tests
+  force 8 virtual CPU devices), ``[cuda:0] * 4`` on a machine with one
+  GPU.  ``all_gather`` is the concatenation of the shards' buffers in
+  shard order; ``psum`` sums the per-shard partials in one fixed left
+  fold (shard 0 + shard 1 + ...), so every shard gets the same bits.
+- distributed (``torch.distributed``): one shard per rank, after
+  :func:`init_distributed` (as the reference's wraps
+  ``jax.distributed.initialize``); ``make_mesh()`` then spans the world.
+  ``all_gather`` is ``dist.all_gather`` and ``psum`` is
+  ``dist.all_reduce``.  The backend is NCCL on CUDA and gloo on the CPU:
+  gloo has no CUDA ``all_gather``, and NCCL puts no two ranks on one GPU.
+
+Every per-shard body is written once, over the shards this process
+holds: a "per-shard list" holds one tensor per held shard, in shard
+order, and the mesh's collectives take and return such lists.  So the
+in-process mesh and the distributed one run the same code and draw the
+same per-shard probes.  A replicated value (alpha_j, a psum) comes back
+as one tensor per held shard; shards on one device share one tensor.
+
+No step syncs the host: the recurrence scalars are 0-d device tensors,
+breakdown is a ``torch.where``, and the k-step loops are Python loops of
+eager ops, as the reference's one ``fori_loop`` holds no host read
+(dist/lanczos.py:14-17).  The reference's ``pcast``/``vma`` annotations
+have no counterpart: there is no varying-axes checker to satisfy.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.distributed as dist
+
+ROWS = "rows"
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """The row axis over ``n_shards`` shards.  ``shards`` are the shard
+    indices this process holds (all of them in process, the rank's own
+    one in a distributed mesh), ``devices`` the device of each, and
+    ``group`` the process group of a distributed mesh (None in
+    process)."""
+
+    n_shards: int
+    shards: tuple
+    devices: tuple
+    group: object = None
+
+    def replicate(self, t: torch.Tensor) -> list:
+        """One copy of ``t`` per held shard, on its device; shards on
+        t's device share t itself."""
+        return [t if d == t.device else t.to(d) for d in self.devices]
+
+    def all_gather(self, xs: list) -> list:
+        """Every shard's buffer concatenated in shard order, on every
+        held shard (the reference's ``all_gather(..., tiled=True)``)."""
+        if self.group is None:
+            dev = xs[0].device
+            return self.replicate(torch.cat([x.to(dev) for x in xs]))
+        (x,) = xs
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.n_shards)]
+        dist.all_gather(parts, x, group=self.group)
+        return [torch.cat(parts)]
+
+    def psum(self, xs: list) -> list:
+        """The sum over shards of the per-shard partials, on every held
+        shard: a left fold in shard order in process, ``all_reduce`` in
+        a distributed mesh."""
+        if self.group is None:
+            acc = xs[0]
+            for x in xs[1:]:
+                acc = acc + x.to(acc.device)
+            return self.replicate(acc)
+        (x,) = xs
+        out = x.clone()
+        dist.all_reduce(out, group=self.group)
+        return [out]
+
+    def split(self, x, n_loc: int, dtype=None) -> list:
+        """The held shards' slices of a full (n_shards * n_loc,) vector
+        (a numpy array or a tensor), each on its shard's device.  Shards
+        that share one device share one copy of x there (one host-to-device
+        copy, not one a shard)."""
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(x)
+        if len(self.devices) > 1 and len(set(self.devices)) == 1:
+            x = x.to(self.devices[0], dtype=dtype)
+        return [x[s * n_loc:(s + 1) * n_loc].to(d, dtype=dtype).contiguous()
+                for s, d in zip(self.shards, self.devices)]
+
+    def to_host(self, xs: list):
+        """The full (n_shards * n_loc,) vector of per-shard slices as a
+        numpy array, on every process."""
+        return self.all_gather(xs)[0].cpu().numpy()
+
+
+def init_distributed(**kw) -> None:
+    """Start the process group (``torch.distributed.init_process_group``
+    with ``kw``: backend, init_method or store, world_size, rank) before
+    any collective, as the reference's wraps ``jax.distributed.
+    initialize``.  The backend defaults to NCCL when CUDA is available,
+    else gloo.  After this, ``make_mesh()`` spans the world, one shard
+    per rank, and the sharded code path is unchanged."""
+    kw.setdefault("backend", "nccl" if torch.cuda.is_available() else "gloo")
+    dist.init_process_group(**kw)
+
+
+def make_mesh(n_devices: int | None = None, devices=None,
+              device: str = "cuda") -> Mesh:
+    """The 1-D row mesh.
+
+    - ``devices`` given: an in-process mesh over them, repeats allowed
+      (the first ``n_devices`` of them when that is given).
+    - In a process group (after :func:`init_distributed`): a distributed
+      mesh over the world, this rank's shard on ``cuda:rank % count`` or
+      the CPU, by ``device``.
+    - Else on ``"cuda"``: ``n_devices`` visible GPUs (default: all of
+      them); short of them, the reference's ``ValueError("need N
+      devices, have M")``.  On ``"cpu"``: ``n_devices`` CPU shards
+      (default 1)."""
+    if devices is not None:
+        devices = [torch.device(d) for d in devices]
+        if n_devices is not None:
+            if len(devices) < n_devices:
+                raise ValueError(
+                    f"need {n_devices} devices, have {len(devices)}")
+            devices = devices[:n_devices]
+        return Mesh(n_shards=len(devices), shards=tuple(range(len(devices))),
+                    devices=tuple(devices))
+    if device not in ("cuda", "cpu"):
+        raise ValueError(f"device must be cuda or cpu, got {device!r}")
+    if dist.is_available() and dist.is_initialized():
+        world, rank = dist.get_world_size(), dist.get_rank()
+        if n_devices is not None and n_devices != world:
+            raise ValueError(f"need {n_devices} devices, have {world}")
+        dev = (torch.device("cuda", rank % torch.cuda.device_count())
+               if device == "cuda" else torch.device("cpu"))
+        return Mesh(n_shards=world, shards=(rank,), devices=(dev,),
+                    group=dist.group.WORLD)
+    if device == "cpu":
+        n = 1 if n_devices is None else n_devices
+        return Mesh(n_shards=n, shards=tuple(range(n)),
+                    devices=(torch.device("cpu"),) * n)
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    n = max(have, 1) if n_devices is None else n_devices
+    if have < n:
+        raise ValueError(f"need {n} devices, have {have}")
+    return Mesh(n_shards=n, shards=tuple(range(n)),
+                devices=tuple(torch.device("cuda", i) for i in range(n)))
+
+
+def per_replica(ts: list, fn) -> list:
+    """``fn`` of each replicated value, computed once per distinct tensor
+    (shards on one device share theirs)."""
+    done: dict = {}
+    out = []
+    for t in ts:
+        if id(t) not in done:
+            done[id(t)] = fn(t)
+        out.append(done[id(t)])
+    return out
+
+
+def pdot(mesh: Mesh, a: list, b: list) -> list:
+    """Mesh-wide dot: the local dots, then ``psum`` (no central-device
+    reduce)."""
+    return mesh.psum([torch.dot(x, y) for x, y in zip(a, b)])
+
+
+def _next_q(v: list, b: list) -> list:
+    return [torch.where(bs > 0, vs / torch.where(bs > 0, bs, 1),
+                        torch.zeros_like(vs)) for vs, bs in zip(v, b)]
+
+
+def sharded_lanczos_body(mesh: Mesh, local_spmv, x: list, k: int,
+                         reorthogonalize: bool = False):
+    """The per-shard Lanczos recurrence shared by every sharded backend
+    (the ELL/COO formats in dist/lanczos.py, the CPG kernel in
+    dist/cpg_sharded.py).  ``local_spmv(q) -> v`` maps per-shard lists: it
+    does the backend's exchange and local SpMV.  The three-term
+    recurrence, the psum'd dots and norms, the masked reorthogonalization
+    and the breakdown guard live here once, in the order of the
+    single-device step (core/lanczos.py ``_step``).
+
+    Returns (alpha (k,), beta (k,), q_basis, x_norm): alpha, beta (slot
+    k-1 the residual norm) and x_norm replicated, as tensors on the first
+    held shard's device, and q_basis a per-shard list of (k, n_loc)."""
+    x_norm = [torch.sqrt(s) for s in pdot(mesh, x, x)]
+    q = [xs / xn for xs, xn in zip(x, x_norm)]
+    q_prev = [torch.zeros_like(t) for t in q]
+    q_basis = [t.new_zeros((k, t.shape[0])) for t in q]
+    alpha = x[0].new_zeros((k,))
+    beta = x[0].new_zeros((k,))
+    b_prev = [t.new_zeros(()) for t in q]
+    for j in range(k):
+        for qb, t in zip(q_basis, q):
+            qb[j] = t
+        v = local_spmv(q)
+        a = pdot(mesh, v, q)
+        v = [vs - av * qs - bp * qp
+             for vs, av, qs, bp, qp in zip(v, a, q, b_prev, q_prev)]
+        if reorthogonalize:
+            proj = mesh.psum([qb @ vs for qb, vs in zip(q_basis, v)])
+            rows = torch.arange(k, device=proj[0].device)
+            keep = per_replica(proj, lambda p: torch.where(
+                rows.to(p.device) <= j, p, p.new_zeros(())))
+            v = [vs - p @ qb for vs, p, qb in zip(v, keep, q_basis)]
+        b = [torch.sqrt(s) for s in pdot(mesh, v, v)]
+        alpha[j] = a[0]
+        beta[j] = b[0]
+        q_prev, q, b_prev = q, _next_q(v, b), b
+    return alpha, beta, q_basis, x_norm[0]
+
+
+def sharded_alphabeta_body(mesh: Mesh, local_spmv, x: list, k: int):
+    """Q-free variant of :func:`sharded_lanczos_body`: carries only (q,
+    q_prev), O(n_loc) memory per shard, the mesh analog of
+    core/lanczos.py ``lanczos_alphabeta``.  Returns (alpha, beta, x_norm)
+    replicated; beta is FULL length k (slot k-1 the residual norm, which
+    the deflation convergence filter needs)."""
+    x_norm = [torch.sqrt(s) for s in pdot(mesh, x, x)]
+    q = [xs / xn for xs, xn in zip(x, x_norm)]
+    q_prev = [torch.zeros_like(t) for t in q]
+    alpha = x[0].new_zeros((k,))
+    beta = x[0].new_zeros((k,))
+    b_prev = [t.new_zeros(()) for t in q]
+    for j in range(k):
+        v = local_spmv(q)
+        a = pdot(mesh, v, q)
+        v = [vs - av * qs - bp * qp
+             for vs, av, qs, bp, qp in zip(v, a, q, b_prev, q_prev)]
+        b = [torch.sqrt(s) for s in pdot(mesh, v, v)]
+        alpha[j] = a[0]
+        beta[j] = b[0]
+        q_prev, q, b_prev = q, _next_q(v, b), b
+    return alpha, beta, x_norm[0]
+
+
+def shard_probes(mesh: Mesh, mask: list, seed: int, stream: int,
+                 attempt: int, i: int) -> list:
+    """Probe ``i`` of (seed, stream, attempt) on every held shard: a
+    Rademacher vector on the shard's real cells, drawn on its device from
+    (seed, stream, attempt, i, shard) alone (core/stochastic.py
+    ``_masked_rademacher``).  Each shard has a stream of its own, as the
+    reference folds the shard index into its key (mesh.py:136, :173):
+    identical streams would correlate z across shards and bias E[z z^T]
+    off the identity."""
+    from tpu_lanczos_torch.core.stochastic import _masked_rademacher
+
+    return [_masked_rademacher(m, seed, stream, attempt, i, shard=s)
+            for m, s in zip(mask, mesh.shards)]
+
+
+def _deflation_coeffs(mesh: Mesh, u_rows: list, z: list) -> list:
+    """psum(u_rows @ z): the (m,) coefficients u_j . z, replicated."""
+    if u_rows[0].shape[0] == 0:
+        return [u.new_zeros((0,)) for u in u_rows]
+    return mesh.psum([u @ zs for u, zs in zip(u_rows, z)])
+
+
+def sharded_trace_probes_body(mesh: Mesh, local_spmv, mask: list, seed: int,
+                              stream: int, k: int, probes: int,
+                              u_rows: list):
+    """Every trace probe, the mesh twin of core/stochastic.py
+    ``_trace_probes_device``: per probe one Q-free sharded alpha/beta pass
+    (via ``local_spmv``) and its psum'd deflation coefficients.  Returns
+    stacked (probes, k) alphas and betas, (probes,) x_norms and (probes,
+    m) coefficient rows, replicated on the first held shard's device."""
+    m = u_rows[0].shape[0]
+    ref = mask[0]
+    A, B = ref.new_zeros((probes, k)), ref.new_zeros((probes, k))
+    XN, C = ref.new_zeros((probes,)), ref.new_zeros((probes, m))
+    for i in range(probes):
+        z = shard_probes(mesh, mask, seed, stream, 0, i)
+        A[i], B[i], XN[i] = sharded_alphabeta_body(mesh, local_spmv, z, k)
+        C[i] = _deflation_coeffs(mesh, u_rows, z)[0]
+    return A, B, XN, C
+
+
+def sharded_diag_probes_body(mesh: Mesh, local_spmv, mask: list, seed: int,
+                             stream: int, attempt: int, k: int, probes: int,
+                             u_rows: list, w_defl: torch.Tensor,
+                             shift: torch.Tensor) -> list:
+    """Every diagonal probe, the mesh twin of core/stochastic.py
+    ``_diag_probes_device``: per probe a k-step sharded Lanczos, ONE
+    replicated on-device (k, k) tridiagonal eigensolve per process (not
+    per shard), the local slice of the multiply-out GEMV, the rank-m
+    deflation correction with psum'd coefficients, and the z * ans
+    accumulation, all in e^{-shift}-scaled space.  ``u_rows`` is the
+    per-shard (m, n_loc) column slices of the deflation basis (m may be
+    0); ``w_defl`` (m,) and ``shift`` are on the first held shard's
+    device.  Returns the per-shard slices of diag_m + mean_i z_i * (e^A
+    z_i - M z_i), scaled by e^{-shift}."""
+    from tpu_lanczos_torch.core import expmv, tridiag
+
+    w = mesh.replicate(w_defl)
+    acc = [torch.zeros_like(ms) for ms in mask]
+    for i in range(probes):
+        z = shard_probes(mesh, mask, seed, stream, attempt, i)
+        alpha, beta, q_basis, x_norm = sharded_lanczos_body(
+            mesh, local_spmv, z, k)
+        evals, evecs = tridiag.eigh_device(alpha, beta[: k - 1])
+        tmp, sh = expmv.coefficients(evals, evecs, x_norm)
+        tmp = mesh.replicate(tmp)
+        scale = mesh.replicate(torch.exp(sh - shift))
+        c = _deflation_coeffs(mesh, u_rows, z)
+        for s in range(len(acc)):
+            ans = (tmp[s] @ q_basis[s]) * scale[s]
+            ans = ans - (w[s] * c[s]) @ u_rows[s]  # subtract (M z)_loc
+            acc[s] = acc[s] + z[s] * ans
+    return [torch.einsum("m,mn->n", ws, u * u) + a / probes
+            for ws, u, a in zip(w, u_rows, acc)]

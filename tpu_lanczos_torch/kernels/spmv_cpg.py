@@ -10,7 +10,9 @@ layout to every level.  Each wrapper launches ``csrc/spmv_cpg.cu`` on a
 CUDA tensor and takes its plain version (``run_level_ref``,
 ``run_level_comp_ref``) only for a tensor on the CPU.  All return the
 untransposed (n_chunks*sub, 128) level output, and all are bit-identical
-to the reference's kernel.
+to the reference's kernel.  ``n_chunks`` counts the dest chunks: on a
+shard of the row-sharded path (dist/cpg_sharded.py) the source holds
+another number of chunks than the dest.
 """
 
 from __future__ import annotations
@@ -100,16 +102,26 @@ def run_level_comp_ref(x2d: torch.Tensor, level: dict, n_chunks: int,
 
 
 def _check(x2d, level, n_chunks, sub, base, slab=False):
+    """The wrapper's argument checks.  ``n_chunks`` is the count of dest
+    chunks the level writes; the source x may hold any whole number of
+    ``sub``-row chunks (a shard's level reads its own rows, the gathered
+    vector or a compact exchange buffer), which the kernel reads only
+    through ``s_ids``.  That every s_id lies inside the source is checked
+    once where the ids are made (the packers), not per call: a check of
+    device values here would sync the host."""
     if x2d.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"x must be float32 or float64, got {x2d.dtype}")
-    if x2d.shape != (n_chunks * sub, LANE) or not x2d.is_contiguous():
-        raise ValueError(f"x must be contiguous ({n_chunks * sub}, {LANE}), "
-                         f"got {tuple(x2d.shape)}")
-    if base is not None and (base.shape != x2d.shape
+    if (x2d.ndim != 2 or x2d.shape[1] != LANE or x2d.shape[0] == 0
+            or x2d.shape[0] % sub or not x2d.is_contiguous()):
+        raise ValueError(f"x must be contiguous (m*{sub}, {LANE}) for a "
+                         f"whole number m of chunks, got {tuple(x2d.shape)}")
+    out_shape = (n_chunks * sub, LANE)
+    if base is not None and (tuple(base.shape) != out_shape
                              or base.dtype != x2d.dtype
                              or base.device != x2d.device
                              or not base.is_contiguous()):
-        raise ValueError("base must match x in shape, dtype and device")
+        raise ValueError(f"base must be contiguous {out_shape} with x's "
+                         f"dtype and device")
     # the slab layout's l2 is uint8 at every sub (bit 7 = ghost); a
     # wrong type would read the wrong bytes without any error
     l2_dtype = torch.uint8 if slab or sub <= 256 else torch.int16
@@ -134,7 +146,9 @@ def run_level(x2d: torch.Tensor, level: dict, n_chunks: int, sub: int,
               slab: bool = False) -> torch.Tensor:
     """One CPG level of a classic (or, with ``slab``, a slab-layout)
     pack: the CUDA kernel on a CUDA tensor, the plain version on a CPU
-    tensor.  Launches on the current stream without syncing."""
+    tensor.  Writes ``n_chunks`` dest chunks, (n_chunks*sub, 128); the
+    source x may hold another number of chunks (see ``_check``).
+    Launches on the current stream without syncing."""
     global launches, launches_slab
     if x2d.device.type == "cpu":
         return run_level_ref(x2d, level, n_chunks, sub, base, slab)
@@ -144,7 +158,7 @@ def run_level(x2d: torch.Tensor, level: dict, n_chunks: int, sub: int,
     from tpu_lanczos_torch.kernels import _build
 
     lib = _build.library()
-    out = torch.empty_like(x2d)
+    out = x2d.new_empty((n_chunks * sub, LANE))
     err = lib.tlt_spmv_cpg_level(
         x2d.data_ptr(), level["l1"].data_ptr(), level["l2"].data_ptr(),
         level["s_ids"].data_ptr(), level["starts"].data_ptr(),
@@ -174,7 +188,12 @@ def run_level_comp(x2d: torch.Tensor, level: dict, n_chunks: int,
     (csrc/spmv_cpg.cu:61-72, :150-151), while the plain version and the
     reference's kernel add x[..., 127]; they agree bit for bit only where
     that lane holds zeros.  Every level input that ``spmv_cpg_df`` gives
-    it does (the pack keeps lane 127 empty)."""
+    it does (the pack keeps lane 127 empty), and so does every buffer a
+    shard's level reads in the row-sharded df SpMV
+    (``dist/lanczos_df.py``): its own rows, the gathered vector, its rows
+    followed by the halo, and the compact reduce buffer, each made of
+    whole chunks of a vector that is zero there (tests/test_torch_spmv.py
+    pins both)."""
     global launches_comp, launches_comp_slab
     if x2d.device.type == "cpu":
         return run_level_comp_ref(x2d, level, n_chunks, sub, slab)
@@ -187,8 +206,8 @@ def run_level_comp(x2d: torch.Tensor, level: dict, n_chunks: int,
     from tpu_lanczos_torch.kernels import _build
 
     lib = _build.library()
-    out = torch.empty_like(x2d)
-    err_out = torch.empty_like(x2d)
+    out = x2d.new_empty((n_chunks * sub, LANE))
+    err_out = torch.empty_like(out)
     err = lib.tlt_spmv_cpg_level_comp(
         x2d.data_ptr(), level["l1"].data_ptr(), level["l2"].data_ptr(),
         level["s_ids"].data_ptr(), level["starts"].data_ptr(),
