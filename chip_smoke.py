@@ -40,7 +40,10 @@ jax or of the JAX package.  Each phase prints one JSON line:
      of bn1M and of the small packs of tests/test_cst.py and
      tests/test_gpg.py, the f64 SpMVs against scipy, ``expm_action``
      through each (launch counts, accuracy, top-20), the GPG top-20
-     query, SpMV and Lanczos timings, and ``--fmt cst`` in the CLI;
+     query, SpMV, per-level and Lanczos timings beside each bound (CST:
+     its int16/uint8 device indices and the TPU's int32 pair) and
+     cuSPARSE, GPG's per-chunk tile counts and real-step share, and
+     ``--fmt cst`` in the CLI;
   9  the tensor-core dense-block probe (``python -m
      tpu_lanczos_torch.eval.mxu_probe``): its check, its default run of
      16,384 blocks in three variants, the kernel against the plain
@@ -250,13 +253,16 @@ def spmv_cost(cg, value_bytes: int = 4):
     return nbytes + cg.n_pad * (4 + value_bytes), adds + cg.n_pad
 
 
-def cst_spmv_cost(cg, value_bytes: int = 4):
-    """(bytes, adds) of one CST SpMV: idx1 and idx3 read once, each
-    level's source (a reduce level's source is its start) read once and
-    its output written once, the realmask read and y written; one add per
-    slot cell, one multiply per cell for the mask."""
+def cst_spmv_cost(cg, value_bytes: int = 4, index_bytes=None):
+    """(bytes, adds) of one CST SpMV: idx1 and idx3 read once (as stored,
+    or ``index_bytes``), each level's source (a reduce level's source is
+    its start) read once and its output written once, the realmask read
+    and y written; one add per slot cell, one multiply per cell for the
+    mask."""
     levels = len(cg.idx1)
-    nbytes = (cg.index_bytes() + levels * 2 * cg.n_pad * value_bytes
+    if index_bytes is None:
+        index_bytes = cg.index_bytes()
+    nbytes = (index_bytes + levels * 2 * cg.n_pad * value_bytes
               + cg.n_pad * (4 + value_bytes))
     return nbytes, cg.total_slots * cg.n_pad + cg.n_pad
 
@@ -357,6 +363,19 @@ def lineage_chain(torch, spmv_mod, pack, x, kernel, plain):
 
     spmv_mod._spmv(pack, x, level)
     return err
+
+
+def lineage_level_ms(torch, spmv_mod, pack, x, kernel):
+    """CUDA-event medians of each level of one CST or GPG SpMV through
+    ``kernel``, on the inputs ``spmv_mod._spmv`` gives each level."""
+    inputs = []
+
+    def record(*args):
+        inputs.append(args)
+        return kernel(*args)
+
+    spmv_mod._spmv(pack, x, record)
+    return [cuda_ms(torch, lambda: kernel(*args))[0] for args in inputs]
 
 
 def ptxas_report(log: str) -> list:
@@ -1926,20 +1945,41 @@ def main() -> None:
             torch, lambda: plain_of[fmt](pk, x_t), reps=2)
         row["lanczos_k50_ms"], row["lanczos_samples"] = cuda_ms(
             torch, lambda: lanczos(pk, x_t, K))
+        row["level_ms"] = lineage_level_ms(
+            torch, spmv_cst if fmt == "cst" else spmv_gpg, pk, x_t,
+            spmv_cst.run_level_cst if fmt == "cst"
+            else spmv_gpg.run_level_gpg)
         nbytes, adds = (gpg_spmv_cost(pk) if fmt == "gpg"
                         else cst_spmv_cost(pk))
         row["bound_ms"], row["bound_by"] = bound(nbytes, adds)
         row["index_bytes"] = pk.index_bytes()
         row["index_GBps"] = pk.index_bytes() / (row["spmv_ms"] * 1e-3) / 1e9
         row["bound_share"] = row["bound_ms"] / row["spmv_ms"]
+    # the library yardstick again, beside the lineage kernels
+    cusparse_ms, _ = cuda_ms(torch, lambda: csr @ x_nat)
+    # the bound of the TPU's int32 idx1 and idx3 (8 bytes a slot cell)
+    cst_int32_bytes = sum(a.numel() * 8 for a in cg.idx1)
+    cst32_ms, _ = bound(*cst_spmv_cost(cg, index_bytes=cst_int32_bytes))
     lineage["gpg"].update(pack_s=gpg_pack_s, tiles=list(gg.t_reals),
                           padded_tiles=[int(lv["d_ids"].shape[0])
                                         for lv in gg.levels],
+                          chunk_tiles=[lv["counts"].tolist()
+                                       for lv in gg.levels],
                           n_chunks=gg.n_chunks, sub_d=gg.sub_d,
-                          fill=gg.fill)
+                          fill=gg.fill,
+                          real_step_share=gg.real_step_share)
     lineage["cst"].update(pack_s=cst_pack_s, load_h2d_s=cst_load_s,
                           slots=[int(a.shape[0]) for a in cg.idx1],
-                          n_cols=cg.n_cols, theta=cg.theta, fill=cg.fill)
+                          n_cols=cg.n_cols, theta=cg.theta, fill=cg.fill,
+                          idx1_dtype=str(cg.idx1[0].dtype),
+                          idx3_dtype=str(cg.idx3[0].dtype),
+                          index_bytes_int32=cst_int32_bytes,
+                          bound_int32_ms=cst32_ms,
+                          bound_int32_share=cst32_ms / lineage["cst"][
+                              "spmv_ms"])
+    check(cg.idx1[0].dtype == torch.int16 and all(
+        a.dtype == torch.uint8 for a in cg.idx3),
+        "bn1M's CST indices are int16 and uint8 on the card")
 
     reset_counts()
     rc, out, err, secs = run_cli(CLI_SMALL + ["--fmt", "cst"])
@@ -1956,7 +1996,8 @@ def main() -> None:
           "small_packs": small_rows, "max_abs_err": lin_err,
           "bn1M_f64_rel_err": rel64, **lineage,
           "summary_gpg_top20_equal": True,
-          "cpg_spmv_ms": spmv_ms, "cusparse_spmv_ms": csr_ms,
+          "cpg_spmv_ms": spmv_ms, "cusparse_spmv_ms": cusparse_ms,
+          "cusparse_spmv_ms_phase3": csr_ms,
           "cli_cst": {"rc": rc, "wall_s": secs, "rel_vs_serial": rel_cli,
                       "launches": counts}, "cli_cst_topk_rc": rc_topk,
           "total_s": time.time() - t_all})

@@ -3,8 +3,10 @@ and numpy row splitting), the greedy slot colouring, one level and the
 whole SpMV of the plain version against the Pallas kernels in interpret
 mode, and the f64 pipeline against the oracle and the reference.
 
-The graphs are tests/test_cst.py's.  Bars: exact equality for packs,
-levels and SpMVs (both add a level's slots in order from its starting
+The graphs are tests/test_cst.py's.  The port's pack stores the
+reference's int32 indices narrowed (idx1 int16 up to
+``cst.IDX1_INT16_MAX_COLS`` columns, else int32; idx3 uint8), so packs
+are compared by value.  Bars: exact equality for packs, levels and SpMVs (both add a level's slots in order from its starting
 accumulator, and ghost cells add +0.0); the f64 answer within 1e-12 of
 the oracle (the reference's CST bar) and 1e-10 of the reference's answer
 (two correct f64 pipelines, docs/ACCURACY.md).
@@ -67,8 +69,15 @@ def assert_pack_equal(port, ref):
         for name in ("idx1", "idx3"):
             got = getattr(port, name)[i].numpy()
             want = np.asarray(getattr(ref, name)[i])
-            assert got.dtype == want.dtype == np.int32, (i, name)
+            assert want.dtype == np.int32, (i, name)
+            assert got.dtype == narrowed_dtype(name, port.n_cols), (i, name)
             np.testing.assert_array_equal(got, want, err_msg=f"lv{i} {name}")
+
+
+def narrowed_dtype(name, n_cols):
+    if name == "idx3":
+        return np.uint8
+    return np.int16 if n_cols <= cst.IDX1_INT16_MAX_COLS else np.int32
 
 
 @pytest.mark.parametrize("split", ["native", "numpy"])
@@ -167,6 +176,105 @@ def test_kernel_wrapper_rejects_bad_inputs(case, bad):
         spmv_cst._check(src, None, i1, i3)
     spmv_cst._check(torch.zeros((cst.CLASSES, port.n_cols)), None,
                     port.idx1[0], port.idx3[0])
+
+
+def test_device_index_types_and_bytes(case):
+    """idx3 is uint8 and idx1 int16 on every level (every pack here has
+    far fewer than 32,767 columns); index_bytes counts 3 bytes a slot
+    cell, 3/8 of the reference's int32 pair."""
+    _, ref, port = case
+    assert port.n_cols <= cst.IDX1_INT16_MAX_COLS
+    assert all(a.dtype == torch.int16 for a in port.idx1)
+    assert all(a.dtype == torch.uint8 for a in port.idx3)
+    # idx3's rows start 16-byte aligned (TMA), padded where n_cols is not
+    # a multiple of 16
+    pitch = -(-port.n_cols // 16) * 16
+    assert all(a.stride() == (cst.CLASSES * pitch, pitch, 1)
+               for a in port.idx3)
+    cells = sum(np.asarray(a).size for a in ref.idx1)
+    assert port.index_bytes() == 3 * cells
+    assert port.index_bytes() * 8 == 3 * sum(
+        np.asarray(a).nbytes for a in list(ref.idx1) + list(ref.idx3))
+
+
+def test_int32_idx1_above_the_column_limit(case, monkeypatch):
+    """Past IDX1_INT16_MAX_COLS columns idx1 stays int32 (idx3 uint8):
+    the same values, accepted by the kernel's check, and the plain level
+    equal to the narrowed pack's."""
+    _, ref, narrow = case
+    monkeypatch.setattr(cst, "IDX1_INT16_MAX_COLS", ref.n_cols - 1)
+    port = port_pack(ref)
+    assert all(a.dtype == torch.int32 for a in port.idx1)
+    assert all(a.dtype == torch.uint8 for a in port.idx3)
+    for a, b in zip(port.idx1 + port.idx3, narrow.idx1 + narrow.idx3):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert port.index_bytes() == 5 * sum(a.numel() for a in port.idx1)
+    x = torch.from_numpy(port.permute_in(
+        np.random.default_rng(3).standard_normal(port.n), np.float64))
+    src = x.reshape(cst.CLASSES, port.n_cols)
+    spmv_cst._check(src, None, port.idx1[0], port.idx3[0])
+    assert torch.equal(
+        spmv_cst.run_level_cst_ref(src, None, port.idx1[0], port.idx3[0]),
+        spmv_cst.run_level_cst_ref(src, None, narrow.idx1[0], narrow.idx3[0]))
+    np.testing.assert_array_equal(spmv_cst.spmv_cst(port, x).numpy(),
+                                  spmv_cst.spmv_cst(narrow, x).numpy())
+
+
+@pytest.mark.parametrize("bad", ["idx1_high", "idx1_negative", "idx3_high",
+                                 "idx3_negative"])
+def test_from_numpy_checks_that_indices_fit(bad):
+    """from_numpy refuses a pack whose idx1 is not a column below n_cols
+    or whose idx3 is not a class in 0..127 (the narrowed types would
+    wrap them)."""
+    ref = ref_cst.pack_cst(GRAPHS["tiny"]())
+    idx1 = [np.array(a) for a in ref.idx1]
+    idx3 = [np.array(a) for a in ref.idx3]
+    target, value = {"idx1_high": (idx1, ref.n_cols),
+                     "idx1_negative": (idx1, -1),
+                     "idx3_high": (idx3, cst.CLASSES),
+                     "idx3_negative": (idx3, -1)}[bad]
+    target[0][0, 0, 0] = value
+    meta = dict(n=ref.n, n_cols=ref.n_cols, nnz=ref.nnz, theta=ref.theta)
+    with pytest.raises(ValueError, match="outside"):
+        cst.from_numpy(meta, idx1, idx3, np.asarray(ref.realmask),
+                       ref.new_of_old, device="cpu")
+
+
+@pytest.mark.parametrize("i1,i3,ok", [
+    (torch.int16, torch.uint8, True), (torch.int32, torch.uint8, True),
+    (torch.int64, torch.uint8, False), (torch.int8, torch.uint8, False),
+    (torch.uint8, torch.uint8, False), (torch.int16, torch.int32, False),
+    (torch.int16, torch.int8, False), (torch.int32, torch.int32, False)])
+def test_check_accepts_exactly_the_kernel_index_types(i1, i3, ok):
+    """The wrapper's check takes idx1 int16 or int32 and idx3 uint8, the
+    types csrc/spmv_cst.cu is built for, and nothing else."""
+    src = torch.zeros((cst.CLASSES, 16), dtype=torch.float32)
+    idx1 = torch.zeros((2, cst.CLASSES, 16), dtype=i1)
+    idx3 = torch.zeros((2, cst.CLASSES, 16), dtype=i3)
+    if ok:
+        spmv_cst._check(src, None, idx1, idx3)
+    else:
+        with pytest.raises(ValueError):
+            spmv_cst._check(src, None, idx1, idx3)
+
+
+@pytest.mark.parametrize("n_cols,padded,ok", [
+    (16, False, True), (24, True, True), (24, False, False),
+    (40, True, True), (40, False, False)])
+def test_check_wants_idx3_rows_16_byte_aligned(n_cols, padded, ok):
+    """idx3's rows must start 16 bytes apart (as from_numpy pads them);
+    a contiguous idx3 of a width that is not a multiple of 16 is
+    refused."""
+    src = torch.zeros((cst.CLASSES, n_cols), dtype=torch.float32)
+    idx1 = torch.zeros((2, cst.CLASSES, n_cols), dtype=torch.int16)
+    idx3 = cst._padded_rows(np.zeros((2, cst.CLASSES, n_cols), np.uint8),
+                            "cpu") if padded else torch.zeros(
+        (2, cst.CLASSES, n_cols), dtype=torch.uint8)
+    if ok:
+        spmv_cst._check(src, None, idx1, idx3)
+    else:
+        with pytest.raises(ValueError, match="16 bytes"):
+            spmv_cst._check(src, None, idx1, idx3)
 
 
 def test_expm_action_f64_matches_oracle_and_reference():

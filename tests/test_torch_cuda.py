@@ -278,6 +278,78 @@ def test_gpg_kernel_equals_plain_version(dev, kw):
                                rtol=1e-12, atol=1e-12)
 
 
+# ghost-heavy: ~1% of the GPG and ~12% of the CST steps are real (and
+# a reduce level); dense: a grid, ~7% and ~35%
+_LINEAGE_GRAPHS = {
+    "ghost_heavy": lambda: generators.barabasi_albert(2000, 8, seed=2),
+    "dense": lambda: generators.stencil_2d(60),
+}
+
+
+def _real_share(cg) -> float:
+    """Real (slot, staging cell) steps over all of a CST pack."""
+    zero = cg.n_cols - 1
+    return (sum(int((a != zero).sum()) for a in cg.idx1)
+            / (cg.total_slots * cg.n_pad))
+
+
+@pytest.mark.parametrize("idx1_bytes", [2, 4])
+@pytest.mark.parametrize("name", list(_LINEAGE_GRAPHS))
+def test_cst_kernel_bit_for_bit(dev, name, idx1_bytes, monkeypatch):
+    """Every level of the f32 and f64 CST SpMV through the kernel and its
+    plain version, bit for bit (int views), on int16 and int32 idx1 (the
+    int32 branch forced by lowering the column limit), idx3 uint8, with
+    an x of both signs whose zero column holds -0.0: the plain version
+    adds that -0.0 for ghost cells, the kernel +0.0 without a load."""
+    if idx1_bytes == 4:
+        monkeypatch.setattr(cst, "IDX1_INT16_MAX_COLS", 0)
+    cg = cst.pack_cst(_LINEAGE_GRAPHS[name](), device=dev)
+    assert all(a.element_size() == idx1_bytes for a in cg.idx1)
+    assert all(a.dtype == torch.uint8 for a in cg.idx3)
+    assert (_real_share(cg) > 0.3) == (name == "dense")
+
+    def level(src, acc, i1, i3):
+        got = spmv_cst.run_level_cst(src, acc, i1, i3)
+        want = spmv_cst.run_level_cst_ref(src, acc, i1, i3)
+        assert torch.equal(_bits(got), _bits(want))
+        return got
+
+    rng = np.random.default_rng(6)
+    for dtype in (torch.float32, torch.float64):
+        x = torch.from_numpy(rng.standard_normal(
+            (cst.CLASSES, cg.n_cols))).to(dev, dtype)
+        x[:, -1] = -0.0
+        spmv_cst._spmv(cg, x.reshape(-1), level)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name", list(_LINEAGE_GRAPHS))
+def test_gpg_kernel_bit_for_bit(dev, name):
+    """Every level of the f32 and f64 GPG SpMV through the kernel and
+    its plain version, bit for bit (int views), with an x of both signs
+    whose lane 127 holds -0.0, on sub_d 256 (clusters of 4) and 128
+    (clusters of 2); test_gpg_kernel_equals_plain_version has sub_d 512
+    (clusters of 8)."""
+    g = _LINEAGE_GRAPHS[name]()
+    for sub_d in (256, 128):
+        gg = gpg.pack_gpg(g, sub_d=sub_d, device=dev)
+        assert (gg.real_step_share > 0.05) == (name == "dense")
+
+        def level(*args):
+            got = spmv_gpg.run_level_gpg(*args)
+            assert torch.equal(_bits(got), _bits(
+                spmv_gpg.run_level_gpg_ref(*args)))
+            return got
+
+        rng = np.random.default_rng(7)
+        for dtype in (torch.float32, torch.float64):
+            x = torch.from_numpy(rng.standard_normal(
+                (gg.n_sub, gpg.LANE))).to(dev, dtype)
+            x[:, gpg.LANE - 1] = -0.0
+            spmv_gpg._spmv(gg, x.reshape(-1), level)
+    torch.cuda.synchronize()
+
+
 def test_lineage_pipelines_on_cuda_match_oracle(dev):
     g = generators.barabasi_albert(2000, 8, seed=2)
     want = oracle.expm_action(g, np.ones(g.n), 30)

@@ -189,6 +189,51 @@ def test_run_level_gpg_on_cpu_is_the_plain_version():
         spmv_gpg._check(x2d[:-1].contiguous(), *args)
 
 
+@pytest.mark.parametrize("g_s,sub_s,sub_d,ok", [
+    (16, 256, 128, True), (8, 256, 512, True), (16, 128, 256, True),
+    (32, 256, 384, True), (16, 256, 640, True), (16, 256, 2048, True),
+    (16, 256, 200, False), (16, 192, 512, False), (48, 256, 512, False)])
+def test_check_takes_exactly_the_kernel_shapes(g_s, sub_s, sub_d, ok):
+    """The wrapper's check takes the shapes csrc/spmv_gpg.cu launches
+    (g_s a power of two dividing sub_s, sub_s 128 or 256, sub_d a
+    multiple of 128: 32-row blocks, 4 or 8 to a cluster) and refuses the
+    others before any launch."""
+    n_chunks, t_pad = 2, 4
+    x2d = torch.zeros((n_chunks * sub_d, 128), dtype=torch.float32)
+    level = dict(
+        l1=torch.zeros((t_pad * sub_s, 128), dtype=torch.int8),
+        l2=torch.zeros((t_pad * 128, sub_d), dtype=torch.uint8),
+        g_ids=torch.zeros((t_pad * max(sub_s // g_s, 1),),
+                          dtype=torch.int32),
+        d_ids=torch.zeros((t_pad,), dtype=torch.int32),
+        starts=torch.zeros((n_chunks,), dtype=torch.int32),
+        counts=torch.zeros((n_chunks,), dtype=torch.int32))
+    args = (x2d, level, n_chunks, g_s, sub_s, sub_d)
+    if ok:
+        spmv_gpg._check(*args)
+    else:
+        with pytest.raises(ValueError, match="GPG kernel takes"):
+            spmv_gpg._check(*args)
+
+
+@pytest.mark.parametrize("name", ["barabasi", "hub", "sub_s128"])
+def test_real_step_share_counts_the_real_dest_steps(name):
+    """real_step_share (from the staging side) equals the share of (tile,
+    dest cell) steps whose staging row holds a real lane, counted on the
+    dest side as the kernel walks them."""
+    build, kw = CASES[name]
+    port = port_pack(ref_gpg.pack_gpg(build(), **kw))
+    real = steps = 0
+    for lv, t in zip(port.levels, port.t_reals):
+        l1 = lv["l1"][: t * port.sub_s].view(t, port.sub_s, 128).long()
+        l2 = lv["l2"][: t * 128].view(t, 128, port.sub_d).long()
+        lane = torch.gather(l1.transpose(1, 2), 2, l2)  # l1[t, r, c]
+        real += int((lane != 127).sum())
+        steps += lane.numel()
+    assert 0 < real < steps
+    assert port.real_step_share == real / steps
+
+
 def test_save_load_both_directions(tmp_path):
     ref = ref_gpg.pack_gpg(CASES["uniform"][0]())
     port = port_pack(ref)

@@ -38,18 +38,20 @@ from tpu_lanczos_torch.kernels import _build
 HBM_BYTES_PER_S = 3.35e12  # the H100 SXM's published HBM rate
 
 
-def _lib_path(name: str) -> str:
+def lib_path(name: str) -> str:
     tag = "".join(ch if ch.isalnum() else "_" for ch in name)
     return os.path.join(_build.BUILD_DIR, "variants", f"libcpg_{tag}.so")
 
 
 def build(builds: dict) -> dict:
-    """``builds``: name -> source.  One nvcc per build, all at once;
-    returns name -> ptxas report lines."""
+    """``builds``: name -> source (which may include the package's
+    csrc/ headers).  One nvcc per build, all at once; returns name ->
+    ptxas report lines."""
     nvcc = _build.nvcc_path()
-    os.makedirs(os.path.dirname(_lib_path("x")), exist_ok=True)
+    os.makedirs(os.path.dirname(lib_path("x")), exist_ok=True)
     procs = {name: subprocess.Popen(
-        [nvcc] + _build.NVCC_FLAGS + ["-shared", "-o", _lib_path(name), src],
+        [nvcc] + _build.NVCC_FLAGS + ["-I", _build.CSRC_DIR, "-shared",
+                                      "-o", lib_path(name), src],
         stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
         for name, src in builds.items()}
     logs = {name: p.communicate(timeout=600)[1] for name, p in procs.items()}
@@ -64,7 +66,7 @@ def build(builds: dict) -> dict:
 def level_fns(name: str):
     """(plain level, compensated level) of one build, with
     ``spmv_cpg.run_level``'s and ``run_level_comp``'s signatures."""
-    lib = _build.bind_cpg(ctypes.CDLL(_lib_path(name)))
+    lib = _build.bind_cpg(ctypes.CDLL(lib_path(name)))
 
     def plain(x2d, level, n_chunks, sub, base=None, slab=False):
         out = torch.empty_like(x2d)

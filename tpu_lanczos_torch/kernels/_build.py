@@ -22,6 +22,8 @@ from tpu_lanczos_torch.utils import BUILD_DIR, build_shared
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = [os.path.join(CSRC_DIR, name) for name in (
     "spmv_cpg.cu", "spmv_cst.cu", "spmv_gpg.cu", "mxu_probe.cu")]
+HEADERS = [os.path.join(CSRC_DIR, name) for name in (
+    "tma.cuh", "heavy_first.cuh")]
 LIB_PATH = os.path.join(BUILD_DIR, "libtlt_kernels.so")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -56,14 +58,24 @@ def bind_cpg(lib):
     return lib
 
 
+def bind_lineage(lib):
+    """Argument types of spmv_cst.cu's and spmv_gpg.cu's entry points on
+    ``lib`` (whichever it has)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    if hasattr(lib, "tlt_spmv_cst_level"):
+        lib.tlt_spmv_cst_level.restype = i
+        lib.tlt_spmv_cst_level.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    if hasattr(lib, "tlt_spmv_gpg_level"):
+        lib.tlt_spmv_gpg_level.restype = i
+        lib.tlt_spmv_gpg_level.argtypes = [p, p, p, p, p, p, p,
+                                           i, i, i, i, i, i, p]
+    return lib
+
+
 def _bind(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     bind_cpg(lib)
-    lib.tlt_spmv_cst_level.restype = i
-    lib.tlt_spmv_cst_level.argtypes = [p, p, p, p, p, i, i, i, p]
-    lib.tlt_spmv_gpg_level.restype = i
-    lib.tlt_spmv_gpg_level.argtypes = [p, p, p, p, p, p, p,
-                                       i, i, i, i, i, p]
+    bind_lineage(lib)
     lib.tlt_mxu_probe.restype = i
     lib.tlt_mxu_probe.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     return lib
@@ -114,4 +126,5 @@ def library():
 
 def _up_to_date() -> bool:
     return os.path.exists(LIB_PATH) and all(
-        os.path.getmtime(LIB_PATH) >= os.path.getmtime(s) for s in SOURCES)
+        os.path.getmtime(LIB_PATH) >= os.path.getmtime(s)
+        for s in SOURCES + HEADERS)

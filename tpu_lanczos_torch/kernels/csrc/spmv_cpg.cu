@@ -55,7 +55,7 @@
 //   port wrote 32 values 512 bytes apart.
 // - Heaviest chunks first.  Dest chunks hold very different tile counts
 //   (bn1M's main level: 93 to 340 a chunk, median 118).  With up to
-//   kHeavyFirstMax chunks, block row blockIdx.y walks the chunk of that
+//   tlt::kHeavyFirstMax chunks, block row blockIdx.y walks the chunk of that
 //   place in the tile-count order, most first, so the longest walks start
 //   first and do not form the tail.
 // - Ghost cells.  ~86% of bn1M's tile cells are ghosts: L2 points at a
@@ -85,6 +85,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "heavy_first.cuh"
+
 namespace {
 
 constexpr int kLane = 128;
@@ -92,8 +94,7 @@ constexpr int kGhost = kLane - 1;  // lane 127: the structural zero of x
 constexpr int kThreads = 256;
 constexpr int kRows = 32;                 // classic block: dest sublanes
 constexpr int kCols = kThreads / kRows;   // ... and dest lanes, one a warp
-constexpr int kHeavyFirstMax = 64;        // chunks ordered by tile count
-static_assert(kHeavyFirstMax <= kThreads, "one thread ranks one chunk");
+static_assert(tlt::kHeavyFirstMax <= kThreads, "one thread ranks one chunk");
 
 // The classic block's cells: rows rd0 .. rd0 + kRows (a warp's lanes) of
 // lanes ld0 .. ld0 + kCols (one a warp); this thread's (ld, rd) and its
@@ -111,27 +112,6 @@ __device__ __forceinline__ Cells block_cells(int sub) {
   k.rd = k.rd0 + static_cast<int>(threadIdx.x) % kRows;
   k.c = k.ld * sub + k.rd;
   return k;
-}
-
-// The dest chunk of this block: the chunk in place blockIdx.y when the
-// chunks are sorted by tile count, most first (ties by index); blockIdx.y
-// itself past kHeavyFirstMax chunks.  Every thread must call it.
-__device__ __forceinline__ int heavy_first_chunk(
-    const int32_t* __restrict__ counts, int n_chunks) {
-  if (n_chunks > kHeavyFirstMax) return static_cast<int>(blockIdx.y);
-  __shared__ int chunk;
-  const int t = static_cast<int>(threadIdx.x);
-  if (t < n_chunks) {
-    const int own = counts[t];
-    int place = 0;
-    for (int j = 0; j < n_chunks; ++j) {
-      const int other = counts[j];
-      place += other > own || (other == own && j < t);
-    }
-    if (place == static_cast<int>(blockIdx.y)) chunk = t;
-  }
-  __syncthreads();
-  return chunk;
 }
 
 // Classic tile t's value for dest cell (ld, c): x[s_ids[t]*sub + L2,
@@ -180,7 +160,7 @@ cpg_level_kernel(const T* __restrict__ x, const int8_t* __restrict__ l1,
                  const T* __restrict__ base, T* __restrict__ out,
                  int n_chunks, int sub) {
   const Cells k = block_cells(sub);
-  const int d = heavy_first_chunk(counts, n_chunks);
+  const int d = tlt::heavy_first_chunk(counts, n_chunks);
   const int64_t cells = static_cast<int64_t>(sub) * kLane;
   const int64_t start = starts[d];
   const int count = counts[d];
@@ -216,7 +196,7 @@ cpg_level_comp_kernel(const float* __restrict__ x,
                       float* __restrict__ out, float* __restrict__ err,
                       int n_chunks, int sub) {
   const Cells k = block_cells(sub);
-  const int d = heavy_first_chunk(counts, n_chunks);
+  const int d = tlt::heavy_first_chunk(counts, n_chunks);
   const int64_t cells = static_cast<int64_t>(sub) * kLane;
   const int64_t start = starts[d];
   const int count = counts[d];

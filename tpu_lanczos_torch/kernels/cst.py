@@ -37,6 +37,12 @@ import torch
 from tpu_lanczos_torch.graphs.csr import CSRGraph
 
 CLASSES = 128
+# idx1 goes to the device as int16 up to this many columns (its values,
+# column indices, are below n_cols), as int32 above; idx3 (classes) as
+# uint8, its rows padded to a multiple of IDX3_ROW_ALIGN bytes (a TMA row
+# starts 16-byte aligned)
+IDX1_INT16_MAX_COLS = 32767
+IDX3_ROW_ALIGN = 16
 
 
 def _round_up(x: int, m: int) -> int:
@@ -67,15 +73,17 @@ class CSTGraph:
     ``device``.  Level 0 delivers A's entries into unit cells (real rows
     and virtual row parts); levels 1.. fold virtual partial sums into
     their parents.  ``idx1[i]`` and ``idx3[i]`` are level i's (slots,
-    128, n_cols) int32 tensors; ``realmask`` is (128, n_cols) float32
-    {0, 1}."""
+    128, n_cols) tensors, the reference's int32 values narrowed: idx1
+    int16 (int32 past ``IDX1_INT16_MAX_COLS`` columns), contiguous; idx3
+    uint8, a column slice of rows padded to ``IDX3_ROW_ALIGN`` bytes;
+    ``realmask`` is (128, n_cols) float32 {0, 1}."""
 
     n: int
     n_cols: int             # columns of the classT layout (incl. zero col)
     nnz: int
     theta: int
-    idx1: tuple             # tuple of (slots_i, 128, n_cols) int32 tensors
-    idx3: tuple
+    idx1: tuple             # tuple of (slots_i, 128, n_cols) int16/int32
+    idx3: tuple             # ... uint8
     realmask: torch.Tensor  # (128, n_cols) f32 {0,1}
     new_of_old: np.ndarray  # (n,) vertex -> position (l * n_cols + j)
 
@@ -97,8 +105,9 @@ class CSTGraph:
         return self.nnz / float(self.total_slots * self.n_pad)
 
     def index_bytes(self) -> int:
-        """Bytes of idx1 + idx3: what one SpMV must read at least once."""
-        return sum(a.numel() * a.element_size() * 2 for a in self.idx1)
+        """Bytes of idx1 + idx3 (without idx3's row padding): what one
+        SpMV must read at least once."""
+        return sum(a.numel() * a.element_size() for a in self.idx1 + self.idx3)
 
     # ------------------------------------------------------------ vectors
 
@@ -224,16 +233,46 @@ def _tensor(a: np.ndarray, device, dtype=None) -> torch.Tensor:
                                        requirements="CW")).to(device)
 
 
+def _narrowed(arrays, hi: int, dtype, name: str):
+    """The level arrays as ``dtype``, after checking that every value lies
+    in [0, hi)."""
+    for i, a in enumerate(arrays):
+        a = np.asarray(a)
+        if a.size and (int(a.min()) < 0 or int(a.max()) >= hi):
+            raise ValueError(f"{name}[{i}] holds values outside [0, {hi}): "
+                             f"{int(a.min())}..{int(a.max())}")
+    return [np.asarray(a).astype(dtype, copy=False) for a in arrays]
+
+
+def _padded_rows(a: np.ndarray, device) -> torch.Tensor:
+    """``a`` (slots, 128, n_cols) on ``device`` as the column slice of a
+    copy whose rows are padded with zeros to IDX3_ROW_ALIGN bytes."""
+    n_cols = a.shape[2]
+    pitch = _round_up(n_cols, IDX3_ROW_ALIGN)
+    if pitch == n_cols:
+        return _tensor(a, device)
+    padded = np.zeros(a.shape[:2] + (pitch,), dtype=a.dtype)
+    padded[..., :n_cols] = a
+    return _tensor(padded, device)[..., :n_cols]
+
+
 def from_numpy(meta: dict, idx1, idx3, realmask: np.ndarray,
                new_of_old: np.ndarray, device="cuda") -> CSTGraph:
     """Build a CSTGraph from host arrays, e.g. a JAX-package pack's
     (``np.asarray`` of each level array).  ``meta`` holds n, n_cols, nnz
-    and theta."""
+    and theta.  The one place a pack reaches its device: idx1 is stored
+    as int16 up to ``IDX1_INT16_MAX_COLS`` columns (int32 above) and idx3
+    as uint8 with rows padded to ``IDX3_ROW_ALIGN`` bytes, after a check
+    that the values fit."""
+    n_cols = int(meta["n_cols"])
+    i1_type = np.int16 if n_cols <= IDX1_INT16_MAX_COLS else np.int32
     return CSTGraph(
-        n=int(meta["n"]), n_cols=int(meta["n_cols"]), nnz=int(meta["nnz"]),
+        n=int(meta["n"]), n_cols=n_cols, nnz=int(meta["nnz"]),
         theta=int(meta["theta"]),
-        idx1=tuple(_tensor(a, device, np.int32) for a in idx1),
-        idx3=tuple(_tensor(a, device, np.int32) for a in idx3),
+        idx1=tuple(_tensor(a, device) for a in _narrowed(
+            idx1, n_cols, i1_type, "idx1")),
+        idx3=tuple(_padded_rows(a, device) for a in _narrowed(
+            idx3, CLASSES, np.uint8, "idx3")),
         realmask=_tensor(realmask, device, np.float32),
         new_of_old=np.asarray(new_of_old),
     )

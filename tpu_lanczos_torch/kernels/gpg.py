@@ -94,6 +94,15 @@ class GPGGraph:
         per_tile = self.sub_s * LANE + LANE * self.sub_d + 4 * self.n_slots
         return sum(self.t_reals) * per_tile
 
+    @property
+    def real_step_share(self) -> float:
+        """Real (tile, dest cell) steps over all: a real staging cell (l1
+        not lane 127) is read by exactly one dest cell of its tile; every
+        other dest cell reads a ghost."""
+        real = sum(int((lv["l1"][: t * self.sub_s] != LANE - 1).sum())
+                   for lv, t in zip(self.levels, self.t_reals))
+        return real / (sum(self.t_reals) * LANE * self.sub_d)
+
     # ------------------------------------------------------------ vectors
 
     def permute_in(self, x: np.ndarray, dtype) -> np.ndarray:

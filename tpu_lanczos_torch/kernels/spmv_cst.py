@@ -18,7 +18,11 @@ from __future__ import annotations
 
 import torch
 
-from tpu_lanczos_torch.kernels.cst import CLASSES, CSTGraph
+from tpu_lanczos_torch.kernels.cst import CLASSES, IDX3_ROW_ALIGN, CSTGraph
+
+# the index types the kernel takes: idx1 as cst.from_numpy narrows it
+IDX1_DTYPES = (torch.int16, torch.int32)
+IDX3_DTYPE = torch.uint8
 
 # CUDA launches of the CST level kernel; only run_level_cst adds to it
 launches_cst = 0
@@ -47,13 +51,23 @@ def _check(src, acc, idx1, idx3):
                             or acc.device != src.device
                             or not acc.is_contiguous()):
         raise ValueError("acc must match src in shape, dtype and device")
-    for name, a in (("idx1", idx1), ("idx3", idx3)):
-        if (a.dtype != torch.int32 or a.device != src.device
-                or not a.is_contiguous() or a.dim() != 3
+    n_cols = src.shape[1]
+    if n_cols % 8:
+        raise ValueError(f"n_cols must be a multiple of 8, got {n_cols}")
+    for name, a, dtypes in (("idx1", idx1, IDX1_DTYPES),
+                            ("idx3", idx3, (IDX3_DTYPE,))):
+        if (a.dtype not in dtypes or a.device != src.device or a.dim() != 3
                 or tuple(a.shape[1:]) != tuple(src.shape)):
-            raise ValueError(f"{name} must be contiguous int32 (slots, "
-                             f"{CLASSES}, {src.shape[1]}) on {src.device}, "
-                             f"got {a.dtype} {tuple(a.shape)} on {a.device}")
+            raise ValueError(f"{name} must be {dtypes} (slots, {CLASSES}, "
+                             f"{n_cols}) on {src.device}, got {a.dtype} "
+                             f"{tuple(a.shape)} on {a.device}")
+    if not idx1.is_contiguous():
+        raise ValueError("idx1 must be contiguous")
+    pitch = idx3.stride(1)
+    if idx3.stride() != (CLASSES * pitch, pitch, 1) or pitch % IDX3_ROW_ALIGN:
+        raise ValueError(f"idx3's rows must be a multiple of 16 bytes apart "
+                         f"(cst.from_numpy pads them), got strides "
+                         f"{idx3.stride()}")
     if idx1.shape[0] != idx3.shape[0]:
         raise ValueError("idx1 and idx3 must have the same slot count")
 
@@ -78,7 +92,8 @@ def run_level_cst(src: torch.Tensor, acc: torch.Tensor | None,
     err = lib.tlt_spmv_cst_level(
         src.data_ptr(), None if acc is None else acc.data_ptr(),
         idx1.data_ptr(), idx3.data_ptr(), out.data_ptr(), idx1.shape[0],
-        src.shape[1], src.element_size(),
+        src.shape[1], idx3.stride(1), idx1.element_size(),
+        src.element_size(),
         torch.cuda.current_stream(src.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"spmv_cst kernel launch failed: CUDA error {err}")

@@ -58,9 +58,10 @@ def _check(x2d, level, n_chunks, g_s, sub_s, sub_d):
     if x2d.shape != (n_chunks * sub_d, LANE) or not x2d.is_contiguous():
         raise ValueError(f"x must be contiguous ({n_chunks * sub_d}, {LANE}),"
                          f" got {tuple(x2d.shape)}")
-    if sub_s % g_s or sub_s % LANE or sub_s > 256 or sub_d % LANE:
-        raise ValueError(f"bad GPG shape g_s={g_s} sub_s={sub_s} "
-                         f"sub_d={sub_d}")
+    if sub_s % g_s or sub_s not in (128, 256) or sub_d % LANE:
+        raise ValueError(f"the GPG kernel takes g_s dividing sub_s, sub_s "
+                         f"128 or 256 and sub_d a multiple of {LANE}, got "
+                         f"g_s={g_s} sub_s={sub_s} sub_d={sub_d}")
     for k, dt in _INDEX_DTYPES.items():
         a = level[k]
         if a.device != x2d.device or a.dtype != dt or not a.is_contiguous():
@@ -94,8 +95,8 @@ def run_level_gpg(x2d: torch.Tensor, level: dict, n_chunks: int, g_s: int,
     err = lib.tlt_spmv_gpg_level(
         x2d.data_ptr(), level["l1"].data_ptr(), level["l2"].data_ptr(),
         level["g_ids"].data_ptr(), level["starts"].data_ptr(),
-        level["counts"].data_ptr(), out.data_ptr(), n_chunks, g_s, sub_s,
-        sub_d, x2d.element_size(),
+        level["counts"].data_ptr(), out.data_ptr(), n_chunks,
+        level["d_ids"].shape[0], g_s, sub_s, sub_d, x2d.element_size(),
         torch.cuda.current_stream(x2d.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"spmv_gpg kernel launch failed: CUDA error {err}")
