@@ -28,7 +28,9 @@ jax or of the JAX package.  Each phase prints one JSON line:
   6  the slab layout on the same graph: its pack beside the classic one,
      the slab kernels == plain on every level, ``expm_action`` and
      ``expm_action_df`` on the slab pack (launch counts, accuracy, top-20)
-     and the slab SpMV, main level and Lanczos timed beside the classic;
+     and the slab SpMV, each level, the compensated main level and
+     Lanczos timed beside the classic, each beside its bound and the
+     plain version, with the cuSPARSE SpMV timed again;
   7  the CLI (``tpu_lanczos_torch.cli.main.main``) in process: the
      full-width slab --topk query with the device and the host
      eigensolve, and each single-device mode on a small graph against
@@ -46,8 +48,10 @@ jax or of the JAX package.  Each phase prints one JSON line:
      ``--fmt cst`` in the CLI;
   9  the tensor-core dense-block probe (``python -m
      tpu_lanczos_torch.eval.mxu_probe``): its check, its default run of
-     16,384 blocks in three variants, the kernel against the plain
-     version at that size, and a bf16 matmul as the yardstick;
+     16,384 blocks in three variants (each with the device time of its
+     two launches, the block stream and the reduce), the kernel against
+     the plain version at that size, and a bf16 matmul as the yardstick,
+     timed as the probe is and by its device time;
  10  the stochastic estimators on phase 3's pack (``estrada_index``,
      ``subgraph_centrality``, ``spectral_density`` at their library
      defaults): kernel 1's launches per call, CUDA-event and wall time,
@@ -1704,14 +1708,28 @@ def main() -> None:
         "slab": cuda_ms(torch, lambda: spmv_cpg.run_level(
             x2d_s, main_s, ds.n_chunks, SUB, slab=True))[0],
     }
+    main_level_plain_ms = cuda_ms(torch, lambda: spmv_cpg.run_level_ref(
+        x2d_s, main_s, ds.n_chunks, SUB, slab=True), reps=3)[0]
+    # every slab level as spmv_cpg runs it (x = realmask), and its bound
+    slab_level_ms, slab_level_bound_ms, x_l = [], [], x2d_s
+    for i, level in enumerate(ds.levels):
+        base = None if i == nbs else x_l
+        slab_level_ms.append(cuda_ms(torch, lambda: spmv_cpg.run_level(
+            x_l, level, ds.n_chunks, SUB, base=base, slab=True))[0])
+        slab_level_bound_ms.append(bound(*level_cost(
+            ds, i, 4, 1, base is not None))[0])
+        x_l = spmv_cpg.run_level(x_l, level, ds.n_chunks, SUB, base=base,
+                                 slab=True)
     hs2d = hi_s.reshape(ds.n_sub, 128)
     comp_slab_ms = cuda_ms(torch, lambda: spmv_cpg.run_level_comp(
         hs2d, main_s, ds.n_chunks, SUB, slab=True))[0]
     comp_slab_plain_ms = cuda_ms(torch, lambda: spmv_cpg.run_level_comp_ref(
-        hs2d, main_s, ds.n_chunks, SUB, slab=True))[0]
+        hs2d, main_s, ds.n_chunks, SUB, slab=True), reps=3)[0]
     lanczos_slab_ms, lanczos_slab_samples = cuda_ms(
         torch, lambda: lanczos(ds, x1s, K))
     lanczos_classic_ms = cuda_ms(torch, lambda: lanczos(dg, x1, K))[0]
+    # the library yardstick again, in the same phase as the slab times
+    slab_csr_ms = cuda_ms(torch, lambda: csr @ x_nat)[0]
     slab_bound_ms, slab_bound_by = bound(*spmv_cost(ds))
     comp_slab_bound = bound(*level_cost(ds, nbs, 4, 2, False,
                                         adds_per_entry=7))
@@ -1729,9 +1747,18 @@ def main() -> None:
           top_sdf == top_ref, "max_abs_err": max_err["slab"],
           "comp_max_abs_err": comp_err["slab"], **turns,
           "spmv_slab_ms": slab_spmv_ms, "spmv_slab_plain_ms": slab_plain_ms,
+          "cusparse_spmv_ms": slab_csr_ms,
+          "level_tile_counts": chunk_counts(ds),
+          "slab_level_ms": slab_level_ms,
+          "slab_level_bound_ms": slab_level_bound_ms,
           "main_level_ms": main_level_ms,
+          "main_level_plain_ms": main_level_plain_ms,
+          "main_level_bound_ms": {"slab": slab_level_bound_ms[nbs],
+                                  "classic": level_bound_ms[nb]},
           "comp_slab_main_level_ms": comp_slab_ms,
           "comp_slab_main_level_plain_ms": comp_slab_plain_ms,
+          "comp_slab_main_level_bound_ms": comp_slab_bound[0],
+          "comp_slab_bound_share": comp_slab_bound[0] / comp_slab_ms,
           "lanczos_k50_ms": {"slab": lanczos_slab_ms,
                              "classic": lanczos_classic_ms},
           "lanczos_slab_samples": lanczos_slab_samples,
@@ -1742,7 +1769,7 @@ def main() -> None:
           "bound_share": {"slab": slab_bound_ms / slab_spmv_ms,
                           "classic": spmv_bound_ms / spmv_ms},
           "total_s": time.time() - t_all})
-    del ds, x1s, hi_s, lo_s, x2d_s, hs2d, main_s
+    del ds, x1s, hi_s, lo_s, x2d_s, hs2d, main_s, x_l
 
     # ---- 7: the CLI, in process, its output parsed
     from tpu_lanczos_torch.kernels import cpg as cpg_mod
@@ -2024,7 +2051,14 @@ def main() -> None:
           f"mxu_probe timed every variant ({sorted(probe_rows)})")
     reps = probe_rows["dma"]["wall_samples"]
     check_counts(counts, {"launches_mxu": len(mxu_probe.VARIANTS) * (
-        len(reps) + 2)}, "mxu_probe: the check and the timed runs")
+        len(reps) * mxu_probe.CALLS_PER_SAMPLE + 3)},
+        "mxu_probe: the check, the warm, timed and profiled runs")
+    # each variant's two launches, from its profiled call: the block
+    # stream and the reduce of the partials
+    probe_kernel_ms = {v: r["kernel_ms"] for v, r in probe_rows.items()}
+    check(all(set(k) == set(mxu_probe.KERNELS)
+              for k in probe_kernel_ms.values()),
+          f"the profiler timed both probe kernels ({probe_kernel_ms})")
     probe_launches = counts["launches_mxu"]
     blocks = probe_rows["dma"]["blocks"]
     a_p, xh_p, xl_p = mxu_probe.make_data(blocks, 4, 8)
@@ -2033,7 +2067,7 @@ def main() -> None:
         got = mxu_probe.probe(a_p, xh_p, xl_p, 8, v, u=4)
         want = mxu_probe.probe_ref(a_p, xh_p, xl_p, 8, v)
         probe_err[v] = float((got - want).abs().max())
-        probe_rel[v] = probe_err[v] / float(want.abs().max())
+        probe_rel[v] = mxu_probe.scaled_err(got, want, 8)
     check(probe_err["dma"] == 0.0, "probe dma == plain at full size")
     check(max(probe_rel.values()) < 1e-5,
           f"probe mxu within 1e-5 of the plain version's largest value "
@@ -2047,7 +2081,15 @@ def main() -> None:
     lib_out = torch.matmul(x_rep, a_p).float()  # bf16 output: ~2^-8
     lib_rel = float((lib_out - want).abs().max() / want.abs().max())
     check(lib_rel < 1e-2, f"bf16 matmul yardstick agrees ({lib_rel})")
-    probe_lib_ms = cuda_ms(torch, lambda: torch.matmul(x_rep, a_p))[0]
+    # timed as the probe is (mxu_probe.time_fn: samples of
+    # CALLS_PER_SAMPLE calls back to back, as many samples), and its
+    # device time in one profiled call beside the probe's two kernels'
+    lib_samples = mxu_probe.time_fn(lambda: torch.matmul(x_rep, a_p),
+                                    len(reps))
+    probe_lib_ms = float(np.median(lib_samples)) * 1e3
+    probe_lib_device_ms = sum(mxu_probe.device_ms(
+        lambda: torch.matmul(x_rep, a_p)).values())
+    probe_device_ms = {v: sum(k.values()) for v, k in probe_kernel_ms.items()}
     # the blocks, x_hi and x_lo (bf16) read once, the (8, 128) out written
     probe_bytes = (blocks * mxu_probe.BLOCK_BYTES + 2 * 8 * 128 * 2
                    + 8 * 128 * 4)
@@ -2055,9 +2097,15 @@ def main() -> None:
                         BF16_OPS_PER_S)
     emit({"phase": 9, "check_log": check_log.strip(),
           "probe_log": probe_log.strip(), "launches": probe_launches,
-          "variants": probe_rows, "full_size_max_abs_err": probe_err,
+          "variants": probe_rows, "kernel_ms": probe_kernel_ms,
+          "wall_ms": {v: r["wall_s"] * 1e3 for v, r in probe_rows.items()},
+          "full_size_max_abs_err": probe_err,
           "full_size_rel_err": probe_rel, "plain_mxu1_ms": probe_plain_ms,
-          "bf16_matmul_ms": probe_lib_ms, "bf16_matmul_rel": lib_rel,
+          "device_ms": probe_device_ms,
+          "bf16_matmul_ms": probe_lib_ms,
+          "bf16_matmul_samples_ms": [t * 1e3 for t in lib_samples],
+          "bf16_matmul_device_ms": probe_lib_device_ms,
+          "bf16_matmul_rel": lib_rel,
           "bound_ms": probe_bound[0], "bound_by": probe_bound[1],
           "total_s": time.time() - t_all})
     del a_p, xh_p, xl_p, x_rep, want, lib_out
@@ -2082,7 +2130,7 @@ def main() -> None:
         "launches": slab_launches, "max_abs_err": max_err["slab"],
         "ms": slab_spmv_ms, "plain_ms": slab_plain_ms,
         "bound_ms": slab_bound_ms, "bound_by": slab_bound_by,
-        "library_ms": csr_ms,
+        "library_ms": slab_csr_ms,
     }, {
         "name": "spmv_cpg_level_comp_slab", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": COMP_SLAB_REPLACES,

@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions on the card: the
 CPG SpMV kernels (classic and slab layout, plain and compensated, on one
-device and on every shard level of the row-sharded path), the CST and GPG
-level kernels and the dense-block probe; and the f32, df64, CST, GPG and
-row-sharded pipelines on CUDA against the float64 oracle.
+device and on every shard level of the row-sharded path; both walks bit
+for bit), the CST and GPG level kernels and the dense-block probe (at
+several partitions); and the f32, df64, CST, GPG and row-sharded
+pipelines on CUDA against the float64 oracle.
 
 Marked ``cuda``: each test skips (with its reason) where no CUDA device
 is present, and runs on a GPU machine with
@@ -230,6 +231,73 @@ def test_classic_walk_bit_for_bit(dev, name):
     torch.cuda.synchronize()
 
 
+# name -> (graph, sub): slab packs whose main level has a chunk longer
+# than the walk's ring (8 stages) and chunks with 0 tiles, at sub 128,
+# 256 and 512; the star's four levels hold chunks of 2 to 23 tiles
+_SLAB_WALK_CASES = {
+    "ba2000_sub128": (lambda: generators.barabasi_albert(2000, 8, seed=2),
+                      128),
+    "ba40000_m6_sub128": (lambda: generators.barabasi_albert(
+        40000, 6, seed=3), 128),
+    "ba40000_m4_sub256": (lambda: generators.barabasi_albert(
+        40000, 4, seed=1), 256),
+    "ba40000_m4_sub512": (lambda: generators.barabasi_albert(
+        40000, 4, seed=1), 512),
+    "star_sub512": (_star, 512),
+}
+
+
+def _ghost_chunk(level: dict) -> dict:
+    """The level with every tile of its longest chunk made all ghosts
+    (l2 = 255): that chunk's cells sum nothing but +0.0."""
+    out = dict(level)
+    d = int(level["counts"].argmax())
+    s0, n = int(level["starts"][d]), int(level["counts"][d])
+    out["l2"] = level["l2"].clone()
+    out["l2"][s0 * cpg.LANE:(s0 + n) * cpg.LANE] = 255
+    return out
+
+
+@pytest.mark.parametrize("name", list(_SLAB_WALK_CASES))
+def test_slab_walk_bit_for_bit(dev, name):
+    """The slab level kernels against their plain versions, bit for bit
+    (int views, so -0.0 != +0.0): every level of the pack and a copy of
+    the main level whose longest chunk is all ghost tiles; f32 and f64;
+    base given and absent; the compensated kernel's acc and err; x
+    holding -0.0 in every lane-127 slot.  The launch counters move by
+    exactly the launches made."""
+    build, sub = _SLAB_WALK_CASES[name]
+    g = build()
+    cg = cpg.pack_cpg(g, sub=sub, layout="slab", device=dev)
+    C, LANE, nb = cg.n_chunks, cpg.LANE, cg.n_bcast
+    main = cg.levels[nb]["counts"]
+    assert int(main.max()) > 16 and bool((main == 0).any())
+    levels = list(cg.levels) + [_ghost_chunk(cg.levels[nb])]
+    xr = np.random.default_rng(5).standard_normal(g.n)
+    before = (spmv_cpg.launches_slab, spmv_cpg.launches_comp_slab)
+    for np_dtype in (np.float32, np.float64):
+        x2d = torch.from_numpy(cg.permute_in(xr, np_dtype)).to(dev).reshape(
+            cg.n_sub, LANE)
+        x2d[:, LANE - 1] = -0.0
+        for level in levels:
+            for base in (None, x2d):
+                got = spmv_cpg.run_level(x2d, level, C, sub, base=base,
+                                         slab=True)
+                want = spmv_cpg.run_level_ref(x2d, level, C, sub, base=base,
+                                              slab=True)
+                assert torch.equal(_bits(got), _bits(want))
+            if np_dtype == np.float32:
+                got = spmv_cpg.run_level_comp(x2d, level, C, sub, slab=True)
+                want = spmv_cpg.run_level_comp_ref(x2d, level, C, sub,
+                                                   slab=True)
+                assert all(torch.equal(_bits(a), _bits(b))
+                           for a, b in zip(got, want))
+    torch.cuda.synchronize()
+    n = len(levels)
+    assert (spmv_cpg.launches_slab - before[0],
+            spmv_cpg.launches_comp_slab - before[1]) == (4 * n, n)
+
+
 def _checked(kernel, plain):
     def level(*args):
         got = kernel(*args)
@@ -372,6 +440,35 @@ def test_mxu_probe_kernel_equals_plain_version(dev):
             assert torch.equal(got, want)
         else:
             assert mxu_probe.rel_err(got, want, 8) < 1e-5
+
+
+@pytest.mark.parametrize("m_rows", [1, 8, 16])
+@pytest.mark.parametrize("blocks,u", [(7, 1), (10, 2), (20, 4), (1001, 1)])
+def test_mxu_probe_partitions(dev, blocks, u, m_rows):
+    """The probe on fewer blocks than SMs (one group a CTA, fewer blocks
+    than the ring's stages) and on 1,001 blocks (8 a CTA, the ring turned
+    over once and part-way), u = 1, 2 and 4, m_rows 1, 8 and 16: dma
+    equal to the plain version, mxu1 and mxu2 within 1e-5 of the plain
+    version's largest value (chip_smoke's full-size bar: the tensor cores
+    round a sum at the scale of its largest term, so an element that
+    cancels to near zero carries that error relative to the row, not to
+    itself; the earlier wmma kernel with a serial reduce misses the
+    element-wise bar at 20 blocks, u=4, m_rows=1 by the same 1.3e-4 in
+    mxu2), and rows m_rows.. zero."""
+    a, xh, xl = mxu_probe.make_data(blocks, u, m_rows)
+    before = mxu_probe.launches_mxu
+    for variant in mxu_probe.VARIANTS:
+        got = mxu_probe.probe(a, xh, xl, m_rows, variant, u=u)
+        want = mxu_probe.probe_ref(a, xh, xl, m_rows, variant)
+        assert got.shape == want.shape
+        assert not bool(got[m_rows:].any())
+        if variant == "dma":
+            assert torch.equal(got, want)
+        else:
+            err = mxu_probe.scaled_err(got, want, m_rows)
+            assert err < 1e-5, (variant, err)
+    torch.cuda.synchronize()
+    assert mxu_probe.launches_mxu - before == len(mxu_probe.VARIANTS)
 
 
 # ------------------------------------------------------ the row-sharded path

@@ -76,3 +76,42 @@ def test_check_and_refusals(data, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA GPU"):
         mxu_probe.main(["--check-only"])
+
+
+@pytest.mark.parametrize("sms", [1, 3, 132])
+@pytest.mark.parametrize("n_blocks,u", [(8, 2), (16384, 4), (20, 4), (7, 1),
+                                        (10, 2), (1001, 1), (264, 4)])
+def test_cta_partition(n_blocks, u, sms):
+    """The probe's CTA partition at a stubbed SM count: CTA i takes
+    blocks [i*per_cta, (i+1)*per_cta) cut at n_blocks; every CTA holds
+    whole groups of u blocks, at least one; every block is taken exactly
+    once, in order; at most CTAS_PER_SM CTAs an SM."""
+    per_cta, n_cta = mxu_probe._ctas(n_blocks, u,
+                                     mxu_probe.CTAS_PER_SM * sms)
+    assert per_cta % u == 0 and n_cta <= mxu_probe.CTAS_PER_SM * sms
+    runs = [range(i * per_cta, min(n_blocks, (i + 1) * per_cta))
+            for i in range(n_cta)]
+    assert all(len(r) > 0 and len(r) % u == 0 for r in runs)
+    assert [b for r in runs for b in r] == list(range(n_blocks))
+
+
+def test_cuda_path_argument_checks(data, monkeypatch):
+    """What the CUDA path checks before it passes pointers, on CPU
+    tensors: the unaltered inputs pass; m_rows outside 1..16, a block
+    count that is not a multiple of u, a misaligned a (TMA) and x of the
+    wrong shape or type raise."""
+    a, xh, xl = data[0]
+    assert mxu_probe._check_args(a, xh, xl, M_ROWS, "mxu2", U) == BLOCKS
+    raw = torch.empty(a.numel() * 2 + 16, dtype=torch.uint8)
+    off = (-raw.data_ptr()) % 16 + 2
+    a_mis = raw[off:off + a.numel() * 2].view(torch.bfloat16).view(a.shape)
+    a_mis.copy_(a)
+    bad = [(a, xh, xl, 0, "dma", U), (a, xh, xl, 17, "dma", U),
+           (a, xh, xl, M_ROWS, "dma", 3), (a_mis, xh, xl, M_ROWS, "dma", U),
+           (a, xh[:4], xl, M_ROWS, "mxu1", U),
+           (a, xh, xl.float(), M_ROWS, "mxu2", U),
+           (a.float(), xh, xl, M_ROWS, "dma", U),
+           (a, xh, xl, M_ROWS, "mxu3", U)]
+    for args in bad:
+        with pytest.raises(ValueError):
+            mxu_probe._check_args(*args)

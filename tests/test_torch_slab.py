@@ -224,6 +224,53 @@ def test_kernel_wrapper_checks_slab_shapes(case):
                     spmv_cpg._check(x2d, lv, port.n_chunks, port.sub, None)
 
 
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of t whose data starts 1 byte past a 16-byte
+    boundary."""
+    raw = torch.empty(t.numel() * t.element_size() + 16, dtype=torch.uint8)
+    off = (-raw.data_ptr()) % 16 + 1
+    out = raw[off:off + t.numel() * t.element_size()].view(t.dtype)
+    out = out.view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("fault", ["l1_misaligned", "l2_misaligned",
+                                   "l2_int16", "l1_uint8", "l1_short",
+                                   "l2_short", "too_many_tiles", "x_int32"])
+def test_check_refuses_what_the_slab_kernel_cannot_take(case, fault,
+                                                        monkeypatch):
+    """``_check`` (run before every CUDA launch) refuses, with
+    ValueError or TypeError and never a fallback, what the slab walk
+    cannot read: l1 or l2 not 16-byte aligned (its TMA boxes), index
+    types other than int8 l1 and uint8 l2, l1 or l2 a tile short, more
+    tiles than its int32 TMA row coordinates reach, a non-float x.  The
+    unaltered level passes."""
+    _, _, port = case
+    lv = dict(port.levels[port.n_bcast])
+    x2d = torch.zeros((port.n_sub, LANE), dtype=torch.float32)
+    spmv_cpg._check(x2d, lv, port.n_chunks, port.sub, None, slab=True)
+    if fault == "l1_misaligned":
+        lv["l1"] = _misaligned(lv["l1"])
+        assert lv["l1"].data_ptr() % 16 and lv["l1"].is_contiguous()
+    elif fault == "l2_misaligned":
+        lv["l2"] = _misaligned(lv["l2"])
+    elif fault == "l2_int16":
+        lv["l2"] = lv["l2"].to(torch.int16)
+    elif fault == "l1_uint8":
+        lv["l1"] = lv["l1"].to(torch.uint8)
+    elif fault in ("l1_short", "l2_short"):
+        k = fault[:2]
+        lv[k] = lv[k][:-LANE]
+    elif fault == "too_many_tiles":
+        t_pad = lv["s_ids"].shape[0]
+        monkeypatch.setattr(spmv_cpg, "SLAB_MAX_ROWS", t_pad * LANE - 1)
+    elif fault == "x_int32":
+        x2d = x2d.to(torch.int32)
+    with pytest.raises((ValueError, TypeError)):
+        spmv_cpg._check(x2d, lv, port.n_chunks, port.sub, None, slab=True)
+
+
 def test_graphcore_copy_is_byte_identical():
     here = os.path.dirname(os.path.abspath(__file__))
     root = os.path.dirname(here)

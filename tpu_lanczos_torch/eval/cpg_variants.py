@@ -3,21 +3,22 @@ on one CUDA GPU.
 
     python -m tpu_lanczos_torch.eval.cpg_variants \\
         [--n 1000000] [--m 10] [--seed 0] [--sub 512] \\
-        [--source NAME=PATH ...]
+        [--layout classic|slab] [--source NAME=PATH ...]
 
 Builds ``kernels/csrc/spmv_cpg.cu`` (as "package") and each ``--source``
 file, which must have the same C interface (an earlier version of the
 kernel, for example the parent commit's, from ``git archive``), each into
-its own library.  On the graph (Barabasi-Albert, native generator) packed
-at ``--sub``, classic layout, it prints one JSON line with each level's
-per-chunk tile counts, then one line per build: its ptxas report,
-equality with the package's kernel on every level (plain, and
-compensated on the main level), and CUDA-event medians of each level,
-the whole SpMV and the compensated main level, the builds timed in turns
-(forward, then backward).  Last, one line with the device time by kernel
-of one ``lanczos`` run of ``--k`` steps through the package's kernel
-(torch.profiler), its wall time and the device's idle share.  Needs a
-CUDA GPU and nvcc.
+its own library.  On the graph (Barabasi-Albert, native generator)
+packed at ``--sub`` in ``--layout``, it prints one JSON line with each
+level's per-chunk tile counts, then one line per build: its ptxas
+report, equality with the package's kernel on every level (plain in f32
+and f64, and compensated), CUDA-event medians of each level, the whole
+SpMV and the compensated main level, and the host's time to launch the
+main level (``host_us``), the builds timed in turns (forward, then
+backward).  Last, one line with
+the device time by kernel of one ``lanczos`` run of ``--k`` steps
+through the package's kernel (torch.profiler), its wall time and the
+device's idle share.  Needs a CUDA GPU and nvcc.
 """
 
 from __future__ import annotations
@@ -38,20 +39,22 @@ from tpu_lanczos_torch.kernels import _build
 HBM_BYTES_PER_S = 3.35e12  # the H100 SXM's published HBM rate
 
 
-def lib_path(name: str) -> str:
+def lib_path(name: str, prefix: str = "cpg") -> str:
     tag = "".join(ch if ch.isalnum() else "_" for ch in name)
-    return os.path.join(_build.BUILD_DIR, "variants", f"libcpg_{tag}.so")
+    return os.path.join(_build.BUILD_DIR, "variants",
+                        f"lib{prefix}_{tag}.so")
 
 
-def build(builds: dict) -> dict:
+def build(builds: dict, prefix: str = "cpg") -> dict:
     """``builds``: name -> source (which may include the package's
-    csrc/ headers).  One nvcc per build, all at once; returns name ->
-    ptxas report lines."""
+    csrc/ headers).  One nvcc per build, all at once, into
+    ``lib_path(name, prefix)``; returns name -> ptxas report lines."""
     nvcc = _build.nvcc_path()
     os.makedirs(os.path.dirname(lib_path("x")), exist_ok=True)
     procs = {name: subprocess.Popen(
-        [nvcc] + _build.NVCC_FLAGS + ["-I", _build.CSRC_DIR, "-shared",
-                                      "-o", lib_path(name), src],
+        [nvcc] + _build.NVCC_FLAGS + [
+            "-I", _build.CSRC_DIR, "-shared", "-o", lib_path(name, prefix),
+            src],
         stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
         for name, src in builds.items()}
     logs = {name: p.communicate(timeout=600)[1] for name, p in procs.items()}
@@ -112,6 +115,20 @@ def cuda_ms(fn, reps: int) -> float:
     return float(np.median(samples))
 
 
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds a call of fn takes to return, over ``calls``
+    calls enqueued back to back with no sync between them (the card
+    works behind them; its queue holds far more launches)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e6 / calls
+
+
 def chunk_counts(cg) -> list:
     """Per level: real tiles and the min / median / max of the per-chunk
     tile counts, with the number of chunks that have any."""
@@ -170,6 +187,8 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--k", type=int, default=50)
     ap.add_argument("--source", action="append", default=[])
+    ap.add_argument("--layout", choices=("classic", "slab"),
+                    default="classic")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("cpg_variants needs a CUDA GPU")
@@ -189,62 +208,76 @@ def main(argv=None) -> int:
                          text=True).stdout.strip()
     g = generators.barabasi_albert(args.n, args.m, seed=args.seed,
                                    use_native=True)
-    cg = pack_cpg(g, sub=args.sub, device="cuda")
+    cg = pack_cpg(g, sub=args.sub, layout=args.layout, device="cuda")
     C, sub, nb = cg.n_chunks, cg.sub, cg.n_bcast
+    slab = cg.layout == "slab"
     print(json.dumps({"nvidia_smi": smi, "n": args.n, "m": args.m,
-                      "sub": sub, "n_chunks": C, "n_bcast": nb,
-                      "index_bytes": cg.index_bytes(),
+                      "sub": sub, "layout": cg.layout, "n_chunks": C,
+                      "n_bcast": nb, "index_bytes": cg.index_bytes(),
                       "counts": chunk_counts(cg)}), flush=True)
 
-    # each level's input and base as spmv_cpg gives them, x = realmask
-    x2d = cg.realmask.clone().reshape(cg.n_sub, LANE)
+    # each level's input and base as spmv_cpg gives them, x = realmask,
+    # in float32 and float64
     inputs = []
-    for i, level in enumerate(cg.levels):
-        base = None if i == nb else x2d
-        inputs.append((x2d, level, base))
-        x2d = spmv_cpg.run_level(x2d, level, C, sub, base=base)
+    for dtype in (torch.float32, torch.float64):
+        x2d = cg.realmask.to(dtype).reshape(cg.n_sub, LANE)
+        for i, level in enumerate(cg.levels):
+            base = None if i == nb else x2d
+            inputs.append((x2d, level, base))
+            x2d = spmv_cpg.run_level(x2d, level, C, sub, base=base,
+                                     slab=slab)
     rng = np.random.default_rng(1)
     xr = torch.from_numpy(cg.permute_in(rng.standard_normal(cg.n),
                                         np.float32)).cuda()
     main_in = xr.reshape(cg.n_sub, LANE)
-    want = [spmv_cpg.run_level(xi, lv, C, sub, base=b)
+    want = [spmv_cpg.run_level(xi, lv, C, sub, base=b, slab=slab)
             for xi, lv, b in inputs]
-    want_comp = spmv_cpg.run_level_comp(main_in, cg.levels[nb], C, sub)
+    # the compensated level on every level, fed the random f32 vector
+    want_comp = [spmv_cpg.run_level_comp(main_in, lv, C, sub, slab=slab)
+                 for lv in cg.levels]
     plain_equal = all(torch.equal(spmv_cpg.run_level_ref(
-        xi, lv, C, sub, base=b), w) for (xi, lv, b), w in zip(inputs, want))
-    plain_equal = plain_equal and all(torch.equal(a, b) for a, b in zip(
-        spmv_cpg.run_level_comp_ref(main_in, cg.levels[nb], C, sub),
-        want_comp))
+        xi, lv, C, sub, base=b, slab=slab), w)
+        for (xi, lv, b), w in zip(inputs, want))
+    plain_equal = plain_equal and all(
+        torch.equal(a, b) for lv, wc in zip(cg.levels, want_comp)
+        for a, b in zip(spmv_cpg.run_level_comp_ref(main_in, lv, C, sub,
+                                                    slab=slab), wc))
     print(json.dumps({"package_kernel_equals_plain_version": plain_equal}),
           flush=True)
 
     rows = {}
     for name, (plain, comp) in fns.items():
-        equal = all(torch.equal(plain(xi, lv, C, sub, base=b), w)
+        equal = all(torch.equal(plain(xi, lv, C, sub, base=b, slab=slab), w)
                     for (xi, lv, b), w in zip(inputs, want))
-        got_comp = comp(main_in, cg.levels[nb], C, sub)
-        equal_comp = all(torch.equal(a, b)
-                         for a, b in zip(got_comp, want_comp))
+        equal_comp = all(
+            torch.equal(a, b) for lv, wc in zip(cg.levels, want_comp)
+            for a, b in zip(comp(main_in, lv, C, sub, slab=slab), wc))
         rows[name] = {"build": name, "source": builds[name],
                       "ptxas": ptxas[name], "equal": equal,
-                      "equal_comp": equal_comp, "level_ms": [], "spmv_ms": [],
-                      "comp_main_ms": []}
+                      "equal_comp": equal_comp, "level_ms": [],
+                      "spmv_ms": [], "comp_main_ms": [], "host_us": []}
     x1 = cg.realmask.clone()
+    f32_inputs = inputs[:len(cg.levels)]
     order = list(fns) + list(fns)[::-1]
     for name in order:
         plain, comp = fns[name]
         row = rows[name]
         row["level_ms"].append([cuda_ms(
-            lambda: plain(xi, lv, C, sub, base=b), args.reps)
-            for xi, lv, b in inputs])
+            lambda: plain(xi, lv, C, sub, base=b, slab=slab), args.reps)
+            for xi, lv, b in f32_inputs])
         row["spmv_ms"].append(cuda_ms(
             lambda: spmv_cpg._spmv(cg, x1, plain), args.reps))
         row["comp_main_ms"].append(cuda_ms(
-            lambda: comp(main_in, cg.levels[nb], C, sub), args.reps))
+            lambda: comp(main_in, cg.levels[nb], C, sub, slab=slab),
+            args.reps))
+        xi, lv, b = f32_inputs[nb]
+        row["host_us"].append(host_us(
+            lambda: plain(xi, lv, C, sub, base=b, slab=slab)))
     for row in rows.values():
         row["level_ms_median"] = np.median(row["level_ms"], axis=0).tolist()
         row["spmv_ms_median"] = float(np.median(row["spmv_ms"]))
         row["comp_main_ms_median"] = float(np.median(row["comp_main_ms"]))
+        row["host_us_median"] = float(np.median(row["host_us"]))
         row["index_GBps"] = cg.index_bytes() / row["spmv_ms_median"] / 1e6
         print(json.dumps(row), flush=True)
     print(json.dumps(lanczos_profile(cg, args.k)), flush=True)

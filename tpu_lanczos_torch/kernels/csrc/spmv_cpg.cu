@@ -71,21 +71,47 @@
 //   warp share one cached address), and it made the compensated walk
 //   faster.
 //
-// The slab walk is the first port's: one thread per dest cell c = ld*sub
-// + rd (rd fastest) in blocks of 256 cells, l1 and x gathered from global
-// memory, outputs written 512 bytes apart.  The classic walk above ran
-// the slab layout 23% slower (SpMV 1.114 ms against 0.876-0.907 ms).
-//
+// Design of the slab walk (below, at "The slab walk"), as measured on
+// the H100 (PERF.md, section 6).
+// - What bounds it.  A slab tile is 80 KB of indices (16 KB of l1, 64 KB
+//   of l2 at sub 512) with ~4% real cells: bn1M's main level reads ~590
+//   MB of them (0.18 ms at 3.35 TB/s), 3.3x classic's tiles, and its
+//   heaviest dest chunk holds 1,013 of the 7,348 tiles.  The first port
+//   read l2 one byte a thread (~0.76 TB/s), and each real cell then
+//   waited on two dependent gathers, the l1 byte and x.
+// - Index bytes by TMA.  A block owns 16 dest lanes (TMA's least int8
+//   box) and 256 rows, and a producer thread streams each tile's l1 box
+//   (128 rows of 16 bytes) and l2 box (16 rows of 256 bytes) into an
+//   8-stage shared-memory ring; the two row parts of a lane group form a
+//   cluster that brings each l1 box once, by multicast.  A real cell's
+//   source lane comes from shared memory: only x is gathered.  The
+//   stream alone (consumers that only wait and release) takes ~0.34 ms
+//   of the main level, less with wider l2 rows (64 rows a block: 0.69).
+// - Loads in flight.  A consumer thread owns eight cells (one 8-byte
+//   piece of l2) and issues tile i+6's x loads (i+4 in double) before it
+//   adds tile i's values, in tile order.
+// - Ghosts add +0.0 without a load, and a warp whose cells are all ghosts
+//   in a tile skips it (exact in both sums: see SlabWalk).
+// - Outputs go through a shared-memory transpose, 16 contiguous values a
+//   row, where the first port wrote one value 512 bytes apart; dest
+//   chunks run heaviest first.
+// - Lost (PERF.md): the whole l1 tile by bulk copies multicast across
+//   the lane groups, l1 rows by the producer warp's cp.async, L2 evict
+//   hints, 2 blocks an SM by launch bounds, 4 or 16 cells a thread.
+
 // Index types: l2 is uint8 for sub <= 256 and int16 above in the classic
 // layout, uint8 always in the slab layout; l1 is int8 with values 0..127.
+// The slab walk's l1 and l2 must be 16-byte aligned (TMA).
 // Every tile offset is 64-bit: t*sub*128 passes 2^31 on multi-GB packs.
 // The TPU's pair_mask and run_ids only scheduled its VMEM and DMA; unused
 // here.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "heavy_first.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -218,83 +244,359 @@ cpg_level_comp_kernel(const float* __restrict__ x,
   store_cells(e, tr_err, k, d, sub, static_cast<const float*>(nullptr), err);
 }
 
-// Slab tile t's value for dest cell c = ld*sub + rd: +0.0 for a ghost
-// (bit 7 of L2), else x[s_ids[t]*128 + L2, L1[L2, ld]] with (128, 128) l1
-// tiles.
+// ---- The slab walk (cpg_slab_level_kernel, cpg_slab_level_comp_kernel)
+//
+// A block owns dest chunk d, a group of kSlabGroup = 16 dest lanes (16
+// bytes, TMA's least box width for the int8 l1) and `rows` =
+// slab_rows(sub) dest rows; each consumer thread owns kSlabCells cells,
+// consecutive rows of one lane (one kSlabCells-byte piece of the block's
+// l2 box).  One producer thread brings each tile's (128, 16) l1 box and
+// (16, rows) l2 box into a ring of kSlabStages shared-memory stages by
+// 2-D TMA boxes, each stage completing on an mbarrier; a stage is
+// refilled once every consumer warp of the cluster has read it.  The row
+// parts of a lane group form clusters of up to kSlabCluster CTAs, and
+// each CTA brings its share of the l1 box's rows to all of them in one
+// multicast.
+constexpr int kSlabGroup = 16;    // dest lanes a block owns
+constexpr int kSlabRows = 256;    // dest rows a block owns, at most
+constexpr int kSlabCells = 8;     // cells a consumer thread owns
+constexpr int kSlabConsumers = kSlabGroup * kSlabRows / kSlabCells;
+constexpr int kSlabThreads = kSlabConsumers + 32;  // + one producer warp
+constexpr int kSlabStages = 8;
+constexpr int kSlabCluster = 2;
+constexpr int kSlabL1Bytes = kLane * kSlabGroup;  // the (128, 16) l1 box
+constexpr int kSlabStageBytes =
+    kSlabL1Bytes + tlt::align128(kSlabGroup * kSlabRows);
+// tiles of x loads in flight: 4 for double, whose values take twice the
+// registers (6 spill to local memory)
 template <typename T>
-__device__ __forceinline__ T slab_value(const T* __restrict__ x,
-                                        const int8_t* __restrict__ l1,
-                                        const uint8_t* __restrict__ l2,
-                                        const int32_t* __restrict__ s_ids,
-                                        int64_t t, int64_t cells, int c,
-                                        int ld) {
-  const int64_t ss = static_cast<int64_t>(l2[t * cells + c]);
-  if (ss >= kLane) return T(0);
-  const int lane = l1[(t * kLane + ss) * kLane + ld];
-  const int64_t s = s_ids[t];
-  return x[(s * kLane + ss) * kLane + lane];
+constexpr int kSlabAhead = sizeof(T) == 8 ? 4 : 6;
+static_assert(tlt::kHeavyFirstMax <= kSlabThreads,
+              "one thread ranks one chunk");
+static_assert(kSlabStages * kSlabStageBytes >=
+                  kSlabRows * (kSlabGroup + 1) * 8,
+              "the output transpose reuses the ring");
+
+// Rows a block owns at this sub (a multiple of 128): kSlabRows where they
+// divide it, else 128.
+__host__ __device__ constexpr int slab_rows(int sub) {
+  return sub % kSlabRows == 0 ? kSlabRows : kLane;
+}
+
+// CTAs of a cluster: the largest power of two up to kSlabCluster that
+// divides a lane group's row parts.
+__host__ __device__ constexpr int slab_cluster(int row_parts) {
+  return (row_parts & -row_parts) < kSlabCluster ? (row_parts & -row_parts)
+                                                 : kSlabCluster;
+}
+
+// The block's cells: chunk d (heaviest first), lanes ld0.., rows rd0..
+// rd0 + rows, its cluster size cs and its consumer thread count.
+struct SlabBlock {
+  int d, ld0, rd0, rows, cs, consumers;
+};
+
+__device__ __forceinline__ SlabBlock slab_block(
+    const int32_t* __restrict__ counts, int n_chunks, int sub) {
+  SlabBlock k;
+  k.rows = slab_rows(sub);
+  const int row_parts = sub / k.rows;
+  k.d = tlt::heavy_first_chunk(counts, n_chunks);
+  k.ld0 = static_cast<int>(blockIdx.x) / row_parts * kSlabGroup;
+  k.rd0 = static_cast<int>(blockIdx.x) % row_parts * k.rows;
+  k.cs = slab_cluster(row_parts);
+  k.consumers = kSlabGroup * k.rows / kSlabCells;
+  return k;
+}
+
+// The walk of one block: acc (and, kComp, err) of its consumer thread's
+// cells, summed over dest chunk d's tiles in order from +0.0.
+//
+// Ghosts.  A ghost cell (bit 7 of L2) adds +0.0 without a load.  In the
+// plain sum that is exact as it stands.  In the two-sum, g = +0.0 leaves
+// (acc, err) unchanged: for finite acc, s = acc, z = +0.0 and err gains
+// +0.0; and err is NaN from the step at which acc first turned inf or
+// NaN on (z = s - acc is then inf or NaN, and s - z is NaN), so a ghost
+// after it changes nothing either.  Neither sum is ever -0.0.  So a warp
+// whose cells are all ghosts in a tile skips the tile's adds, and both
+// walks stay bit-identical to the plain versions.
+template <typename T, bool kComp>
+struct SlabWalk {
+  static constexpr int kAhead = kSlabAhead<T>;
+  T acc[kSlabCells];
+  T err[kSlabCells];
+
+  __device__ __forceinline__ void run(const CUtensorMap* l1_map,
+                                      const CUtensorMap* l2_map,
+                                      const T* __restrict__ x,
+                                      const int32_t* __restrict__ s_ids,
+                                      int64_t start, int count,
+                                      const SlabBlock& k, uint8_t* smem,
+                                      uint64_t* full, uint64_t* empty) {
+#pragma unroll
+    for (int b = 0; b < kSlabCells; ++b) acc[b] = err[b] = T(0);
+    const int tid = static_cast<int>(threadIdx.x);
+    if (tid == kSlabConsumers) {  // the producer
+      const int rank = static_cast<int>(tlt::cluster_rank());
+      const int slice = kLane / k.cs;  // l1 box rows this CTA brings
+      const uint16_t all = static_cast<uint16_t>((1u << k.cs) - 1);
+      for (int i = 0; i < count; ++i) {
+        const int s = i % kSlabStages;
+        const int use = i / kSlabStages;
+        // stage s is free in every CTA of the cluster
+        if (use > 0) tlt::mbar_wait(&empty[s], (use - 1) & 1);
+        uint8_t* buf = smem + s * kSlabStageBytes;
+        const int row = static_cast<int>((start + i) * kLane);
+        tlt::mbar_arrive_expect_tx(&full[s],
+                                   kSlabL1Bytes + kSlabGroup * k.rows);
+        if (k.cs > 1) {
+          tlt::tma_load_2d_multicast(buf + rank * slice * kSlabGroup, l1_map,
+                                     k.ld0, row + rank * slice, &full[s],
+                                     all);
+        } else {
+          tlt::tma_load_2d(buf, l1_map, k.ld0, row, &full[s]);
+        }
+        tlt::tma_load_2d(buf + kSlabL1Bytes, l2_map, k.rd0, row + k.ld0,
+                         &full[s]);
+      }
+      return;
+    }
+    if (tid >= k.consumers) return;
+    const int lane = tid % 32;
+    const int cl = tid / (k.rows / kSlabCells);  // the cells' lane
+    // tile i's values for this thread's cells, +0.0 for a ghost and past
+    // the chunk's tiles; true if any cell of the warp is real.  The tile's
+    // stage is released in every CTA of the cluster once read.
+    auto fetch = [&](int i, T (&v)[kSlabCells]) -> bool {
+#pragma unroll
+      for (int b = 0; b < kSlabCells; ++b) v[b] = T(0);
+      if (i >= count) return false;
+      const T* xs = x + static_cast<int64_t>(__ldg(s_ids + start + i)) *
+                            (kLane * kLane);
+      const int s = i % kSlabStages;
+      tlt::mbar_wait(&full[s], (i / kSlabStages) & 1);
+      const uint8_t* buf = smem + s * kSlabStageBytes;
+      // this thread's 8 bytes of the (16, rows) l2 box
+      const uint2 w = *reinterpret_cast<const uint2*>(buf + kSlabL1Bytes +
+                                                      tid * kSlabCells);
+      const uint32_t real = (~w.x | ~w.y) & 0x80808080u;
+      const bool any = __any_sync(0xffffffffu, real != 0);
+      if (any) {
+#pragma unroll
+        for (int b = 0; b < kSlabCells; ++b) {
+          const int r = ((b < 4 ? w.x : w.y) >> (8 * (b % 4))) & 0xff;
+          if (r < kLane) v[b] = xs[r * kLane + buf[r * kSlabGroup + cl]];
+        }
+      }
+      __syncwarp();
+      if (lane < k.cs) tlt::mbar_arrive_cluster(&empty[s], lane);
+      return any;
+    };
+
+    // tile i+u's loads are issued kAhead tiles before its adds, which run
+    // in tile order; a tile all of whose warp's cells are ghosts adds
+    // nothing
+    T v[kAhead][kSlabCells];
+    uint32_t live = 0;
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) live |= uint32_t{fetch(u, v[u])} << u;
+    for (int i = 0; i < count; i += kAhead) {
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {
+        if ((live >> u) & 1u) {
+#pragma unroll
+          for (int b = 0; b < kSlabCells; ++b) {
+            const T g = v[u][b];
+            if constexpr (kComp) {
+              const T s = acc[b] + g;
+              const T z = s - acc[b];
+              err[b] += (acc[b] - (s - z)) + (g - z);
+              acc[b] = s;
+            } else {
+              acc[b] += g;
+            }
+          }
+        }
+        live = (live & ~(1u << u)) |
+               uint32_t{fetch(i + u + kAhead, v[u])} << u;
+      }
+    }
+  }
+};
+
+// Barriers of the ring: full[s] takes the producer's arrival and the
+// copies' bytes, empty[s] one arrival from every consumer warp of every
+// CTA of the cluster.  Every thread must call it.
+__device__ __forceinline__ void slab_ring_init(uint64_t* full,
+                                               uint64_t* empty,
+                                               const SlabBlock& k) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSlabStages; ++s) {
+      tlt::mbar_init(&full[s], 1);
+      tlt::mbar_init(&empty[s], k.consumers / 32 * k.cs);
+    }
+    tlt::mbar_fence_init();
+  }
+  __syncthreads();
+  tlt::cluster_sync();  // the cluster's barriers are ready
+}
+
+// Writes each consumer thread's cells of v to out (plus base, if given)
+// through a transpose tile in the ring's shared memory (read out by
+// then): each of the block's rows is kSlabGroup contiguous values in
+// out.  Every thread must call it.
+template <typename T>
+__device__ __forceinline__ void slab_store(const T (&v)[kSlabCells],
+                                           uint8_t* smem, const SlabBlock& k,
+                                           int sub,
+                                           const T* __restrict__ base,
+                                           T* __restrict__ out) {
+  constexpr int kPitch = kSlabGroup + 1;
+  T* tr = reinterpret_cast<T*>(smem);
+  const int tid = static_cast<int>(threadIdx.x);
+  __syncthreads();  // every thread is past its last read of the ring
+  if (tid < k.consumers) {
+    const int per_lane = k.rows / kSlabCells;
+    const int cl = tid / per_lane;
+    const int r0 = tid % per_lane * kSlabCells;
+#pragma unroll
+    for (int b = 0; b < kSlabCells; ++b) tr[(r0 + b) * kPitch + cl] = v[b];
+  }
+  __syncthreads();
+  for (int e = tid; e < k.rows * kSlabGroup; e += kSlabThreads) {
+    const int r = e / kSlabGroup;
+    const int c = e % kSlabGroup;
+    const int64_t o =
+        (static_cast<int64_t>(k.d) * sub + k.rd0 + r) * kLane + k.ld0 + c;
+    const T t = tr[r * kPitch + c];
+    out[o] = base != nullptr ? base[o] + t : t;
+  }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-cpg_slab_level_kernel(const T* __restrict__ x, const int8_t* __restrict__ l1,
-                      const uint8_t* __restrict__ l2,
+__global__ void __launch_bounds__(kSlabThreads)
+cpg_slab_level_kernel(const __grid_constant__ CUtensorMap l1_map,
+                      const __grid_constant__ CUtensorMap l2_map,
+                      const T* __restrict__ x,
                       const int32_t* __restrict__ s_ids,
                       const int32_t* __restrict__ starts,
                       const int32_t* __restrict__ counts,
                       const T* __restrict__ base, T* __restrict__ out,
-                      int sub) {
-  const int64_t cells = static_cast<int64_t>(sub) * kLane;
-  const int c = blockIdx.x * kThreads + threadIdx.x;  // ld * sub + rd
-  if (c >= cells) return;
-  const int d = blockIdx.y;
-  const int ld = c / sub;
-  const int rd = c - ld * sub;
-  const int64_t start = starts[d];
-  const int count = counts[d];
-  T acc = T(0);
-#pragma unroll 4
-  for (int i = 0; i < count; ++i) {
-    acc += slab_value(x, l1, l2, s_ids, start + i, cells, c, ld);
-  }
-  const int64_t o = (static_cast<int64_t>(d) * sub + rd) * kLane + ld;
-  out[o] = base != nullptr ? base[o] + acc : acc;
+                      int n_chunks, int sub) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ uint64_t full[kSlabStages], empty[kSlabStages];
+  const SlabBlock k = slab_block(counts, n_chunks, sub);
+  slab_ring_init(full, empty, k);
+  SlabWalk<T, false> w;
+  w.run(&l1_map, &l2_map, x, s_ids, starts[k.d], counts[k.d], k, smem, full,
+        empty);
+  slab_store(w.acc, smem, k, sub, base, out);
+  // no CTA leaves while a peer may still arrive on its barriers
+  tlt::cluster_sync();
 }
 
-// The compensated slab level: the slab walk with the two-sum above.
-__global__ void __launch_bounds__(kThreads)
-cpg_slab_level_comp_kernel(const float* __restrict__ x,
-                           const int8_t* __restrict__ l1,
-                           const uint8_t* __restrict__ l2,
+// The compensated slab level (float only, no base): the slab walk with
+// the two-sum of cpg_level_comp_kernel in its order.
+__global__ void __launch_bounds__(kSlabThreads)
+cpg_slab_level_comp_kernel(const __grid_constant__ CUtensorMap l1_map,
+                           const __grid_constant__ CUtensorMap l2_map,
+                           const float* __restrict__ x,
                            const int32_t* __restrict__ s_ids,
                            const int32_t* __restrict__ starts,
                            const int32_t* __restrict__ counts,
                            float* __restrict__ out, float* __restrict__ err,
-                           int sub) {
-  const int64_t cells = static_cast<int64_t>(sub) * kLane;
-  const int c = blockIdx.x * kThreads + threadIdx.x;  // ld * sub + rd
-  if (c >= cells) return;
-  const int d = blockIdx.y;
-  const int ld = c / sub;
-  const int rd = c - ld * sub;
-  const int64_t start = starts[d];
-  const int count = counts[d];
-  float acc = 0.0f;
-  float e = 0.0f;
-#pragma unroll 4
-  for (int i = 0; i < count; ++i) {
-    const float g = slab_value(x, l1, l2, s_ids, start + i, cells, c, ld);
-    const float s = acc + g;
-    const float z = s - acc;
-    e += (acc - (s - z)) + (g - z);
-    acc = s;
-  }
-  const int64_t o = (static_cast<int64_t>(d) * sub + rd) * kLane + ld;
-  out[o] = acc;
-  err[o] = e;
+                           int n_chunks, int sub) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ uint64_t full[kSlabStages], empty[kSlabStages];
+  const SlabBlock k = slab_block(counts, n_chunks, sub);
+  slab_ring_init(full, empty, k);
+  SlabWalk<float, true> w;
+  w.run(&l1_map, &l2_map, x, s_ids, starts[k.d], counts[k.d], k, smem, full,
+        empty);
+  slab_store(w.acc, smem, k, sub, static_cast<const float*>(nullptr), out);
+  slab_store(w.err, smem, k, sub, static_cast<const float*>(nullptr), err);
+  tlt::cluster_sync();
 }
 
-// Both layouts: sub*128/256 blocks of 256 cells per dest chunk.
+// Rows of the l1 and l2 tensor maps.  The C interface carries no tile
+// count, so the maps declare the most rows a TMA coordinate (int32) and
+// stride can address; the kernel asks only for boxes of the level's real
+// tiles (start + i < starts[d] + counts[d]), all inside the buffers.
+uint64_t slab_map_rows(uint64_t row_bytes) {
+  const uint64_t by_coord = (uint64_t{1} << 31) - kLane;
+  const uint64_t by_bytes = (uint64_t{1} << 40) / row_bytes;
+  return by_coord < by_bytes ? by_coord : by_bytes;
+}
+
+// Launches one slab level (kComp: the compensated one, out2 = err).
+template <typename T, bool kComp>
+int launch_slab(const void* x, const void* l1, const void* l2,
+                const void* s_ids, const void* starts, const void* counts,
+                const void* base, void* out, void* out2, int n_chunks,
+                int sub, cudaStream_t stream) {
+  if (!tlt::aligned16(l1) || !tlt::aligned16(l2)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int rows = slab_rows(sub);
+  const int row_parts = sub / rows;
+  const int cs = slab_cluster(row_parts);
+  CUtensorMap l1_map, l2_map;
+  // l1 (tiles*128, 128) int8 in (128/cs, 16) boxes; l2 (tiles*128, sub)
+  // uint8 in (16, rows) boxes
+  if (!tlt::encode_2d(&l1_map, l1, 1, kLane, slab_map_rows(kLane), kLane,
+                      kSlabGroup, kLane / cs) ||
+      !tlt::encode_2d(&l2_map, l2, 1, sub, slab_map_rows(sub), sub, rows,
+                      kSlabGroup)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int smem = kSlabStages * kSlabStageBytes;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(kLane / kSlabGroup * row_parts),
+                     static_cast<unsigned>(n_chunks));
+  cfg.blockDim = dim3(kSlabThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = static_cast<unsigned>(cs);
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  static std::atomic<uint64_t> smem_raised{0};
+  cudaError_t err;
+  if constexpr (kComp) {
+    err = tlt::once_per_device(smem_raised, [&] {
+      return cudaFuncSetAttribute(cpg_slab_level_comp_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  smem);
+    });
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaLaunchKernelEx(
+        &cfg, cpg_slab_level_comp_kernel, l1_map, l2_map,
+        static_cast<const float*>(x), static_cast<const int32_t*>(s_ids),
+        static_cast<const int32_t*>(starts),
+        static_cast<const int32_t*>(counts), static_cast<float*>(out),
+        static_cast<float*>(out2), n_chunks, sub);
+  } else {
+    err = tlt::once_per_device(smem_raised, [&] {
+      return cudaFuncSetAttribute(cpg_slab_level_kernel<T>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  smem);
+    });
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaLaunchKernelEx(
+        &cfg, cpg_slab_level_kernel<T>, l1_map, l2_map,
+        static_cast<const T*>(x), static_cast<const int32_t*>(s_ids),
+        static_cast<const int32_t*>(starts),
+        static_cast<const int32_t*>(counts), static_cast<const T*>(base),
+        static_cast<T*>(out), n_chunks, sub);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The classic layout: sub*128/256 blocks of 256 cells per dest chunk.
 dim3 level_grid(int n_chunks, int sub) {
   return dim3(static_cast<unsigned>((sub * kLane) / kThreads),
               static_cast<unsigned>(n_chunks));
@@ -325,19 +627,6 @@ void launch_comp(const void* x, const void* l1, const void* l2,
       static_cast<float*>(out), static_cast<float*>(err), n_chunks, sub);
 }
 
-template <typename T>
-void launch_slab(const void* x, const void* l1, const void* l2,
-                 const void* s_ids, const void* starts, const void* counts,
-                 const void* base, void* out, int n_chunks, int sub,
-                 cudaStream_t stream) {
-  cpg_slab_level_kernel<T><<<level_grid(n_chunks, sub), kThreads, 0,
-                             stream>>>(
-      static_cast<const T*>(x), static_cast<const int8_t*>(l1),
-      static_cast<const uint8_t*>(l2), static_cast<const int32_t*>(s_ids),
-      static_cast<const int32_t*>(starts), static_cast<const int32_t*>(counts),
-      static_cast<const T*>(base), static_cast<T*>(out), sub);
-}
-
 bool bad_shape(int n_chunks, int sub) {
   return n_chunks <= 0 || n_chunks > 65535 || sub <= 0 || sub % kLane != 0;
 }
@@ -359,11 +648,11 @@ extern "C" int tlt_spmv_cpg_level(const void* x, const void* l1,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (slab != 0 && value_bytes == 4 && l2_bytes == 1) {
-    launch_slab<float>(x, l1, l2, s_ids, starts, counts, base, out, n_chunks,
-                       sub, s);
+    return launch_slab<float, false>(x, l1, l2, s_ids, starts, counts, base,
+                                     out, nullptr, n_chunks, sub, s);
   } else if (slab != 0 && value_bytes == 8 && l2_bytes == 1) {
-    launch_slab<double>(x, l1, l2, s_ids, starts, counts, base, out,
-                        n_chunks, sub, s);
+    return launch_slab<double, false>(x, l1, l2, s_ids, starts, counts, base,
+                                      out, nullptr, n_chunks, sub, s);
   } else if (slab != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else if (value_bytes == 4 && l2_bytes == 1) {
@@ -399,13 +688,8 @@ extern "C" int tlt_spmv_cpg_level_comp(const void* x, const void* l1,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (slab != 0 && l2_bytes == 1) {
-    cpg_slab_level_comp_kernel<<<level_grid(n_chunks, sub), kThreads, 0,
-                                 s>>>(
-        static_cast<const float*>(x), static_cast<const int8_t*>(l1),
-        static_cast<const uint8_t*>(l2), static_cast<const int32_t*>(s_ids),
-        static_cast<const int32_t*>(starts),
-        static_cast<const int32_t*>(counts), static_cast<float*>(out),
-        static_cast<float*>(err), sub);
+    return launch_slab<float, true>(x, l1, l2, s_ids, starts, counts, nullptr,
+                                    out, err, n_chunks, sub, s);
   } else if (slab != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else if (l2_bytes == 1) {

@@ -1,6 +1,8 @@
-// Hopper bulk asynchronous copies for the lineage level kernels
-// (spmv_gpg.cu, spmv_cst.cu): mbarriers, 2-D TMA boxes and 1-D bulk
-// copies into shared memory, and the host-side tensor-map encoding.
+// Hopper bulk asynchronous copies for the level kernels (spmv_gpg.cu,
+// spmv_cst.cu, the slab walk of spmv_cpg.cu) and the dense-block probe
+// (mxu_probe.cu): mbarriers, 2-D TMA boxes and 1-D bulk copies into
+// shared memory, and on the host the tensor-map encoding and the raise of
+// a kernel's shared-memory limit.
 //
 // A copy completes on an mbarrier in shared memory: the issuing thread
 // arms the barrier with the bytes it expects (arrive_expect_tx), the copy
@@ -12,6 +14,7 @@
 
 #pragma once
 
+#include <atomic>
 #include <cstdint>
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -144,11 +147,16 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
 
 // A 2-D row-major tensor map: `rows` rows of `cols` elements of
 // `elem_bytes` bytes (1, 2 or 4), `row_bytes` apart (a multiple of 16),
-// read in boxes of box_rows x box_cols.  Returns false when
-// cuTensorMapEncodeTiled refuses it or cannot be found.
+// read in boxes of box_rows x box_cols, laid out in shared memory as
+// `swizzle` says (with CU_TENSOR_MAP_SWIZZLE_128B, a box row of at most
+// 128 bytes whose 16-byte chunk j lands at chunk j ^ (row % 8), the box
+// 1024-byte aligned).  Returns false when cuTensorMapEncodeTiled refuses
+// it or cannot be found.
 inline bool encode_2d(CUtensorMap* map, const void* base, int elem_bytes,
                       uint64_t cols, uint64_t rows, uint64_t row_bytes,
-                      uint32_t box_cols, uint32_t box_rows) {
+                      uint32_t box_cols, uint32_t box_rows,
+                      CUtensorMapSwizzle swizzle =
+                          CU_TENSOR_MAP_SWIZZLE_NONE) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                               void*, const cuuint64_t*, const cuuint64_t*,
                               const cuuint32_t*, const cuuint32_t*,
@@ -180,8 +188,24 @@ inline bool encode_2d(CUtensorMap* map, const void* base, int elem_bytes,
   const cuuint32_t elem_strides[2] = {1, 1};
   return encode(map, type, 2, const_cast<void*>(base), dims, strides, box,
                 elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Runs `set` (a cudaFuncSetAttribute call) on the current device unless
+// it succeeded there before; `done` is the caller's own static, a bit a
+// device (devices past 63 run it every time).  So a launch pays the
+// attribute call once a kernel and device, not once a launch.
+template <typename Set>
+inline cudaError_t once_per_device(std::atomic<uint64_t>& done, Set set) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if ((done.load(std::memory_order_acquire) & bit) != 0) return cudaSuccess;
+  err = set();
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
 }
 
 }  // namespace tlt
