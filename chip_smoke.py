@@ -69,10 +69,23 @@ jax or of the JAX package.  Each phase prints one JSON line:
      the halo path on a 2-D stencil, the sharded estimators against
      phase 10, one NCCL rank, the CLI's ``--shards``, and CUDA-event
      times (the shards run in turn on one card: kernel work and
-     launches, no collective over a link).
+     launches, no collective over a link);
+ 12  the eval harness (``tpu_lanczos_torch.eval``) on phase 3's graph,
+     pack and phase 4's oracle answer: the stage breakdown (kernel 1's
+     launches per Lanczos, the staged answer against ``expm_action``'s;
+     one profiler trace of a Lanczos, run after phase 9), fused serving
+     (top-20 overlap and
+     values), the accuracy record (f32 and df64 against the oracle, the
+     launches of kernels 1 and 1c), two bench-suite rows (copapers_540k
+     packed at sub=128, stencil_2600 with more than 64 dest chunks; every
+     level of each pack held against the plain versions before timing,
+     launches counted) and the small jobs (the k and pack sweeps, the
+     df64 sweep, stochastic_bench's seed agreement, europe_df64 at side
+     1000 with a bit-identical resume).
 
-Phases 10 and 11 run after phase 7, while the CST pack child that phase 8
-waits for is still packing; then phases 8 and 9.  Then the card's name
+Phases 10, 11 and 12 run after phase 7, while the CST pack child that
+phase 8 waits for is still packing; then phases 8 and 9, and phase 12's
+traced Lanczos.  Then the card's name
 and power limit (nvidia-smi), one JSON line of
 per-kernel results (with each kernel's bound: the larger of its bytes
 over the HBM rate and its operations over their peak rate), and last
@@ -1233,6 +1246,176 @@ def sharded_phase(torch, g, dev, ref, ref_shift, top_ref, p10,
 
 
 
+# phase 12: the eval harness (tpu_lanczos_torch/eval/) at full width
+SUITE_ROWS = ("copapers_540k", "stencil_2600")
+EUROPE_SIDE = 1000
+# the suite's f32 accuracy column against the f64 oracle (copapers) or
+# the df64 pipeline (stencil_2600): phase 4's bar of 1e-4 is for bn1M;
+# other classes are held to this sanity bound and their values recorded
+SUITE_F32_BAR = 1e-3
+
+
+def suite_row(torch, name: str, cache_dir: str, dev) -> dict:
+    """``bench_suite.run_one`` on one config (it holds every level of the
+    pack against the plain versions, plain and compensated, before
+    timing), with kernel 1's and 1c's launches counted exactly."""
+    from tpu_lanczos_torch.eval import bench_suite
+
+    cfg = next(c for c in bench_suite.CONFIGS if c["name"] == name)
+    reset_counts()
+    row = bench_suite.run_one(cfg, k=K, reps=REPS, cache_dir=cache_dir,
+                              device=dev)
+    counts = read_counts(torch)
+    L, nb = row["levels"], row["n_bcast"]
+    # the level checks (one f32 and one df SpMV), 4 + reps Lanczos runs,
+    # the f32 two-pass query and, past ORACLE_N_MAX, the df64 query
+    plain = 2 * L + nb + (4 + REPS) * K * L + (2 * K - 1) * L
+    comp = L - nb
+    if row["err_ref"] == "df64_selfcheck":
+        plain += (2 * K - 1) * (L + nb)
+        comp += (2 * K - 1) * (L - nb)
+    check_counts(counts, {"launches": plain, "launches_comp": comp},
+                 f"bench_suite.run_one({name})")
+    check(row["levels_checked"] == {"plain": 2 * L + nb, "comp": L - nb},
+          f"{name}: every level held against its plain version")
+    check(row["rel_err"] is not None and row["rel_err"] < SUITE_F32_BAR,
+          f"{name}: f32 rel_err {row['rel_err']} ({row['err_ref']}) < "
+          f"{SUITE_F32_BAR}")
+    return dict(row, launches=counts)
+
+
+def trace_part(torch, dg, t_all: float) -> None:
+    """Phase 12's traced Lanczos: one ``profiling.trace`` of
+    ``lanczos(dg, realmask, k)`` whose Chrome trace must name
+    ``cpg_level_kernel`` k * levels times.  It runs after phase 9, whose
+    profiled probe calls saw no CUDA events when a trace had run before
+    them in this process."""
+    from tpu_lanczos_torch.core.lanczos import lanczos
+    from tpu_lanczos_torch.eval import profiling
+    from tpu_lanczos_torch.utils import BUILD_DIR
+
+    L = len(dg.levels)
+    x1 = dg.realmask.reshape(-1).clone()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        lanczos(dg, x1, K)
+        torch.cuda.synchronize()
+        with profiling.trace(tmp):
+            lanczos(dg, x1, K)
+        with open(os.path.join(tmp, profiling.TRACE_FILE)) as f:
+            events = json.load(f)["traceEvents"]
+    cats = sorted({str(e.get("cat")) for e in events})
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    traced = sum(1 for e in kernels
+                 if "cpg_level_kernel" in str(e.get("name", "")))
+    check(traced == K * L == 150, f"the trace names cpg_level_kernel "
+          f"{traced} times, want k*levels = {K * L} (categories {cats})")
+    emit({"phase": 12, "part": "trace", "trace_cpg_level_kernel": traced,
+          "trace_kernel_events": len(kernels),
+          "trace_kernel_ms": sum(e.get("dur", 0) for e in kernels) / 1e3,
+          "total_s": time.time() - t_all})
+
+
+def eval_phase(torch, g, dg, ref, ref_shift, t_all: float,
+               dev="cuda") -> None:
+    """Phase 12: the eval harness on phase 3's graph and pack and phase
+    4's oracle answer: the stage breakdown (kernel 1's launches, the
+    staged answer against ``expm_action``'s), fused serving, the accuracy
+    record (kernels 1 and 1c), two suite rows (copapers_540k at sub=128
+    with its oracle column, stencil_2600 past 64 dest chunks with its
+    df64 column) and the small jobs (k and pack sweeps, the df64 sweep,
+    stochastic_bench, and europe_df64 at side 1000).  One JSON line a
+    part."""
+    from tpu_lanczos_torch.eval import (
+        accuracy_gpu, df_sweep, europe_df64, fused_serving, stage_breakdown,
+        stochastic_bench, sweeps)
+    from tpu_lanczos_torch.utils import BUILD_DIR
+
+    L, nb = len(dg.levels), dg.n_bcast
+
+    # ---- the stage breakdown and its launches
+    reset_counts()
+    row, _, _ = stage_breakdown.breakdown(g, dg, K, REPS, name="bn1M")
+    counts = read_counts(torch)
+    check_counts(counts, {"launches": row["lanczos_runs"] * K * L},
+                 "stage_breakdown: k*levels per Lanczos run")
+    check(row["staged_vs_expm_rel"] < 1e-6,
+          f"staged answer == expm_action's ({row['staged_vs_expm_rel']})")
+    check(row["ref_cuda_whole_s"] == 0.455634, "bn1M reference time")
+    emit({"phase": 12, "part": "stage_breakdown", **row,
+          "launches": counts, "total_s": time.time() - t_all})
+
+    # ---- fused serving: device- and host-eigensolve top-20 in turns
+    row = fused_serving.run(g, dg, K, TOPK, REPS)
+    check(row["topk_node_overlap"] == f"{TOPK}/{TOPK}",
+          f"fused serving top-{TOPK} overlap {row['topk_node_overlap']}")
+    check(row["topk_value_rel_diff"] <= 1e-3, f"fused serving top-{TOPK} "
+          f"values within 1e-3 ({row['topk_value_rel_diff']})")
+    emit({"phase": 12, "part": "fused_serving", **row,
+          "total_s": time.time() - t_all})
+
+    # ---- the accuracy record against phase 4's oracle answer
+    reset_counts()
+    rows = accuracy_gpu.run(g, dg, K, ref, ref_shift)
+    counts = read_counts(torch)
+    # two f32 two-pass queries and two df64 queries (a warm one each)
+    check_counts(counts, {
+        "launches": 2 * (2 * K - 1) * L + 2 * (2 * K - 1) * (L + nb),
+        "launches_comp": 2 * (2 * K - 1) * (L - nb)},
+        "accuracy_gpu.run: as phase 5 counts each query")
+    f32, df = rows
+    check(f32["rel_err"] < 1e-4, f"accuracy_gpu f32 {f32['rel_err']} < 1e-4")
+    check(df["rel_err"] < 1e-10, f"accuracy_gpu df64 {df['rel_err']} < 1e-10")
+    emit({"phase": 12, "part": "accuracy_gpu", "rows": rows,
+          "launches": counts, "total_s": time.time() - t_all})
+
+    # ---- two suite rows: sub=128 with the oracle column, and > 64 dest
+    # chunks with the df64 column
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as cache:
+        for name in SUITE_ROWS:
+            with contextlib.redirect_stdout(io.StringIO()):
+                row = suite_row(torch, name, cache, dev)
+            if name == "copapers_540k":
+                check(row["sub"] == 128 and row["err_ref"] == "oracle_f64",
+                      f"{name}: sub=128 pack, oracle column")
+            else:
+                check(row["n_chunks"] > 64
+                      and row["err_ref"] == "df64_selfcheck",
+                      f"{name}: {row['n_chunks']} > 64 dest chunks, df64 "
+                      "column")
+            emit({"phase": 12, "part": "bench_suite", **row,
+                  "total_s": time.time() - t_all})
+            torch.cuda.empty_cache()
+
+    # ---- the small jobs (their own JSON prints quieted: each part is
+    # one line here)
+    quiet = io.StringIO()
+    with contextlib.redirect_stdout(quiet):
+        rows = sweeps.k_sweep(dtype="float64", device=dev)
+        pack_rows = sweeps.pack_sweep(device=dev)
+    err30 = next(r["rel_err"] for r in rows if r["k"] == 30)
+    check(err30 < 1e-9, f"k_sweep f64 rel_err at k=30 {err30} < 1e-9")
+    check(all(r["tiles"] > 0 and r["lanczos_s"] > 0 for r in pack_rows),
+          "pack_sweep: tiles and a Lanczos time per point")
+    with contextlib.redirect_stderr(io.StringIO()):
+        df_rows = df_sweep.run(device=dev)
+    worst = max(r["rel_err_df64"] for r in df_rows if r["k"] >= 25)
+    check(worst < 1e-12, f"df_sweep df64 rel_err {worst} < 1e-12 for k>=25")
+    st_rows = stochastic_bench.run(g, dg)
+    agree = next(r for r in st_rows if r["study"].endswith("agreement"))
+    check(agree["ok"], f"stochastic_bench: disjoint seeds agree within 3 "
+          f"combined stderrs ({agree['rel_diff']} <= "
+          f"{agree['budget_3sigma']})")
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as cache, \
+            contextlib.redirect_stdout(quiet):
+        eu_rows = europe_df64.run(EUROPE_SIDE, K, cache, 25, dev)
+    check(eu_rows[-1].get("resume_bit_identical") is True,
+          "europe_df64: the resume is bit-identical")
+    emit({"phase": 12, "part": "small_jobs", "k_sweep": rows,
+          "pack_sweep": pack_rows, "df_sweep": df_rows,
+          "stochastic_bench": st_rows, "europe_df64": eu_rows,
+          "total_s": time.time() - t_all})
+
+
 def main() -> None:
     import torch
 
@@ -1869,6 +2052,9 @@ def main() -> None:
                                   cli_full["host"]["top_nodes"])
     emit({"phase": 11, "part": "done", "total_s": time.time() - t_all})
 
+    # ---- 12: the eval harness, still beside the CST pack child
+    eval_phase(torch, g, dg, ref, ref_shift, t_all, dev)
+
     # ---- 8: the lineage formats, GPG and CST, at full width
     from tpu_lanczos_torch.kernels import spmv_cst, spmv_gpg
     from tpu_lanczos_torch.kernels.gpg import pack_gpg
@@ -2109,6 +2295,9 @@ def main() -> None:
           "bound_ms": probe_bound[0], "bound_by": probe_bound[1],
           "total_s": time.time() - t_all})
     del a_p, xh_p, xl_p, x_rep, want, lib_out
+
+    # ---- 12's traced Lanczos, after phase 9's profiled probe calls
+    trace_part(torch, dg, t_all)
 
     print(smi, flush=True)
     emit({"kernels": [{

@@ -107,9 +107,14 @@ def test_read_mtx_rejects_malformed(tmp_path):
 
 
 def test_port_imports_without_jax():
+    evals = ", ".join(f"tpu_lanczos_torch.eval.{m}" for m in (
+        "oracle", "profiling", "bench_suite", "stage_breakdown",
+        "fused_serving", "accuracy_gpu", "sweeps", "df_sweep",
+        "df_accuracy_suite", "europe_df64", "stochastic_bench",
+        "pack_truth"))
     code = ("import tpu_lanczos_torch, sys; "
             "import tpu_lanczos_torch.kernels.spmv_cpg, "
-            "tpu_lanczos_torch.kernels._build, tpu_lanczos_torch.eval.oracle; "
+            f"tpu_lanczos_torch.kernels._build, {evals}; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'tpu_lanczos' not in sys.modules")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT_DIR,

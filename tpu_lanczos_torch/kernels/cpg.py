@@ -117,6 +117,14 @@ class CPGGraph:
     def total_tiles(self) -> int:
         return sum(self.t_reals)
 
+    @property
+    def fill(self) -> float:
+        """nnz over the real tiles' entry capacity: a full (sub, 128)
+        staging block a tile in the classic layout, one (128, 128) source
+        slab in the slab layout."""
+        cap = (LANE if self.layout == "slab" else self.sub) * LANE
+        return self.nnz / float(max(self.total_tiles, 1) * cap)
+
     def index_bytes(self) -> int:
         """Bytes of l1 + l2 over the real tiles: what one SpMV must read
         at least once (the kernel's roofline input)."""
@@ -377,9 +385,12 @@ def _run_ids(s_ids: np.ndarray, d_ids: np.ndarray) -> np.ndarray:
     return (np.cumsum(new_run) - 1).astype(np.int32)
 
 
-def save_cpg(cg: CPGGraph, path: str) -> None:
-    """Persist a packed CPGGraph (packing is the expensive host step)."""
+def save_cpg(cg: CPGGraph, path: str, **extra) -> None:
+    """Persist a packed CPGGraph (packing is the expensive host step).
+    ``extra`` fields (e.g. the pack's wall time) are stored beside it and
+    ignored by ``load_cpg``."""
     data = dict(
+        extra,
         n=cg.n, n_chunks=cg.n_chunks, nnz=cg.nnz, theta=cg.theta,
         sub=cg.sub, n_levels=len(cg.levels), new_of_old=cg.new_of_old,
         realmask=cg.realmask.cpu().numpy(), n_bcast=cg.n_bcast,
