@@ -11,20 +11,28 @@ jax or of the JAX package.  Each phase prints one JSON line:
   2  the SpMV kernels (plain and compensated, classic and slab layout)
      against their plain PyTorch versions on the card, on every level of
      small classic and slab packs (f32 and f64) and on whole SpMVs and df
-     SpMVs: exact equality; the f64 and df64 SpMVs against scipy;
+     SpMVs: exact equality; the f64 and df64 SpMVs against scipy; and the
+     Lanczos step kernels (rows 5 and 5c) on each pack's SpMV output:
+     alpha and beta within 1e-6 (f32), 1e-13 (f64) and 5e-11 (df64) of
+     the plain version's, q_{j+1}, the stored row and the recombine fold
+     bit-identical given the kernel's scalars, two runs bit-identical;
   3  the main path at bench.py's size (Barabasi-Albert n=1M, m=10,
      seed 0, native generator; pack sub=512; k=50) through
      ``expm_action`` and ``expm_action_summary`` (host and device
-     eigensolve), with the kernel launch count of that run, CUDA-event
-     timings (per level with its per-chunk tile counts and its bound),
-     the cuSPARSE SpMV time beside the kernel's, and the host syncs of
-     each summary path;
+     eigensolve), with the kernel launch counts of that run (level and
+     step kernels), CUDA-event timings (per level with its per-chunk tile
+     counts and its bound), the cuSPARSE SpMV time beside the kernel's,
+     the host syncs of each summary path, and row 5 at full size: the
+     step kernel against its plain version, its device time per step
+     beside the eager step's and its bound, and Lanczos k=50 through the
+     kernel and through the eager step in turns;
   4  accuracy of the f32 answer against the float64 numpy oracle;
   5  the two-pass paths on the same graph, pack and oracle answer: the
      f32 ``low_mem=True`` queries (alpha/beta bit-equal to stored-Q
      Lanczos, launch count, accuracy, top-20, peak memory) and the df64
      pipeline (``expm_action_df``, ``expm_action_ks_df``, the pass-1
-     checkpoint), each with its launch counts, accuracy and timings;
+     checkpoint), each with its launch counts, accuracy and timings, and
+     row 5c at full size as row 5 in phase 3;
   6  the slab layout on the same graph: its pack beside the classic one,
      the slab kernels == plain on every level, ``expm_action`` and
      ``expm_action_df`` on the slab pack (launch counts, accuracy, top-20)
@@ -73,7 +81,8 @@ jax or of the JAX package.  Each phase prints one JSON line:
  12  the eval harness (``tpu_lanczos_torch.eval``) on phase 3's graph,
      pack and phase 4's oracle answer: the stage breakdown (kernel 1's
      launches per Lanczos, the staged answer against ``expm_action``'s;
-     one profiler trace of a Lanczos, run after phase 9), fused serving
+     profiler traces, run after phase 9, of a bn1M Lanczos and of a
+     stencil_2600 Lanczos, the first profile of a mesh), fused serving
      (top-20 overlap and
      values), the accuracy record (f32 and df64 against the oracle, the
      launches of kernels 1 and 1c), two bench-suite rows (copapers_540k
@@ -88,7 +97,8 @@ phase 8 waits for is still packing; then phases 8 and 9, and phase 12's
 traced Lanczos.  Then the card's name
 and power limit (nvidia-smi), one JSON line of
 per-kernel results (with each kernel's bound: the larger of its bytes
-over the HBM rate and its operations over their peak rate), and last
+over the HBM rate and its operations over their peak rate; the step
+kernels' ``launches`` count steps, three kernel launches each), and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
 nonzero and prints no final line.
 """
@@ -101,6 +111,7 @@ import importlib
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -123,6 +134,14 @@ GPG_SOURCE = "tpu_lanczos_torch/kernels/csrc/spmv_gpg.cu"
 GPG_REPLACES = "tpu_lanczos/kernels/spmv_gpg.py:154"
 PROBE_SOURCE = "tpu_lanczos_torch/kernels/csrc/mxu_probe.cu"
 PROBE_REPLACES = "tpu_lanczos/eval/mxu_probe.py:106"
+STEP_SOURCE = "tpu_lanczos_torch/kernels/csrc/lanczos_step.cu"
+STEP_REPLACES = ("tpu_lanczos/core/lanczos.py:84-96 (the XLA-fused step of "
+                 "the fori_loop; no Pallas kernel)")
+STEP_DF_REPLACES = ("tpu_lanczos/core/lanczos_df.py:30-40 (_body_core after "
+                    "the SpMV, XLA-fused; no Pallas kernel)")
+# the step kernels' launches, counted by the trace (csrc/lanczos_step.cu)
+STEP_KERNELS = ("step_dot_kernel", "step_update_kernel",
+                "step_normalize_kernel")
 KS = (10, 30, 50)
 CKPT_CHUNK = 16
 # the H100 SXM's published peaks (700 W)
@@ -136,6 +155,8 @@ COUNTERS = tuple(("tpu_lanczos_torch.kernels.spmv_cpg", c) for c in (
     ("tpu_lanczos_torch.kernels.spmv_cst", "launches_cst"),
     ("tpu_lanczos_torch.kernels.spmv_gpg", "launches_gpg"),
     ("tpu_lanczos_torch.eval.mxu_probe", "launches_mxu"),
+    ("tpu_lanczos_torch.kernels.lanczos_step", "launches_step"),
+    ("tpu_lanczos_torch.kernels.lanczos_step", "launches_step_df"),
 )
 CLI_SMALL = ["-b", "4", "-n", "20000", "-k", "50"]
 # phase 10: the library defaults of estrada_index and subgraph_centrality,
@@ -500,6 +521,180 @@ def timed_call(torch, fn):
     return out, start.elapsed_time(end), wall, read_counts(torch)
 
 
+def queued_ms(torch, fn, calls: int, reps: int = REPS):
+    """Device milliseconds a call of fn takes, without the host's enqueue:
+    ``calls`` calls are queued behind a sleeping kernel that outlasts
+    their enqueue, then run back to back between two CUDA events; the
+    median of ``reps`` such samples, per call.  Returns (median, samples,
+    the host's enqueue ms per call)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(calls):
+        fn()
+    enqueue_s = time.time() - t0
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(reps):
+        torch.cuda._sleep(int(2e9 * (2 * enqueue_s + 0.01)))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end) / calls)
+    return float(np.median(samples)), samples, enqueue_s / calls * 1e3
+
+
+def step_case(torch, v, q, qp, j: int = 3):
+    """Row 5 on one SpMV output ``v`` of q (q_prev ``qp``), at step j:
+    the kernel twice (equal bit for bit), the plain version, and the
+    plain version given the kernel's scalars (q_{j+1}, the stored row and
+    the recombine fold equal bit for bit).  Checks alpha and beta within
+    1e-6 (float32) or 1e-13 (float64) relative of the plain version's;
+    returns (the largest |kernel - plain| of alpha, beta and q_{j+1}, the
+    larger relative alpha or beta difference)."""
+    from tpu_lanczos_torch.kernels import lanczos_step as ls
+
+    k = j + 3
+    beta0 = torch.zeros(k, dtype=v.dtype, device=v.device)
+    beta0[j - 1] = 0.75
+    coeff = torch.linspace(0.5, 1.5, k, dtype=v.dtype, device=v.device)
+    ans0 = 3.0 * qp
+    runs = []
+    for _ in range(2):
+        a, b = torch.zeros_like(beta0), beta0.clone()
+        store, ans = torch.zeros_like(v), ans0.clone()
+        qn = ls.lanczos_step(v.clone(), q, qp, a, b, j, store=store,
+                             ans=ans, coeff=coeff)
+        runs.append((a, b, qn, store, ans))
+    check(all(torch.equal(x, y) for x, y in zip(*runs)),
+          "row 5: two runs bit-identical")
+    a, b, qn, store, ans = runs[0]
+    ar, br = torch.zeros_like(beta0), beta0.clone()
+    qr = ls.lanczos_step_ref(v.clone(), q, qp, ar, br, j)
+    rel = max(float(abs(a[j] - ar[j]) / abs(ar[j])),
+              float(abs(b[j] - br[j]) / abs(br[j])))
+    bar = 1e-6 if v.dtype == torch.float32 else 1e-13
+    check(rel < bar, f"row 5 ({v.dtype}): alpha and beta within {bar} of "
+          f"the plain version ({rel})")
+    want = ls.normalize_ref(ls.update_ref(v, q, qp, a[j], b[j - 1]), b[j])
+    check(torch.equal(qn, want) and torch.equal(store, want)
+          and torch.equal(ans, ans0 + coeff[j + 1] * want),
+          f"row 5 ({v.dtype}): q_(j+1), stored row and fold == plain given "
+          f"the kernel's scalars")
+    err = max(float((qn - qr).abs().max()), float(abs(a[j] - ar[j])),
+              float(abs(b[j] - br[j])))
+    return err, rel
+
+
+def step_df_case(torch, v, q, qp, j: int = 3):
+    """Row 5c as ``step_case`` on (hi, lo) pairs: alpha and beta within
+    5e-11 of the plain version's df values (as float64), q_{j+1} and the
+    recombine fold bit-identical given the kernel's scalars, two runs
+    bit-identical; df_norm within 5e-11 of core.df64's.  Returns the
+    largest |kernel - plain| (as float64) and relative alpha/beta
+    difference."""
+    from tpu_lanczos_torch.core import df64 as df
+    from tpu_lanczos_torch.kernels import lanczos_step as ls
+
+    k = j + 3
+    z = torch.zeros(k, device=v[0].device)
+    bh0, bl0 = z.clone(), z.clone()
+    bh0[j - 1], bl0[j - 1] = 0.75, 1e-9
+    coeff = (torch.linspace(0.5, 1.5, k, device=z.device),
+             torch.full((k,), 1e-9, device=z.device))
+    ans0 = (3.0 * qp[0], 3.0 * qp[1])
+    runs = []
+    for _ in range(2):
+        ab = [z.clone(), z.clone(), bh0.clone(), bl0.clone()]
+        ans = (ans0[0].clone(), ans0[1].clone())
+        qn = ls.lanczos_step_df((v[0].clone(), v[1].clone()), q, qp, ab[:2],
+                                ab[2:], j, ans=ans, coeff=coeff)
+        runs.append((*ab, *qn, *ans))
+    check(all(torch.equal(x, y) for x, y in zip(*runs)),
+          "row 5c: two runs bit-identical")
+    ah, al, bh, bl, qh, ql, sh, sl = runs[0]
+    ref = [z.clone(), z.clone(), bh0.clone(), bl0.clone()]
+    qr = ls.lanczos_step_df_ref(v, q, qp, ref[:2], ref[2:], j)
+
+    def f64(h, lo):
+        return df.df_to_f64((h, lo))
+
+    rel = max(float(abs(f64(ah[j], al[j]) - f64(ref[0][j], ref[1][j]))
+                    / abs(f64(ref[0][j], ref[1][j]))),
+              float(abs(f64(bh[j], bl[j]) - f64(ref[2][j], ref[3][j]))
+                    / abs(f64(ref[2][j], ref[3][j]))))
+    check(rel < 5e-11, f"row 5c: alpha and beta within 5e-11 ({rel})")
+    want = ls.normalize_df_ref(ls.update_df_ref(
+        v, q, qp, (ah[j], al[j]), (bh[j - 1], bl[j - 1])), (bh[j], bl[j]))
+    acc = (ans0[0].clone(), ans0[1].clone())
+    ls.accum_df_ref(acc, coeff, j + 1, want)
+    check(torch.equal(qh, want[0]) and torch.equal(ql, want[1])
+          and torch.equal(sh, acc[0]) and torch.equal(sl, acc[1]),
+          "row 5c: q_(j+1) and the fold == plain given the kernel's scalars")
+    nk, nr = ls.df_norm(q), df.df_norm(q)
+    n_rel = float(abs(f64(*nk) - f64(*nr)) / f64(*nr))
+    check(n_rel < 5e-11, f"df_norm kernel within 5e-11 ({n_rel})")
+    err = float(np.abs(f64(qh, ql) - f64(*qr)).max())
+    return max(err, float(abs(f64(ah[j], al[j]) - f64(ref[0][j],
+                                                      ref[1][j])))), rel
+
+
+def step_inputs(torch, cg, x64, dev, df: bool = False):
+    """q (the pack's permuted x, normalized), q_prev (ones on the real
+    rows, scaled) and v = A q on the card: float32/float64 tensors or,
+    with ``df``, (hi, lo) pairs and the df SpMV."""
+    from tpu_lanczos_torch.kernels import spmv_cpg
+
+    xp = cg.permute_in(x64 / np.linalg.norm(x64), np.float64)
+    pp = cg.permute_in(np.ones(cg.n) / np.sqrt(cg.n), np.float64)
+    if df:
+        q, qp = split_dev(torch, cg, x64 / np.linalg.norm(x64), dev), \
+            split_dev(torch, cg, np.ones(cg.n) / np.sqrt(cg.n), dev)
+        return spmv_cpg.spmv_cpg_df(cg, *q), q, qp
+    out = []
+    for dt in (torch.float32, torch.float64):
+        q = torch.from_numpy(xp).to(dev, dt)
+        qp = torch.from_numpy(pp).to(dev, dt)
+        out.append((spmv_cpg.spmv_cpg(cg, q), q, qp))
+    return out
+
+
+@contextlib.contextmanager
+def eager_steps():
+    """Every single-device loop runs the plain (eager) step in the block:
+    the first port's step, to time beside the kernels in one run."""
+    from tpu_lanczos_torch.kernels import lanczos_step as ls
+
+    lz_mod = importlib.import_module("tpu_lanczos_torch.core.lanczos")
+    ldf = importlib.import_module("tpu_lanczos_torch.core.lanczos_df")
+    real = (lz_mod.lanczos_step, ldf.lanczos_step_df, ldf.df_norm)
+    lz_mod.lanczos_step = lambda *a, work=None, **kw: ls.lanczos_step_ref(
+        *a, **kw)
+    ldf.lanczos_step_df = lambda *a, work=None, **kw: (
+        ls.lanczos_step_df_ref(*a, **kw))
+    ldf.df_norm = lambda x, work=None: ls.df.df_norm(x)
+    try:
+        yield
+    finally:
+        lz_mod.lanczos_step, ldf.lanczos_step_df, ldf.df_norm = real
+
+
+def step_bound(n_pad: int, df: bool):
+    """Row 5 (float32) or 5c bound at n_pad: read v, q_j and q_{j-1} and
+    write q_{j+1} once (each a (hi, lo) pair in df64); the operations
+    counted as float32 adds and multiplies (row 5: a dot, the update and
+    the norm, a divide, 9 an element; row 5c: the df ops of
+    core/df64.py, 209 an element: the dot 39, the update and the norm's
+    dot 133, the scale 37) at the float32 peak."""
+    vecs = 4 * n_pad * (8 if df else 4)
+    ops = n_pad * (209 if df else 9)
+    return bound(vecs, ops)
+
+
 def estimators_phase(torch, g, dg, top_ritz: float) -> dict:
     """Phase 10: the stochastic estimators and the stored-Q checkpoint on
     the bn1M classic pack ``dg``: kernel 1's launches per call (exactly,
@@ -534,11 +729,11 @@ def estimators_phase(torch, g, dg, top_ritz: float) -> dict:
             attempts.clear()
             r, ms, wall, counts = timed_call(torch, lambda: (
                 stochastic.estrada_index(g, dtype=dt, dg=dg, **ESTRADA)))
-            want = (len(attempts) * k_defl
-                    + ESTRADA["probes"] * ESTRADA["k"]) * L
-            check_counts(counts, {"launches": want},
+            steps = len(attempts) * k_defl + ESTRADA["probes"] * ESTRADA["k"]
+            check_counts(counts, {"launches": steps * L,
+                                  "launches_step": steps},
                          f"estrada_index {dt}: (attempts*k_defl + "
-                         f"probes*k)*levels")
+                         f"probes*k)*levels, as many steps")
             check(np.isfinite(r.log_estimate) and np.isfinite(r.estimate)
                   and r.dropped == 0 and r.deflated > 0,
                   f"estrada_index {dt}: finite, nothing dropped, deflated")
@@ -592,11 +787,12 @@ def estimators_phase(torch, g, dg, top_ritz: float) -> dict:
             dr, ms, wall, counts = timed_call(torch, lambda: (
                 stochastic.subgraph_centrality(g, dtype=dt, dg=dg,
                                                **SUBGRAPH)))
-            want = (len(attempts) * k_defl + (dr.retries + 1)
-                    * SUBGRAPH["probes"] * SUBGRAPH["k"]) * L
-            check_counts(counts, {"launches": want},
+            steps = (len(attempts) * k_defl + (dr.retries + 1)
+                     * SUBGRAPH["probes"] * SUBGRAPH["k"])
+            check_counts(counts, {"launches": steps * L,
+                                  "launches_step": steps},
                          f"subgraph_centrality {dt}: (attempts*k_defl + "
-                         f"(retries+1)*probes*k)*levels")
+                         f"(retries+1)*probes*k)*levels, as many steps")
             check(bool(np.all(np.isfinite(dr.diag_scaled)))
                   and dr.diag_scaled.shape == (N,) and dr.deflated > 0,
                   f"subgraph_centrality {dt}: finite (n,), deflated")
@@ -630,8 +826,9 @@ def estimators_phase(torch, g, dg, top_ritz: float) -> dict:
             g, dg=dg, **DOS))
         d, ms, wall, counts = timed_call(torch, lambda: (
             stochastic.spectral_density(g, dg=dg, **DOS)))
-        check_counts(counts, {"launches": DOS["probes"] * DOS["k"] * L},
-                     "spectral_density: probes*k*levels")
+        check_counts(counts, {"launches": DOS["probes"] * DOS["k"] * L,
+                              "launches_step": DOS["probes"] * DOS["k"]},
+                     "spectral_density: probes*k*levels, probes*k steps")
         mass = float(np.trapezoid(d.density, d.grid))
         lmax_rel = abs(d.lambda_max - top_ritz) / abs(top_ritz)
         check(abs(mass - 1.0) < 1e-3, f"DOS mass {mass}")
@@ -656,9 +853,14 @@ def estimators_phase(torch, g, dg, top_ritz: float) -> dict:
                     .split()[0])
     sub_rel = float(cli_out.split("rel l2 err ")[1].split(",")[0])
     cli_mass = float(cli_out.split("mass=")[1].split()[0])
-    check(counts["launches"] > 0
-          and sum(counts.values()) == counts["launches"],
-          f"CLI estimators ran the classic CPG kernel only ({counts})")
+    # every SpMV of the CLI's single-device estimators is one Lanczos
+    # step's: levels*steps level launches
+    check(counts["launches"] > 0 and counts["launches_step"] > 0
+          and counts["launches"] % counts["launches_step"] == 0
+          and sum(counts.values()) == (counts["launches"]
+                                       + counts["launches_step"]),
+          f"CLI estimators ran the classic CPG kernel and the step kernel "
+          f"only, one step an SpMV ({counts})")
     check(est_rel < 2e-3, f"CLI deflated Estrada rel err {est_rel} < 2e-3")
     check(sub_rel < 0.02 and "top-1 match: True" in cli_out,
           f"CLI subgraph rel l2 {sub_rel} < 0.02, top-1 equal")
@@ -710,13 +912,14 @@ def estimators_phase(torch, g, dg, top_ritz: float) -> dict:
         j_done = checkpoint.LanczosCheckpoint.load(p).j_done
         check(j_done == CKPT_Q_CHUNK, f"snapshot after one chunk: {j_done}")
         st, _, ck["resume_wall_s"], counts = timed_call(torch, lambda: run(p))
-        check_counts(counts, {"launches": L + (kq - CKPT_Q_CHUNK) * L},
+        check_counts(counts, {"launches": L + (kq - CKPT_Q_CHUNK) * L,
+                              "launches_step": kq - CKPT_Q_CHUNK},
                      "resume: structure probe + the second chunk")
         same(st, "resumed checkpointed run")
         ck["launches_resume"] = counts["launches"]
         st, _, ck["full_wall_s"], counts = timed_call(torch, lambda: run(p2))
-        check_counts(counts, {"launches": L + kq * L},
-                     "uninterrupted: structure probe + k*levels")
+        check_counts(counts, {"launches": L + kq * L, "launches_step": kq},
+                     "uninterrupted: structure probe + k*levels, k steps")
         same(st, "uninterrupted checkpointed run")
         ck["launches_full"] = counts["launches"]
         ck["snapshot_bytes"] = os.path.getsize(p2)
@@ -1258,7 +1461,8 @@ SUITE_F32_BAR = 1e-3
 def suite_row(torch, name: str, cache_dir: str, dev) -> dict:
     """``bench_suite.run_one`` on one config (it holds every level of the
     pack against the plain versions, plain and compensated, before
-    timing), with kernel 1's and 1c's launches counted exactly."""
+    timing), with kernel 1's and 1c's launches and the steps of rows 5
+    and 5c counted exactly."""
     from tpu_lanczos_torch.eval import bench_suite
 
     cfg = next(c for c in bench_suite.CONFIGS if c["name"] == name)
@@ -1268,13 +1472,18 @@ def suite_row(torch, name: str, cache_dir: str, dev) -> dict:
     counts = read_counts(torch)
     L, nb = row["levels"], row["n_bcast"]
     # the level checks (one f32 and one df SpMV), 4 + reps Lanczos runs,
-    # the f32 two-pass query and, past ORACLE_N_MAX, the df64 query
+    # the f32 two-pass query and, past ORACLE_N_MAX, the df64 query; one
+    # step (or df step) for each SpMV of the runs and queries
     plain = 2 * L + nb + (4 + REPS) * K * L + (2 * K - 1) * L
     comp = L - nb
+    steps, df_steps = (4 + REPS) * K + (2 * K - 1), 0
     if row["err_ref"] == "df64_selfcheck":
         plain += (2 * K - 1) * (L + nb)
         comp += (2 * K - 1) * (L - nb)
-    check_counts(counts, {"launches": plain, "launches_comp": comp},
+        df_steps = 2 * K - 1
+    check_counts(counts, {"launches": plain, "launches_comp": comp,
+                          "launches_step": steps,
+                          "launches_step_df": df_steps},
                  f"bench_suite.run_one({name})")
     check(row["levels_checked"] == {"plain": 2 * L + nb, "comp": L - nb},
           f"{name}: every level held against its plain version")
@@ -1284,17 +1493,16 @@ def suite_row(torch, name: str, cache_dir: str, dev) -> dict:
     return dict(row, launches=counts)
 
 
-def trace_part(torch, dg, t_all: float) -> None:
-    """Phase 12's traced Lanczos: one ``profiling.trace`` of
-    ``lanczos(dg, realmask, k)`` whose Chrome trace must name
-    ``cpg_level_kernel`` k * levels times.  It runs after phase 9, whose
-    profiled probe calls saw no CUDA events when a trace had run before
-    them in this process."""
+def traced_lanczos(torch, dg) -> dict:
+    """One ``profiling.trace`` of ``lanczos(dg, realmask, k)`` after a warm
+    run: the kernel launches and device milliseconds by kernel (the level
+    kernel, each step kernel, the rest by name), the union of the kernel
+    intervals (busy) over the span from the first kernel's start to the
+    last one's end, and the idle share 1 - busy/span."""
     from tpu_lanczos_torch.core.lanczos import lanczos
     from tpu_lanczos_torch.eval import profiling
     from tpu_lanczos_torch.utils import BUILD_DIR
 
-    L = len(dg.levels)
     x1 = dg.realmask.reshape(-1).clone()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         lanczos(dg, x1, K)
@@ -1303,19 +1511,69 @@ def trace_part(torch, dg, t_all: float) -> None:
             lanczos(dg, x1, K)
         with open(os.path.join(tmp, profiling.TRACE_FILE)) as f:
             events = json.load(f)["traceEvents"]
-    cats = sorted({str(e.get("cat")) for e in events})
-    kernels = [e for e in events if e.get("cat") == "kernel"]
-    traced = sum(1 for e in kernels
-                 if "cpg_level_kernel" in str(e.get("name", "")))
-    check(traced == K * L == 150, f"the trace names cpg_level_kernel "
-          f"{traced} times, want k*levels = {K * L} (categories {cats})")
-    emit({"phase": 12, "part": "trace", "trace_cpg_level_kernel": traced,
-          "trace_kernel_events": len(kernels),
-          "trace_kernel_ms": sum(e.get("dur", 0) for e in kernels) / 1e3,
-          "total_s": time.time() - t_all})
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"),
+                     key=lambda e: e["ts"])
+    by_name = {}
+    for e in kernels:
+        name = str(e.get("name", ""))
+        key = next((k for k in ("cpg_level_kernel", *STEP_KERNELS)
+                    if k in name), name[:70])
+        row = by_name.setdefault(key, {"launches": 0, "ms": 0.0})
+        row["launches"] += 1
+        row["ms"] += e.get("dur", 0) / 1e3
+    busy, end = 0.0, None
+    for e in kernels:  # the union of the kernel intervals, in us
+        t0, t1 = e["ts"], e["ts"] + e.get("dur", 0)
+        if end is None or t0 >= end:
+            busy += t1 - t0
+            end = t1
+        elif t1 > end:
+            busy += t1 - end
+            end = t1
+    span = (end - kernels[0]["ts"]) if kernels else 0.0
+    return {"categories": sorted({str(e.get("cat")) for e in events}),
+            "kernel_events": len(kernels), "by_name": by_name,
+            "kernel_ms": sum(r["ms"] for r in by_name.values()),
+            "busy_ms": busy / 1e3, "span_ms": span / 1e3,
+            "idle_share": 1 - busy / span if span else None}
 
 
-def eval_phase(torch, g, dg, ref, ref_shift, t_all: float,
+def trace_part(torch, dg, suite_cache: str, t_all: float) -> None:
+    """Phase 12's traced Lanczos runs: bench.py's graph (the trace must
+    name ``cpg_level_kernel`` k * levels times and each step kernel k
+    times: three launches a step) and the suite's stencil_2600, the
+    first profile of a mesh (its graph and pack from phase 12's suite
+    cache).  They run after phase 9, whose profiled probe calls saw no
+    CUDA events when a trace had run before them in this process."""
+    from tpu_lanczos_torch.eval import bench_suite
+
+    for name, pack, in (("bn1M", dg), ("stencil_2600", None)):
+        if pack is None:
+            cfg = next(c for c in bench_suite.CONFIGS if c["name"] == name)
+            with contextlib.redirect_stdout(io.StringIO()):
+                gs = bench_suite.build(cfg, suite_cache)
+                pack, _ = bench_suite.load_or_pack(cfg, gs, suite_cache,
+                                                   dg.device)
+            del gs
+        t = traced_lanczos(torch, pack)
+        L = len(pack.levels)
+        got = {k: t["by_name"].get(k, {}).get("launches", 0)
+               for k in ("cpg_level_kernel", *STEP_KERNELS)}
+        want = {"cpg_level_kernel": K * L, **{k: K for k in STEP_KERNELS}}
+        check(got == want, f"{name}: the trace names the level and step "
+              f"kernels {got} times, want {want} (categories "
+              f"{t['categories']})")
+        step_ms = sum(t["by_name"][k]["ms"] for k in STEP_KERNELS)
+        emit({"phase": 12, "part": f"trace_{name}", "n_pad": pack.n_pad,
+              "levels": L, **t, "step_kernels_ms": step_ms,
+              "kernels_per_lanczos": t["kernel_events"],
+              "launches_per_step": sum(got[k] for k in STEP_KERNELS) / K,
+              "total_s": time.time() - t_all})
+        del pack
+        torch.cuda.empty_cache()
+
+
+def eval_phase(torch, g, dg, ref, ref_shift, t_all: float, suite_cache: str,
                dev="cuda") -> None:
     """Phase 12: the eval harness on phase 3's graph and pack and phase
     4's oracle answer: the stage breakdown (kernel 1's launches, the
@@ -1336,8 +1594,9 @@ def eval_phase(torch, g, dg, ref, ref_shift, t_all: float,
     reset_counts()
     row, _, _ = stage_breakdown.breakdown(g, dg, K, REPS, name="bn1M")
     counts = read_counts(torch)
-    check_counts(counts, {"launches": row["lanczos_runs"] * K * L},
-                 "stage_breakdown: k*levels per Lanczos run")
+    check_counts(counts, {"launches": row["lanczos_runs"] * K * L,
+                          "launches_step": row["lanczos_runs"] * K},
+                 "stage_breakdown: k*levels and k steps per Lanczos run")
     check(row["staged_vs_expm_rel"] < 1e-6,
           f"staged answer == expm_action's ({row['staged_vs_expm_rel']})")
     check(row["ref_cuda_whole_s"] == 0.455634, "bn1M reference time")
@@ -1360,7 +1619,9 @@ def eval_phase(torch, g, dg, ref, ref_shift, t_all: float,
     # two f32 two-pass queries and two df64 queries (a warm one each)
     check_counts(counts, {
         "launches": 2 * (2 * K - 1) * L + 2 * (2 * K - 1) * (L + nb),
-        "launches_comp": 2 * (2 * K - 1) * (L - nb)},
+        "launches_comp": 2 * (2 * K - 1) * (L - nb),
+        "launches_step": 2 * (2 * K - 1),
+        "launches_step_df": 2 * (2 * K - 1)},
         "accuracy_gpu.run: as phase 5 counts each query")
     f32, df = rows
     check(f32["rel_err"] < 1e-4, f"accuracy_gpu f32 {f32['rel_err']} < 1e-4")
@@ -1369,22 +1630,21 @@ def eval_phase(torch, g, dg, ref, ref_shift, t_all: float,
           "launches": counts, "total_s": time.time() - t_all})
 
     # ---- two suite rows: sub=128 with the oracle column, and > 64 dest
-    # chunks with the df64 column
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as cache:
-        for name in SUITE_ROWS:
-            with contextlib.redirect_stdout(io.StringIO()):
-                row = suite_row(torch, name, cache, dev)
-            if name == "copapers_540k":
-                check(row["sub"] == 128 and row["err_ref"] == "oracle_f64",
-                      f"{name}: sub=128 pack, oracle column")
-            else:
-                check(row["n_chunks"] > 64
-                      and row["err_ref"] == "df64_selfcheck",
-                      f"{name}: {row['n_chunks']} > 64 dest chunks, df64 "
-                      "column")
-            emit({"phase": 12, "part": "bench_suite", **row,
-                  "total_s": time.time() - t_all})
-            torch.cuda.empty_cache()
+    # chunks with the df64 column (their caches kept for the traces)
+    for name in SUITE_ROWS:
+        with contextlib.redirect_stdout(io.StringIO()):
+            row = suite_row(torch, name, suite_cache, dev)
+        if name == "copapers_540k":
+            check(row["sub"] == 128 and row["err_ref"] == "oracle_f64",
+                  f"{name}: sub=128 pack, oracle column")
+        else:
+            check(row["n_chunks"] > 64
+                  and row["err_ref"] == "df64_selfcheck",
+                  f"{name}: {row['n_chunks']} > 64 dest chunks, df64 "
+                  "column")
+        emit({"phase": 12, "part": "bench_suite", **row,
+              "total_s": time.time() - t_all})
+        torch.cuda.empty_cache()
 
     # ---- the small jobs (their own JSON prints quieted: each part is
     # one line here)
@@ -1474,7 +1734,9 @@ def main() -> None:
           "three slab instantiations built (plain f32, f64; compensated)")
     for kernel in ("cpg_level_kernel", "cpg_level_comp_kernel",
                    "cst_level_kernel", "gpg_level_kernel", "probe_kernel",
-                   "probe_reduce_kernel"):
+                   "probe_reduce_kernel", *STEP_KERNELS,
+                   "step_sub_norm_kernel", "df_dot_kernel",
+                   "df_update_kernel", "df_normalize_kernel"):
         check(any(kernel in k["kernel"] for k in ptxas), f"{kernel} built")
     os.makedirs(BUILD_DIR, exist_ok=True)
     cst_path = os.path.join(BUILD_DIR, f"cst_bn1M.{os.getpid()}.npz")
@@ -1500,6 +1762,10 @@ def main() -> None:
     ]
     max_err = {"classic": 0.0, "slab": 0.0}
     comp_err = {"classic": 0.0, "slab": 0.0}
+    # rows 5 and 5c: the largest |kernel - plain| and relative alpha/beta
+    # difference
+    step_err = {"5": 0.0, "5c": 0.0}
+    step_rel = {"5": 0.0, "5c": 0.0}
     rows = []
     for name, g, sub, layout in cases:
         cg = pack_cpg(g, sub=sub, layout=layout, device=dev)
@@ -1548,12 +1814,25 @@ def main() -> None:
         check_counts(counts, {comp_c: 2 * (L - nb),
                               plain_c: 2 * (L + nb)},
                      f"{name}: two df SpMVs")
+        # rows 5 and 5c on this pack's f32, f64 and df SpMV outputs
+        reset_counts()
+        for v_s, q_s, qp_s in step_inputs(torch, cg, xr, dev):
+            e, r = step_case(torch, v_s, q_s, qp_s)
+            step_err["5"], step_rel["5"] = (max(step_err["5"], e),
+                                            max(step_rel["5"], r))
+        e, r = step_df_case(torch, *step_inputs(torch, cg, xr, dev, df=True))
+        step_err["5c"], step_rel["5c"] = (max(step_err["5c"], e),
+                                          max(step_rel["5c"], r))
+        check_counts(read_counts(torch), {
+            plain_c: 2 * L + (L + nb), comp_c: L - nb, "launches_step": 4,
+            "launches_step_df": 2}, f"{name}: rows 5 and 5c, twice each")
         rows.append({"pack": name, "layout": layout, "sub": cg.sub,
                      "levels": L, "n_bcast": nb, "tiles": list(cg.t_reals),
                      "l2": str(cg.levels[0]["l2"].dtype), "f64_err": err64,
                      "df64_rel_err": df_rel, "df_launches": counts})
     emit({"phase": 2, "equal": True, "max_abs_err": max_err,
-          "comp_max_abs_err": comp_err, "packs": rows})
+          "comp_max_abs_err": comp_err, "step_max_abs_err": step_err,
+          "step_max_rel_alpha_beta": step_rel, "packs": rows})
 
     # ---- 3: main path at bench.py's size
     t0 = time.time()
@@ -1580,8 +1859,11 @@ def main() -> None:
                                    eig_impl="device")
     counts = read_counts(torch)
     main_launches = counts["launches"]
-    check_counts(counts, {"launches": 3 * K * len(dg.levels)},
-                 "main path: k*levels per Lanczos run, three runs")
+    main_steps = counts["launches_step"]
+    check_counts(counts, {"launches": 3 * K * len(dg.levels),
+                          "launches_step": 3 * K},
+                 "main path: k*levels and k steps per Lanczos run, three "
+                 "runs")
     check(res.ans.shape == (N,) and bool(np.all(np.isfinite(res.ans))),
           "expm_action answer finite, shape (n,)")
     check(np.isfinite(res.log_scale), "log_scale finite")
@@ -1641,6 +1923,44 @@ def main() -> None:
     spmv_bound_ms, spmv_bound_by = bound(*spmv_cost(dg))
     level_bound_ms = [bound(*level_cost(dg, i, 4, 1, i != dg.n_bcast))[0]
                       for i in range(len(dg.levels))]
+
+    # row 5 at full size: the kernel against its plain version (f32, f64)
+    # on bn1M's SpMV output, then its device time per step beside the
+    # eager step's (queued, in turns), and Lanczos k=50 through the kernel
+    # and through the eager step, in turns
+    from tpu_lanczos_torch.kernels import lanczos_step as ls
+
+    ins = step_inputs(torch, dg, rng.standard_normal(N), dev)
+    for v_s, q_s, qp_s in ins:
+        e, r = step_case(torch, v_s, q_s, qp_s)
+        step_err["5"], step_rel["5"] = (max(step_err["5"], e),
+                                        max(step_rel["5"], r))
+    v_s, q_s, qp_s = ins[0]
+    work = ls.workspace(dev)
+    ab_k = [torch.zeros(8, device=dev) for _ in range(2)]
+    ab_e = [torch.zeros(8, device=dev) for _ in range(2)]
+    ab_k[1][2] = ab_e[1][2] = 0.75
+    v_k = v_s.clone()
+    step_fns = {
+        "kernel": (lambda: ls.lanczos_step(v_k, q_s, qp_s, *ab_k, 3,
+                                           work=work), 100),
+        "eager": (lambda: ls.lanczos_step_ref(v_s, q_s, qp_s, *ab_e, 3), 20),
+    }
+    step_turns, lanczos_turns = {}, {}
+    for tag in ("eager_1", "kernel_1", "kernel_2", "eager_2"):
+        fn, calls = step_fns[tag.split("_")[0]]
+        ms, samples, host_ms = queued_ms(torch, fn, calls)
+        step_turns[tag] = {"device_ms": ms, "samples": samples,
+                           "host_enqueue_ms": host_ms, "calls": calls}
+        with (eager_steps() if tag.startswith("eager")
+              else contextlib.nullcontext()):
+            lanczos_turns[tag] = cuda_ms(torch, lambda: lanczos(dg, x1, K))
+    step_ms = float(np.median([step_turns[t]["device_ms"]
+                               for t in ("kernel_1", "kernel_2")]))
+    eager_step_ms = float(np.median([step_turns[t]["device_ms"]
+                                     for t in ("eager_1", "eager_2")]))
+    step_bound_ms, step_bound_by = step_bound(dg.n_pad, False)
+    del ins, v_s, q_s, qp_s, v_k
     emit({"phase": 3, "graph": f"ba_{N}_{M}_{SEED}_native", "nnz": g.nnz,
           "gen_s": gen_s, "pack_s": pack_s, "sub": SUB,
           "n_chunks": dg.n_chunks, "levels": len(dg.levels),
@@ -1668,7 +1988,17 @@ def main() -> None:
           "syncs_summary_host_eig": sync_host,
           "syncs_summary_device_eig": sync_dev,
           "syncs_eigh_alone": sync_eigh,
-          "log_scale": res.log_scale, "top_nodes": summ.top_nodes.tolist()})
+          "log_scale": res.log_scale, "top_nodes": summ.top_nodes.tolist(),
+          "main_steps": main_steps,
+          "step_f32": {"max_abs_err": step_err["5"],
+                       "max_rel_alpha_beta": step_rel["5"],
+                       "device_ms": step_ms, "eager_device_ms": eager_step_ms,
+                       "bound_ms": step_bound_ms, "bound_by": step_bound_by,
+                       "bound_share": step_bound_ms / step_ms,
+                       "turns": step_turns},
+          "lanczos_k50_turns_ms": {t: v[0] for t, v in lanczos_turns.items()},
+          "lanczos_k50_turn_samples": {t: v[1]
+                                       for t, v in lanczos_turns.items()}})
 
     # ---- 4: accuracy against the float64 oracle, same graph
     t0 = time.time()
@@ -1708,14 +2038,16 @@ def main() -> None:
     res_lm = expm_action(g, k=K, log_scale=True, dg=dg, low_mem=True)
     counts = read_counts(torch)
     lm_launches = counts["launches"]
-    check_counts(counts, {"launches": (2 * K - 1) * L},
-                 "low_mem expm_action: (2k-1)*levels")
+    check_counts(counts, {"launches": (2 * K - 1) * L,
+                          "launches_step": 2 * K - 1},
+                 "low_mem expm_action: (2k-1)*levels, 2k-1 steps")
     reset_counts()
     summ_lm = expm_action_summary(g, k=K, topk=TOPK, dg=dg, low_mem=True)
     counts = read_counts(torch)
     lm_summary_launches = counts["launches"]
-    check_counts(counts, {"launches": (2 * K - 1) * L},
-                 "low_mem expm_action_summary: (2k-1)*levels")
+    check_counts(counts, {"launches": (2 * K - 1) * L,
+                          "launches_step": 2 * K - 1},
+                 "low_mem expm_action_summary: (2k-1)*levels, 2k-1 steps")
     rel_lm = rel_to_oracle(res_lm)
     top_lm = set(np.argsort(res_lm.ans)[-TOPK:].tolist())
     top_lm_sum = set(summ_lm.top_nodes.tolist())
@@ -1766,10 +2098,12 @@ def main() -> None:
     counts = read_counts(torch)
     df_plain_launches = counts["launches"]
     df_comp_launches = counts["launches_comp"]
+    df_steps = counts["launches_step_df"]
     check_counts(counts, {"launches_comp": (2 * K - 1) * (L - nb),
-                          "launches": (2 * K - 1) * (L + nb)},
+                          "launches": (2 * K - 1) * (L + nb),
+                          "launches_step_df": 2 * K - 1},
                  "expm_action_df: (2k-1)(L-n_bcast) compensated and "
-                 "(2k-1)(L+n_bcast) plain")
+                 "(2k-1)(L+n_bcast) plain, 2k-1 df steps")
     rel_df = rel_to_oracle(res_df)
     top_df = set(np.argsort(res_df.ans)[-TOPK:].tolist())
     check(rel_df < 1e-10, f"df64 rel_error {rel_df} < 1e-10 against the "
@@ -1808,6 +2142,48 @@ def main() -> None:
         torch, lambda: lanczos_alphabeta_df(dg, x1, x1_lo, K), reps=3)
     df_query_s, df_query_samples = wall_s(torch, lambda: expm_action_df(
         g, k=K, dg=dg, log_scale=True), reps=3)
+
+    # row 5c at full size, as row 5 in phase 3: against its plain version
+    # on bn1M's df SpMV output, its device time per step beside the eager
+    # step's (queued, in turns), and pass 1 and the df64 query through
+    # the kernel and through the eager step, in turns
+    from tpu_lanczos_torch.kernels import lanczos_step as ls
+
+    v_d, q_d, qp_d = step_inputs(torch, dg, rng.standard_normal(N), dev,
+                                 df=True)
+    e, r = step_df_case(torch, v_d, q_d, qp_d)
+    step_err["5c"], step_rel["5c"] = (max(step_err["5c"], e),
+                                      max(step_rel["5c"], r))
+    work = ls.workspace(dev)
+    z8 = torch.zeros(8, device=dev)
+    ab_k = [z8.clone() for _ in range(4)]
+    ab_e = [z8.clone() for _ in range(4)]
+    ab_k[2][2] = ab_e[2][2] = 0.75
+    v_k = (v_d[0].clone(), v_d[1].clone())
+    df_fns = {
+        "kernel": (lambda: ls.lanczos_step_df(v_k, q_d, qp_d, ab_k[:2],
+                                              ab_k[2:], 3, work=work), 50),
+        "eager": (lambda: ls.lanczos_step_df_ref(v_d, q_d, qp_d, ab_e[:2],
+                                                 ab_e[2:], 3), 1),
+    }
+    df_step_turns, ab_turns, df_query_turns = {}, {}, {}
+    for tag in ("eager_1", "kernel_1", "kernel_2", "eager_2"):
+        fn, calls = df_fns[tag.split("_")[0]]
+        ms, samples, host_ms = queued_ms(torch, fn, calls)
+        df_step_turns[tag] = {"device_ms": ms, "samples": samples,
+                              "host_enqueue_ms": host_ms, "calls": calls}
+        with (eager_steps() if tag.startswith("eager")
+              else contextlib.nullcontext()):
+            ab_turns[tag] = cuda_ms(torch, lambda: lanczos_alphabeta_df(
+                dg, x1, x1_lo, K), reps=3)[0]
+            df_query_turns[tag] = wall_s(torch, lambda: expm_action_df(
+                g, k=K, dg=dg, log_scale=True), reps=2)[0]
+    df_step_ms = float(np.median([df_step_turns[t]["device_ms"]
+                                  for t in ("kernel_1", "kernel_2")]))
+    eager_df_step_ms = float(np.median([df_step_turns[t]["device_ms"]
+                                        for t in ("eager_1", "eager_2")]))
+    df_step_bound_ms, df_step_bound_by = step_bound(dg.n_pad, True)
+    del v_d, q_d, qp_d, v_k
     emit({"phase": 5, "part": "df64", "k": K, "levels": L, "n_bcast": nb,
           "launches_comp": df_comp_launches,
           "launches_plain": df_plain_launches, "rel_error": rel_df,
@@ -1830,6 +2206,17 @@ def main() -> None:
           "expm_action_df_first_s": df_first_s,
           "expm_action_df_s": df_query_s,
           "expm_action_df_samples": df_query_samples,
+          "df_steps": df_steps,
+          "step_df": {"max_abs_err": step_err["5c"],
+                      "max_rel_alpha_beta": step_rel["5c"],
+                      "device_ms": df_step_ms,
+                      "eager_device_ms": eager_df_step_ms,
+                      "bound_ms": df_step_bound_ms,
+                      "bound_by": df_step_bound_by,
+                      "bound_share": df_step_bound_ms / df_step_ms,
+                      "turns": df_step_turns},
+          "alphabeta_df_k50_turns_ms": ab_turns,
+          "expm_action_df_turns_s": df_query_turns,
           "total_s": time.time() - t_all})
 
     # ---- 6: the slab layout, same graph, oracle answer and k
@@ -1856,8 +2243,9 @@ def main() -> None:
     res_s = expm_action(g, k=K, log_scale=True, dg=ds)
     counts = read_counts(torch)
     slab_launches = counts["launches_slab"]
-    check_counts(counts, {"launches_slab": K * Ls},
-                 "expm_action on the slab pack: k*levels slab launches")
+    check_counts(counts, {"launches_slab": K * Ls, "launches_step": K},
+                 "expm_action on the slab pack: k*levels slab launches, "
+                 "k steps")
     rel_s = rel_to_oracle(res_s)
     top_s = set(np.argsort(res_s.ans)[-TOPK:].tolist())
     check(rel_s < 1e-4, f"slab f32 rel_error {rel_s} < 1e-4")
@@ -1867,7 +2255,8 @@ def main() -> None:
     counts = read_counts(torch)
     comp_slab_launches = counts["launches_comp_slab"]
     check_counts(counts, {"launches_comp_slab": (2 * K - 1) * (Ls - nbs),
-                          "launches_slab": (2 * K - 1) * (Ls + nbs)},
+                          "launches_slab": (2 * K - 1) * (Ls + nbs),
+                          "launches_step_df": 2 * K - 1},
                  "expm_action_df on the slab pack")
     rel_sdf = rel_to_oracle(res_sdf)
     top_sdf = set(np.argsort(res_sdf.ans)[-TOPK:].tolist())
@@ -1981,8 +2370,9 @@ def main() -> None:
             check(len(packs) == 1 and packs[0].layout == "slab",
                   f"CLI --eig {eig} built one slab pack")
             n_lv = len(packs[0].levels)
-            check_counts(counts, {"launches_slab": K * n_lv},
-                         f"CLI --eig {eig}: k*levels slab launches")
+            check_counts(counts, {"launches_slab": K * n_lv,
+                                  "launches_step": K},
+                         f"CLI --eig {eig}: k*levels slab launches, k steps")
             nodes = json.loads(out.split(f"top-{TOPK} nodes: ")[1]
                                .split("\n")[0])
             query_s = float(out.split("device summary pipeline: ")[1]
@@ -2053,7 +2443,9 @@ def main() -> None:
     emit({"phase": 11, "part": "done", "total_s": time.time() - t_all})
 
     # ---- 12: the eval harness, still beside the CST pack child
-    eval_phase(torch, g, dg, ref, ref_shift, t_all, dev)
+    suite_cache = tempfile.mkdtemp(dir=BUILD_DIR)
+    atexit.register(shutil.rmtree, suite_cache, True)
+    eval_phase(torch, g, dg, ref, ref_shift, t_all, suite_cache, dev)
 
     # ---- 8: the lineage formats, GPG and CST, at full width
     from tpu_lanczos_torch.kernels import spmv_cst, spmv_gpg
@@ -2136,8 +2528,9 @@ def main() -> None:
         reset_counts()
         res_f = expm_action(g, k=K, log_scale=True, dg=pk)
         counts = read_counts(torch)
-        check_counts(counts, {f"launches_{fmt}": K * L},
-                     f"expm_action through {fmt}: k*levels, no CPG launch")
+        check_counts(counts, {f"launches_{fmt}": K * L, "launches_step": K},
+                     f"expm_action through {fmt}: k*levels, no CPG launch, "
+                     f"k steps")
         rel_f = rel_to_oracle(res_f)
         top_f = set(np.argsort(res_f.ans)[-TOPK:].tolist())
         check(rel_f < 1e-4, f"{fmt} f32 rel_error {rel_f} < 1e-4")
@@ -2200,9 +2593,14 @@ def main() -> None:
     check(rc == 0, f"CLI --fmt cst: rc {rc}: {err[-2000:]}")
     rel_cli = float(out.split("relative ")[1].split(")")[0])
     check(rel_cli < 1e-4, f"CLI --fmt cst: device vs serial {rel_cli}")
+    # one expm_action of k=50 steps on the CLI's own CST pack
+    cli_k = int(CLI_SMALL[CLI_SMALL.index("-k") + 1])
     check(counts["launches_cst"] > 0
-          and sum(counts.values()) == counts["launches_cst"],
-          f"CLI --fmt cst ran the CST kernel only ({counts})")
+          and counts["launches_cst"] % cli_k == 0
+          and counts["launches_step"] == cli_k
+          and sum(counts.values()) == counts["launches_cst"] + cli_k,
+          f"CLI --fmt cst ran the CST kernel (k*levels) and k steps only "
+          f"({counts})")
     rc_topk = run_cli(CLI_SMALL + ["--fmt", "cst", "--topk", "5"])[0]
     check(rc_topk == 2, f"CLI --fmt cst --topk 5 exits 2 (rc {rc_topk})")
     emit({"phase": 8, "graph": f"ba_{N}_{M}_{SEED}_native", "k": K,
@@ -2297,7 +2695,8 @@ def main() -> None:
     del a_p, xh_p, xl_p, x_rep, want, lib_out
 
     # ---- 12's traced Lanczos, after phase 9's profiled probe calls
-    trace_part(torch, dg, t_all)
+    trace_part(torch, dg, suite_cache, t_all)
+    shutil.rmtree(suite_cache, True)
 
     print(smi, flush=True)
     emit({"kernels": [{
@@ -2348,6 +2747,18 @@ def main() -> None:
         "ms": probe_rows["mxu1"]["wall_s"] * 1e3,
         "plain_ms": probe_plain_ms, "bound_ms": probe_bound[0],
         "bound_by": probe_bound[1], "library_ms": probe_lib_ms,
+    }, {
+        "name": "lanczos_step", "route": "cuda", "source": STEP_SOURCE,
+        "replaces": STEP_REPLACES, "launches": main_steps,
+        "max_abs_err": step_err["5"], "ms": step_ms,
+        "plain_ms": eager_step_ms, "bound_ms": step_bound_ms,
+        "bound_by": step_bound_by, "library_ms": None,
+    }, {
+        "name": "lanczos_step_df", "route": "cuda", "source": STEP_SOURCE,
+        "replaces": STEP_DF_REPLACES, "launches": df_steps,
+        "max_abs_err": step_err["5c"], "ms": df_step_ms,
+        "plain_ms": eager_df_step_ms, "bound_ms": df_step_bound_ms,
+        "bound_by": df_step_bound_by, "library_ms": None,
     }] + shard_entries})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -563,3 +563,232 @@ def test_sharded_pipelines_on_cuda_match_oracle(dev):
     with pytest.raises(ValueError,
                        match=f"need {have + 1} devices, have {have}"):
         make_mesh(have + 1)
+
+
+# ---- rows 5 and 5c: the Lanczos step kernels (kernels/lanczos_step.py)
+
+def _step_inputs(dev, n, dtype, seed):
+    """v, q and q_prev of n elements on the card (q normalized), and
+    (k,) alpha and beta buffers with beta[2] set: inputs of step j=3."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal(n)
+    q /= np.linalg.norm(q)
+    vecs = [torch.from_numpy(a).to(dev, dtype) for a in (
+        rng.standard_normal(n), q, rng.standard_normal(n) / np.sqrt(n))]
+    alpha = torch.zeros(8, dtype=dtype, device=dev)
+    beta = torch.zeros(8, dtype=dtype, device=dev)
+    beta[2] = 0.75
+    return vecs, alpha, beta
+
+
+def _rel(got, want):
+    return float(abs(got - want) / max(abs(want), 1e-300))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [128, 4099, 1 << 20])
+def test_lanczos_step_kernel_equals_plain_version(dev, dtype, n):
+    """Row 5: alpha and beta within 1e-6 (f32) or 1e-13 (f64) relative
+    of the plain version's torch.dot (the sum runs in another order);
+    given the kernel's own scalars, q_{j+1}, the stored row and the
+    recombine fold equal the plain version's bit for bit; two runs equal
+    bit for bit; one count a step."""
+    from tpu_lanczos_torch.kernels import lanczos_step as ls
+
+    (v, q, qp), alpha, beta = _step_inputs(dev, n, dtype, n)
+    coeff = torch.linspace(0.5, 1.5, 8, dtype=dtype, device=dev)
+    ans0 = torch.from_numpy(np.random.default_rng(1).standard_normal(n)).to(
+        dev, dtype)
+    runs = []
+    for _ in range(2):
+        a, b, vk, store, ans = (alpha.clone(), beta.clone(), v.clone(),
+                                torch.zeros_like(v), ans0.clone())
+        before = ls.launches_step
+        qn = ls.lanczos_step(vk, q, qp, a, b, 3, store=store, ans=ans,
+                             coeff=coeff)
+        torch.cuda.synchronize()
+        assert ls.launches_step - before == 1
+        runs.append((a, b, qn, store, ans))
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
+    a, b, qn, store, ans = runs[0]
+    ar, br = alpha.clone(), beta.clone()
+    ls.lanczos_step_ref(v.clone(), q, qp, ar, br, 3)
+    bar = 1e-6 if dtype == torch.float32 else 1e-13
+    assert _rel(a[3].item(), ar[3].item()) < bar
+    assert _rel(b[3].item(), br[3].item()) < bar
+    want = ls.normalize_ref(ls.update_ref(v, q, qp, a[3], b[2]), b[3])
+    assert torch.equal(qn, want) and torch.equal(store, want)
+    assert torch.equal(ans, ans0 + coeff[4] * want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lanczos_step_reorthogonalized_equals_plain_version(dev, dtype):
+    """Row 5 with the two GEMVs between its passes: given the kernel's
+    scalars, q_{j+1} equals the plain version's bit for bit."""
+    from tpu_lanczos_torch.kernels import lanczos_step as ls
+
+    n = 40000
+    (v, q, qp), alpha, beta = _step_inputs(dev, n, dtype, 5)
+    basis = torch.linalg.qr(torch.from_numpy(np.random.default_rng(6)
+                                             .standard_normal((n, 8))).to(
+        dev, dtype))[0].T.contiguous()
+    qn = ls.lanczos_step(v.clone(), q, qp, alpha, beta, 3, q_basis=basis)
+    v1 = ls.update_ref(v, q, qp, alpha[3], beta[2])
+    v1 = v1 - ls._reorthogonalize(v1, basis, 3)
+    assert torch.equal(qn, ls.normalize_ref(v1, beta[3]))
+    assert _rel(beta[3].item(), torch.linalg.vector_norm(v1).item()) < (
+        1e-6 if dtype == torch.float32 else 1e-13)
+
+
+def test_lanczos_step_breakdown_gives_zero(dev):
+    """v' = 0 (v = alpha q, beta_prev = 0): beta = 0 and q_{j+1} = 0."""
+    from tpu_lanczos_torch.kernels import lanczos_step as ls
+
+    q = torch.full((4096,), 1 / 64.0, device=dev)
+    alpha, beta = torch.zeros(4, device=dev), torch.zeros(4, device=dev)
+    qn = ls.lanczos_step(2.0 * q, q, torch.zeros_like(q), alpha, beta, 0)
+    assert alpha[0].item() == 2.0 and beta[0].item() == 0.0
+    assert not bool(qn.any())
+    h, l = (2.0 * q, torch.zeros_like(q))
+    z = torch.zeros_like(q)
+    ab = [torch.zeros(4, device=dev) for _ in range(4)]
+    qh, ql = ls.lanczos_step_df((h, l), (q, z), (z, z), ab[:2], ab[2:], 0)
+    assert ab[2][0].item() == 0.0 and not bool(qh.any() or ql.any())
+
+
+def _df_inputs(dev, n, seed):
+    rng = np.random.default_rng(seed)
+
+    def pair(x):
+        hi = x.astype(np.float32)
+        lo = (x - hi.astype(np.float64)).astype(np.float32)
+        return (torch.from_numpy(hi).to(dev), torch.from_numpy(lo).to(dev))
+
+    q = rng.standard_normal(n)
+    q /= np.linalg.norm(q)
+    return (pair(rng.standard_normal(n)), pair(q),
+            pair(rng.standard_normal(n) / np.sqrt(n)))
+
+
+@pytest.mark.parametrize("n", [128, 5000, 1 << 20, (1 << 23) + 1,
+                               (1 << 26) + 1])
+def test_lanczos_step_df_kernel_equals_plain_version(dev, n):
+    """Row 5c at each node-stack depth of the dot tree (one row a thread
+    up to P = 2^23, 2 rows at 2^24, 16 at 2^27): alpha and beta within
+    5e-11 of the plain version's df values, q_{j+1} and the recombine
+    fold bit-identical to the plain version's given the kernel's
+    scalars, two runs bit-identical, one count a step; df_norm within
+    5e-11 of core.df64's."""
+    from tpu_lanczos_torch.core import df64 as df
+    from tpu_lanczos_torch.kernels import lanczos_step as ls
+
+    v, q, qp = _df_inputs(dev, n, 3)
+    zk = [torch.zeros(8, device=dev) for _ in range(4)]
+    zk[2][2], zk[3][2] = 0.75, 1e-9
+    coeff = (torch.linspace(0.5, 1.5, 8, device=dev),
+             torch.full((8,), 1e-9, device=dev))
+    ans0 = (q[0] * 3, q[1] * 3)
+    runs = []
+    for _ in range(2):
+        ab = [t.clone() for t in zk]
+        ans = (ans0[0].clone(), ans0[1].clone())
+        before = ls.launches_step_df
+        qn = ls.lanczos_step_df((v[0].clone(), v[1].clone()), q, qp, ab[:2],
+                                ab[2:], 3, ans=ans, coeff=coeff)
+        torch.cuda.synchronize()
+        assert ls.launches_step_df - before == 1
+        runs.append((*ab, *qn, *ans))
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
+    ah, al, bh, bl, qh, ql, sh, sl = runs[0]
+    ref = [t.clone() for t in zk]
+    ls.lanczos_step_df_ref(v, q, qp, ref[:2], ref[2:], 3)
+    for got, want in (((ah, al), ref[:2]), ((bh, bl), ref[2:])):
+        g64 = df.df_to_f64((got[0][3], got[1][3]))
+        w64 = df.df_to_f64((want[0][3], want[1][3]))
+        assert _rel(float(g64), float(w64)) < 5e-11
+    a, bp, b = (ah[3], al[3]), (bh[2], bl[2]), (bh[3], bl[3])
+    want = ls.normalize_df_ref(ls.update_df_ref(v, q, qp, a, bp), b)
+    assert torch.equal(qh, want[0]) and torch.equal(ql, want[1])
+    acc = (ans0[0].clone(), ans0[1].clone())
+    ls.accum_df_ref(acc, coeff, 4, want)
+    assert torch.equal(sh, acc[0]) and torch.equal(sl, acc[1])
+    got = df.df_to_f64(tuple(t.cpu() for t in ls.df_norm(q)))
+    assert _rel(float(got), float(df.df_to_f64(df.df_norm(q)))) < 5e-11
+
+
+class _Cut(Exception):
+    """Raised by a spy to cut a checkpointed run after its first chunk."""
+
+
+def test_lanczos_loops_through_the_step_kernels(dev):
+    """On the card every loop runs the step kernels, one count a step:
+    lanczos_alphabeta == stored-Q lanczos bit for bit (f32 and f64), the
+    recombine pass, and the df64 checkpoint resumed bit for bit."""
+    import importlib
+
+    from tpu_lanczos_torch.core import checkpoint
+    from tpu_lanczos_torch.kernels import lanczos_step as ls
+
+    lz = importlib.import_module("tpu_lanczos_torch.core.lanczos")
+    ldf = importlib.import_module("tpu_lanczos_torch.core.lanczos_df")
+    g = generators.barabasi_albert(20000, 4, seed=9)
+    cg = cpg.pack_cpg(g, device=dev)
+    k = 15
+    for dt in (torch.float32, torch.float64):
+        x = cg.realmask.to(dt)
+        before = ls.launches_step
+        st = lz.lanczos(cg, x, k)
+        a, b, xn = lz.lanczos_alphabeta(cg, x, k)
+        ans = lz.lanczos_recombine(cg, x, torch.ones(k, dtype=dt,
+                                                     device=dev), k)
+        torch.cuda.synchronize()
+        assert ls.launches_step - before == 3 * k - 1
+        assert torch.equal(a, st.alpha) and torch.equal(b[:k - 1], st.beta)
+        assert torch.equal(xn, st.x_norm)
+        want = st.q_basis.sum(dim=0)
+        assert float((ans - want).norm() / want.norm()) < (
+            1e-5 if dt == torch.float32 else 1e-12)
+    hi, lo = cg.realmask.float(), torch.zeros(cg.n_pad, device=dev)
+    before = ls.launches_step_df
+    (ah, al), (bh, bl), _ = ldf.lanczos_alphabeta_df(cg, hi, lo, k)
+    torch.cuda.synchronize()
+    assert ls.launches_step_df - before == k
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/df.npz"
+        real = ldf.lanczos_alphabeta_df_range
+        calls = []
+
+        def cut(*args, **kw):
+            if calls:
+                raise _Cut
+            calls.append(1)
+            return real(*args, **kw)
+
+        ldf.lanczos_alphabeta_df_range = cut
+        try:
+            with pytest.raises(_Cut):
+                checkpoint.lanczos_alphabeta_df_checkpointed(
+                    cg, hi, lo, k, checkpoint_path=path, chunk=6)
+        finally:
+            ldf.lanczos_alphabeta_df_range = real
+        (h2, l2), (h3, l3), _ = checkpoint.lanczos_alphabeta_df_checkpointed(
+            cg, hi, lo, k, checkpoint_path=path, chunk=6)
+    for x, y in ((h2, ah), (l2, al), (h3, bh), (l3, bl)):
+        assert torch.equal(x, y)
+
+
+def test_lanczos_step_refuses_what_the_kernel_does_not_take(dev):
+    from tpu_lanczos_torch.kernels import lanczos_step as ls
+
+    v = torch.ones(256, device=dev)
+    ab = (torch.zeros(4, device=dev), torch.zeros(4, device=dev))
+    with pytest.raises(ValueError, match="alias"):
+        ls.lanczos_step(v, v, torch.zeros_like(v), *ab, 0)
+    with pytest.raises(ValueError, match="aligned"):
+        ls.lanczos_step(torch.ones(257, device=dev)[1:], v, v.clone(), *ab, 0)
+    with pytest.raises(TypeError):
+        ls.lanczos_step(v.half(), v.half(), v.half(), *ab, 0)

@@ -114,6 +114,7 @@ def test_port_imports_without_jax():
         "pack_truth"))
     code = ("import tpu_lanczos_torch, sys; "
             "import tpu_lanczos_torch.kernels.spmv_cpg, "
+            "tpu_lanczos_torch.kernels.lanczos_step, "
             f"tpu_lanczos_torch.kernels._build, {evals}; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'tpu_lanczos' not in sys.modules")

@@ -5,7 +5,7 @@ SpMV, on the reference's pack carried over with ``port_pack``.
 
 Bars and why:
 - ``lanczos_alphabeta``'s alpha, beta and x_norm equal ``lanczos``'s bit
-  for bit in float32 and float64: both run the one step ``_step``;
+  for bit in float32 and float64: both run the one step ``lanczos_step``;
 - ``lanczos_recombine`` within 1e-12 (float64) or 1e-5 (float32)
   relative of ``coeff @ Q``: the same q_j, summed one by one in place of
   a GEMV, so only the order of the sum differs;

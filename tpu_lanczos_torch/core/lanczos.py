@@ -5,12 +5,15 @@ optional full reorthogonalization), its restartable pieces
 ``lanczos_init`` and ``lanczos_range``, and the two passes of the
 memory-light Q-free mode, ``lanczos_alphabeta`` and
 ``lanczos_recombine``.  The reference runs each k-step recurrence as one
-``lax.fori_loop``; here it is a Python loop of eager ops whose recurrence
-scalars stay on the device: alpha and beta are written into device
-tensors and no step reads a value back to the host, so the loop never
-syncs.  Q is stored (k, n_pad), iteration-major, the layout the
-multiply-out GEMV wants.  All of them run the one step ``_step``, so the
-two passes regenerate stored-Q Lanczos's alpha, beta and q_j bit for bit.
+``lax.fori_loop`` whose step XLA fuses; here each step is the SpMV and
+then ``kernels/lanczos_step.py::lanczos_step`` (on the card three
+launches of a hand-written kernel: dot, update with norm, normalize).
+The recurrence scalars stay on the device: alpha and beta are written
+into device tensors and no step reads a value back to the host, so the
+loop never syncs.  Q is stored (k, n_pad), iteration-major, the layout
+the multiply-out GEMV wants.  All of them run the one step
+``lanczos_step``, so the two passes regenerate stored-Q Lanczos's alpha,
+beta and q_j bit for bit.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import dataclasses
 
 import torch
 
+from tpu_lanczos_torch.kernels.lanczos_step import lanczos_step, workspace
 from tpu_lanczos_torch.kernels.spmv import spmv
 
 
@@ -36,44 +40,26 @@ class LanczosState:
         return self.alpha.shape[0]
 
 
-def _step(dg, q, q_prev, b_prev, q_basis=None, j: int = 0):
-    """One step of the reference's recurrence (lanczos.py:79-96):
-    v = A q_j; alpha_j = <v, q_j>; v -= alpha_j q_j + beta_{j-1} q_{j-1};
-    beta_j = ||v||; q_{j+1} = v / beta_j (zero on breakdown).  Given
-    ``q_basis``, v is first reorthogonalized by a masked full
-    Gram-Schmidt against rows 0..j (two GEMVs over the (k, n_pad) basis,
-    lanczos.py:87-92).  The dots, GEMVs and axpys are float32 (or
-    float64) torch ops; no TF32 is involved.  Returns (alpha_j, beta_j,
-    q_{j+1})."""
-    v = spmv(dg, q)
-    a = torch.dot(v, q)
-    v = v - a * q - b_prev * q_prev
-    if q_basis is not None:
-        proj = q_basis @ v  # (k,)
-        row_ids = torch.arange(q_basis.shape[0], device=v.device)
-        proj = torch.where(row_ids <= j, proj, proj.new_zeros(()))
-        v = v - proj @ q_basis
-    b = torch.sqrt(torch.dot(v, v))
-    q_next = torch.where(b > 0, v / torch.where(b > 0, b, 1),
-                         torch.zeros_like(v))
-    return a, b, q_next
-
-
 def lanczos_range(dg, carry, j0: int, j1: int,
                   reorthogonalize: bool = False):
     """Run iterations [j0, j1) of the recurrence on a loop carry
     ``(q, q_prev, q_basis, alpha, beta)`` with k-sized buffers, writing
     q_j into row j of q_basis and alpha_j, beta_j into their slots (in
     place; the carry's tensors are updated).  Returns the new carry.
-    Exposed so a decomposition can run in restartable chunks."""
+    Exposed so a decomposition can run in restartable chunks.
+    ``reorthogonalize`` runs the masked full Gram-Schmidt against rows
+    0..j each step (lanczos.py:87-92)."""
     q, q_prev, q_basis, alpha, beta = carry
+    if j0 < j1:
+        q_basis[j0] = q
+    work = workspace(q.device)
     for j in range(j0, j1):
-        q_basis[j] = q
-        b_prev = beta[j - 1] if j > 0 else beta.new_zeros(())
-        a, b, q_next = _step(dg, q, q_prev, b_prev,
-                             q_basis if reorthogonalize else None, j)
-        alpha[j] = a
-        beta[j] = b
+        # step j stores q_{j+1} in its row; the chunk's last step leaves
+        # row j1 to the next chunk, as the reference's loop does
+        q_next = lanczos_step(
+            spmv(dg, q), q, q_prev, alpha, beta, j,
+            q_basis=q_basis if reorthogonalize else None,
+            store=q_basis[j + 1] if j + 1 < j1 else None, work=work)
         q_prev, q = q, q_next
     return (q, q_prev, q_basis, alpha, beta)
 
@@ -112,11 +98,10 @@ def lanczos_alphabeta(dg, x: torch.Tensor, k: int):
     q_prev = torch.zeros_like(q)
     alpha = x.new_zeros((k,))
     beta = x.new_zeros((k,))
-    b = x.new_zeros(())
+    work = workspace(q.device)
     for j in range(k):
-        a, b, q_next = _step(dg, q, q_prev, b)
-        alpha[j] = a
-        beta[j] = b
+        q_next = lanczos_step(spmv(dg, q), q, q_prev, alpha, beta, j,
+                              work=work)
         q_prev, q = q, q_next
     return alpha, beta, x_norm
 
@@ -125,14 +110,18 @@ def lanczos_recombine(dg, x: torch.Tensor, coeff: torch.Tensor,
                       k: int) -> torch.Tensor:
     """Pass 2 of the Q-free mode: regenerate q_j with the identical
     recurrence and accumulate ans = sum_j coeff[j] q_j on the fly.  The
-    recurrence runs k-1 times: q_{k-1} needs no further SpMV."""
+    recurrence runs k-1 times: q_{k-1} needs no further SpMV.  Step j
+    adds coeff[j+1] q_{j+1} to ``ans`` in place, the multiply and add of
+    an eager ``ans + coeff[j+1] * q``."""
     x_norm = torch.sqrt(torch.dot(x, x))
     q = x / x_norm
     q_prev = torch.zeros_like(q)
-    ans = torch.zeros_like(q)
-    b = x.new_zeros(())
+    ans = torch.zeros_like(q) + coeff[0] * q
+    alpha = x.new_zeros((k,))
+    beta = x.new_zeros((k,))
+    work = workspace(q.device)
     for j in range(k - 1):
-        ans = ans + coeff[j] * q
-        _, b, q_next = _step(dg, q, q_prev, b)
+        q_next = lanczos_step(spmv(dg, q), q, q_prev, alpha, beta, j,
+                              ans=ans, coeff=coeff, work=work)
         q_prev, q = q, q_next
-    return ans + coeff[k - 1] * q
+    return ans

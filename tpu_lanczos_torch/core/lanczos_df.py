@@ -8,9 +8,12 @@ and the updates are elementwise df ops on (hi, lo) vectors.
 
 It is the same two-pass Q-free scheme as core/lanczos.py: an alpha/beta
 pass, host eigh, then a pass that regenerates q_j and accumulates the
-answer, so memory stays O(n).  As there, each pass is a Python loop of
-eager ops whose recurrence scalars stay on the device (0-d tensors);
-breakdown is a ``torch.where``, never a Python branch on a device value.
+answer, so memory stays O(n).  As there, each pass is a Python loop
+whose recurrence scalars stay on the device: each step is the df SpMV
+and then ``kernels/lanczos_step.py::lanczos_step_df`` (on the card three
+launches of a hand-written kernel, which also folds the answer's
+accumulation into its last pass); breakdown is a select on the device,
+never a Python branch on a device value.
 """
 
 from __future__ import annotations
@@ -22,29 +25,16 @@ from tpu_lanczos_torch.core import df64 as df
 from tpu_lanczos_torch.core import expmv
 from tpu_lanczos_torch.core.pipeline import LanczosResult
 from tpu_lanczos_torch.kernels.cpg import CPGGraph, pack_cpg
+from tpu_lanczos_torch.kernels.lanczos_step import (
+    accum_df_ref, df_norm, lanczos_step_df, workspace)
 from tpu_lanczos_torch.kernels.spmv_cpg import spmv_cpg_df
 
 
-def _body_core(cg: CPGGraph, q, q_prev, beta_prev):
-    """One df64 recurrence step: returns (alpha_j, beta_j, q_next)."""
-    v = spmv_cpg_df(cg, q[0], q[1])
-    a = df.df_dot(v, q)
-    v = df.df_sub(v, df.df_add(df.df_scale(a, q),
-                               df.df_scale(beta_prev, q_prev)))
-    b = df.df_norm(v)
-    ok = b[0] > 0
-    safe_b = (torch.where(ok, b[0], 1.0), torch.where(ok, b[1], 0.0))
-    inv_b = df.df_div(df.df_from(1.0, device=ok.device), safe_b)
-    q_next = df.df_scale(inv_b, v)
-    q_next = (torch.where(ok, q_next[0], 0.0),
-              torch.where(ok, q_next[1], 0.0))
-    return a, b, q_next
-
-
-def _alphabeta_df_init(x_hi: torch.Tensor, x_lo: torch.Tensor):
-    """Normalised df64 start state (q0_hi, q0_lo, xn_hi, xn_lo)."""
+def _alphabeta_df_init(x_hi: torch.Tensor, x_lo: torch.Tensor, work=None):
+    """Normalised df64 start state (q0_hi, q0_lo, xn_hi, xn_lo); the norm
+    through the step kernel's df dot tree on the card."""
     x = (x_hi, x_lo)
-    x_norm = df.df_norm(x)
+    x_norm = df_norm(x, work)
     inv = df.df_div(df.df_from(1.0, device=x_hi.device), x_norm)
     q0 = df.df_scale(inv, x)
     return q0[0], q0[1], x_norm[0], x_norm[1]
@@ -57,12 +47,10 @@ def lanczos_alphabeta_df_range(cg: CPGGraph, carry, j0: int, j1: int):
     chunked run reproduces the one-shot pass bit for bit (same ops in the
     same order)."""
     qh, ql, ph, pl, ah, al, bh, bl = carry
-    zero = qh.new_zeros(())
+    work = workspace(qh.device)
     for j in range(j0, j1):
-        b_prev = (bh[j - 1], bl[j - 1]) if j > 0 else (zero, zero)
-        a, b, q_next = _body_core(cg, (qh, ql), (ph, pl), b_prev)
-        ah[j], al[j] = a
-        bh[j], bl[j] = b
+        q_next = lanczos_step_df(spmv_cpg_df(cg, qh, ql), (qh, ql),
+                                 (ph, pl), (ah, al), (bh, bl), j, work=work)
         (ph, pl), (qh, ql) = (qh, ql), q_next
     return qh, ql, ph, pl, ah, al, bh, bl
 
@@ -83,29 +71,28 @@ def lanczos_alphabeta_df(cg: CPGGraph, x_hi: torch.Tensor,
     return (ah, al), (bh, bl), (xnh, xnl)
 
 
-def _recombine(cg: CPGGraph, x_hi, x_lo, k: int, accum, ans):
+def _recombine(cg: CPGGraph, x_hi, x_lo, coeff, k: int, ans):
     """Pass 2's sweep: regenerate q_0..q_{k-1} and fold each into ``ans``
-    with ``accum(ans, j, q)``.  The recurrence runs k-1 times: q_{k-1}
-    needs no further SpMV."""
-    q0h, q0l, _, _ = _alphabeta_df_init(x_hi, x_lo)
+    (in place), ans = df_add(ans, df_scale(coeff[j], q_j)): q_0 here,
+    q_{j+1} in step j's last pass.  The recurrence runs k-1 times:
+    q_{k-1} needs no further SpMV."""
+    work = workspace(x_hi.device)
+    q0h, q0l, _, _ = _alphabeta_df_init(x_hi, x_lo, work)
     q, q_prev = (q0h, q0l), (torch.zeros_like(q0h), torch.zeros_like(q0h))
-    zero = q0h.new_zeros(())
-    b = (zero, zero)
+    accum_df_ref(ans, coeff, 0, q)
+    ab = tuple(q0h.new_zeros((k,)) for _ in range(4))
     for j in range(k - 1):
-        ans = accum(ans, j, q)
-        _, b, q_next = _body_core(cg, q, q_prev, b)
+        q_next = lanczos_step_df(spmv_cpg_df(cg, *q), q, q_prev, ab[:2],
+                                 ab[2:], j, ans=ans, coeff=coeff, work=work)
         q_prev, q = q, q_next
-    return accum(ans, k - 1, q)
+    return ans
 
 
 def lanczos_recombine_df(cg: CPGGraph, x_hi, x_lo, coeff_hi, coeff_lo,
                          k: int):
     """Pass 2: ans = sum_j coeff[j] * q_j in df64.  Returns (hi, lo)."""
-    def accum(ans, j, q):
-        return df.df_add(ans, df.df_scale((coeff_hi[j], coeff_lo[j]), q))
-
-    zv = torch.zeros_like(x_hi)
-    return _recombine(cg, x_hi, x_lo, k, accum, (zv, zv))
+    ans = (torch.zeros_like(x_hi), torch.zeros_like(x_hi))
+    return _recombine(cg, x_hi, x_lo, (coeff_hi, coeff_lo), k, ans)
 
 
 def lanczos_recombine_df_multi(cg: CPGGraph, x_hi, x_lo, coeff_hi,
@@ -114,12 +101,9 @@ def lanczos_recombine_df_multi(cg: CPGGraph, x_hi, x_lo, coeff_hi,
     coefficients for Krylov dimension ks[m], zero past its own k.  One
     sweep accumulates every answer, ans[m] += coeff[m, j] * q_j.
     Returns (hi, lo) of (n_ks, n_pad)."""
-    def accum(ans, j, q):
-        c = (coeff_hi[:, j, None], coeff_lo[:, j, None])
-        return df.df_add(ans, df.df_mul(c, (q[0][None, :], q[1][None, :])))
-
-    za = x_hi.new_zeros((coeff_hi.shape[0],) + x_hi.shape)
-    return _recombine(cg, x_hi, x_lo, k, accum, (za, za))
+    shape = (coeff_hi.shape[0],) + x_hi.shape
+    ans = (x_hi.new_zeros(shape), x_hi.new_zeros(shape))
+    return _recombine(cg, x_hi, x_lo, (coeff_hi, coeff_lo), k, ans)
 
 
 def split_f64(a: np.ndarray):

@@ -149,7 +149,7 @@ def spmv_cpg_df_sharded_ref(sg: ShardedCPG, mesh: Mesh, q_hi: list,
 def _body_core_sh(sg, mesh, q, q_prev, beta_prev):
     """One df64 recurrence step on the mesh: returns (alpha_j, beta_j,
     q_next), each a per-shard list of pairs; the sharded twin of
-    core/lanczos_df.py ``_body_core`` with exact-fold dots."""
+    kernels/lanczos_step.py ``lanczos_step_df_ref`` with exact-fold dots."""
     v = _local_spmv_df(sg, mesh, q, run_level, run_level_comp)
     a = _df_pdot(mesh, v, q)
     v = [df.df_sub(vs, df.df_add(df.df_scale(av, qs), df.df_scale(bp, qp)))

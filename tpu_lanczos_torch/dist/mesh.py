@@ -198,7 +198,7 @@ def sharded_lanczos_body(mesh: Mesh, local_spmv, x: list, k: int,
     does the backend's exchange and local SpMV.  The three-term
     recurrence, the psum'd dots and norms, the masked reorthogonalization
     and the breakdown guard live here once, in the order of the
-    single-device step (core/lanczos.py ``_step``).
+    single-device step (kernels/lanczos_step.py ``lanczos_step_ref``).
 
     Returns (alpha (k,), beta (k,), q_basis, x_norm): alpha, beta (slot
     k-1 the residual norm) and x_norm replicated, as tensors on the first

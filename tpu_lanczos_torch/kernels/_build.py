@@ -21,7 +21,8 @@ from tpu_lanczos_torch.utils import BUILD_DIR, build_shared
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = [os.path.join(CSRC_DIR, name) for name in (
-    "spmv_cpg.cu", "spmv_cst.cu", "spmv_gpg.cu", "mxu_probe.cu")]
+    "spmv_cpg.cu", "spmv_cst.cu", "spmv_gpg.cu", "mxu_probe.cu",
+    "lanczos_step.cu")]
 HEADERS = [os.path.join(CSRC_DIR, name) for name in (
     "tma.cuh", "heavy_first.cuh")]
 LIB_PATH = os.path.join(BUILD_DIR, "libtlt_kernels.so")
@@ -72,10 +73,32 @@ def bind_lineage(lib):
     return lib
 
 
+def bind_step(lib):
+    """Argument types of lanczos_step.cu's entry points on ``lib``."""
+    p, i, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.tlt_lanczos_step_workspace_bytes.restype = i
+    lib.tlt_lanczos_step_workspace_bytes.argtypes = []
+    lib.tlt_lanczos_step.restype = i
+    lib.tlt_lanczos_step.argtypes = [p, p, p, p, p, n, i, i, p, p, p, i,
+                                     p, p]
+    lib.tlt_lanczos_step_head.restype = i
+    lib.tlt_lanczos_step_head.argtypes = [p, p, p, p, p, n, i, i, p, p]
+    lib.tlt_lanczos_step_tail.restype = i
+    lib.tlt_lanczos_step_tail.argtypes = [p, p, p, n, i, i, p, p, p, i, p,
+                                          p]
+    lib.tlt_lanczos_step_df.restype = i
+    lib.tlt_lanczos_step_df.argtypes = [p, p, p, p, p, p, p, p, p, p, n, i,
+                                        p, p, p, p, i, i, n, p, p]
+    lib.tlt_df_norm.restype = i
+    lib.tlt_df_norm.argtypes = [p, p, p, p, n, p, p]
+    return lib
+
+
 def _bind(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     bind_cpg(lib)
     bind_lineage(lib)
+    bind_step(lib)
     lib.tlt_mxu_probe.restype = i
     lib.tlt_mxu_probe.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     return lib
