@@ -12,10 +12,13 @@ jax or of the JAX package.  Each phase prints one JSON line:
      against their plain PyTorch versions on the card, on every level of
      small classic and slab packs (f32 and f64) and on whole SpMVs and df
      SpMVs: exact equality; the f64 and df64 SpMVs against scipy; and the
-     Lanczos step kernels (rows 5 and 5c) on each pack's SpMV output:
-     alpha and beta within 1e-6 (f32), 1e-13 (f64) and 5e-11 (df64) of
-     the plain version's, q_{j+1}, the stored row and the recombine fold
-     bit-identical given the kernel's scalars, two runs bit-identical;
+     Lanczos step kernels (rows 5 and 5c, one cooperative launch a
+     step) on each pack's SpMV output: alpha and beta within 1e-6 (f32),
+     1e-13 (f64) and 5e-11 (df64) of the plain version's (row 5c's hi
+     word equal), q_{j+1}, the stored row and the recombine fold
+     bit-identical given the kernel's scalars, the run with the pack's
+     realmask folded in (``mask=``) bit-identical to the run on the
+     masked SpMV;
   3  the main path at bench.py's size (Barabasi-Albert n=1M, m=10,
      seed 0, native generator; pack sub=512; k=50) through
      ``expm_action`` and ``expm_action_summary`` (host and device
@@ -98,7 +101,7 @@ traced Lanczos.  Then the card's name
 and power limit (nvidia-smi), one JSON line of
 per-kernel results (with each kernel's bound: the larger of its bytes
 over the HBM rate and its operations over their peak rate; the step
-kernels' ``launches`` count steps, three kernel launches each), and last
+kernels' ``launches`` count steps, one cooperative launch each), and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
 nonzero and prints no final line.
 """
@@ -139,9 +142,9 @@ STEP_REPLACES = ("tpu_lanczos/core/lanczos.py:84-96 (the XLA-fused step of "
                  "the fori_loop; no Pallas kernel)")
 STEP_DF_REPLACES = ("tpu_lanczos/core/lanczos_df.py:30-40 (_body_core after "
                     "the SpMV, XLA-fused; no Pallas kernel)")
-# the step kernels' launches, counted by the trace (csrc/lanczos_step.cu)
-STEP_KERNELS = ("step_dot_kernel", "step_update_kernel",
-                "step_normalize_kernel")
+# the step kernel of a float32 Lanczos, counted by the trace
+# (csrc/lanczos_step.cu: one launch a step)
+STEP_KERNELS = ("lanczos_step_kernel",)
 KS = (10, 30, 50)
 CKPT_CHUNK = 16
 # the H100 SXM's published peaks (700 W)
@@ -548,30 +551,33 @@ def queued_ms(torch, fn, calls: int, reps: int = REPS):
     return float(np.median(samples)), samples, enqueue_s / calls * 1e3
 
 
-def step_case(torch, v, q, qp, j: int = 3):
-    """Row 5 on one SpMV output ``v`` of q (q_prev ``qp``), at step j:
-    the kernel twice (equal bit for bit), the plain version, and the
-    plain version given the kernel's scalars (q_{j+1}, the stored row and
-    the recombine fold equal bit for bit).  Checks alpha and beta within
-    1e-6 (float32) or 1e-13 (float64) relative of the plain version's;
-    returns (the largest |kernel - plain| of alpha, beta and q_{j+1}, the
-    larger relative alpha or beta difference)."""
+def step_case(torch, v_raw, q, qp, mask, j: int = 3):
+    """Row 5 on one SpMV's output before its realmask multiply ``v_raw``
+    of q (q_prev ``qp``), at step j: the kernel with ``mask=`` on v_raw
+    and without it on v = v_raw * mask (equal bit for bit: the mask fold
+    is exact and two runs agree), the plain version, and the plain version
+    given the kernel's scalars (q_{j+1}, the stored row and the recombine
+    fold equal bit for bit).  Checks alpha and beta within 1e-6 (float32)
+    or 1e-13 (float64) relative of the plain version's; returns (the
+    largest |kernel - plain| of alpha, beta and q_{j+1}, the larger
+    relative alpha or beta difference)."""
     from tpu_lanczos_torch.kernels import lanczos_step as ls
 
+    v = v_raw * mask.to(v_raw.dtype)
     k = j + 3
     beta0 = torch.zeros(k, dtype=v.dtype, device=v.device)
     beta0[j - 1] = 0.75
     coeff = torch.linspace(0.5, 1.5, k, dtype=v.dtype, device=v.device)
     ans0 = 3.0 * qp
     runs = []
-    for _ in range(2):
+    for vin, m in ((v_raw, mask), (v, None)):
         a, b = torch.zeros_like(beta0), beta0.clone()
         store, ans = torch.zeros_like(v), ans0.clone()
-        qn = ls.lanczos_step(v.clone(), q, qp, a, b, j, store=store,
-                             ans=ans, coeff=coeff)
+        qn = ls.lanczos_step(vin.clone(), q, qp, a, b, j, store=store,
+                             ans=ans, coeff=coeff, mask=m)
         runs.append((a, b, qn, store, ans))
     check(all(torch.equal(x, y) for x, y in zip(*runs)),
-          "row 5: two runs bit-identical")
+          "row 5: the run with mask= and the run on v * mask bit-identical")
     a, b, qn, store, ans = runs[0]
     ar, br = torch.zeros_like(beta0), beta0.clone()
     qr = ls.lanczos_step_ref(v.clone(), q, qp, ar, br, j)
@@ -590,16 +596,18 @@ def step_case(torch, v, q, qp, j: int = 3):
     return err, rel
 
 
-def step_df_case(torch, v, q, qp, j: int = 3):
-    """Row 5c as ``step_case`` on (hi, lo) pairs: alpha and beta within
-    5e-11 of the plain version's df values (as float64), q_{j+1} and the
-    recombine fold bit-identical given the kernel's scalars, two runs
-    bit-identical; df_norm within 5e-11 of core.df64's.  Returns the
-    largest |kernel - plain| (as float64) and relative alpha/beta
-    difference."""
+def step_df_case(torch, v_raw, q, qp, mask, j: int = 3):
+    """Row 5c as ``step_case`` on (hi, lo) pairs: the runs with and
+    without ``mask=`` bit-identical, alpha and beta within 5e-11 of the
+    plain version's df values (as float64) and alpha's hi word equal to
+    the plain version's (the same pairwise tree), q_{j+1} and the
+    recombine fold bit-identical given the kernel's scalars; df_norm
+    within 5e-11 of core.df64's.  Returns the largest |kernel - plain|
+    (as float64) and relative alpha/beta difference."""
     from tpu_lanczos_torch.core import df64 as df
     from tpu_lanczos_torch.kernels import lanczos_step as ls
 
+    v = (v_raw[0] * mask, v_raw[1] * mask)
     k = j + 3
     z = torch.zeros(k, device=v[0].device)
     bh0, bl0 = z.clone(), z.clone()
@@ -608,14 +616,16 @@ def step_df_case(torch, v, q, qp, j: int = 3):
              torch.full((k,), 1e-9, device=z.device))
     ans0 = (3.0 * qp[0], 3.0 * qp[1])
     runs = []
-    for _ in range(2):
+    for vin, m in ((v_raw, mask), (v, None)):
         ab = [z.clone(), z.clone(), bh0.clone(), bl0.clone()]
         ans = (ans0[0].clone(), ans0[1].clone())
-        qn = ls.lanczos_step_df((v[0].clone(), v[1].clone()), q, qp, ab[:2],
-                                ab[2:], j, ans=ans, coeff=coeff)
+        qn = ls.lanczos_step_df((vin[0].clone(), vin[1].clone()), q, qp,
+                                ab[:2], ab[2:], j, ans=ans, coeff=coeff,
+                                mask=m)
         runs.append((*ab, *qn, *ans))
     check(all(torch.equal(x, y) for x, y in zip(*runs)),
-          "row 5c: two runs bit-identical")
+          "row 5c: the run with mask= and the run on v * mask "
+          "bit-identical")
     ah, al, bh, bl, qh, ql, sh, sl = runs[0]
     ref = [z.clone(), z.clone(), bh0.clone(), bl0.clone()]
     qr = ls.lanczos_step_df_ref(v, q, qp, ref[:2], ref[2:], j)
@@ -628,6 +638,8 @@ def step_df_case(torch, v, q, qp, j: int = 3):
               float(abs(f64(bh[j], bl[j]) - f64(ref[2][j], ref[3][j]))
                     / abs(f64(ref[2][j], ref[3][j]))))
     check(rel < 5e-11, f"row 5c: alpha and beta within 5e-11 ({rel})")
+    check(float(ah[j]) == float(ref[0][j]),
+          "row 5c: alpha's hi word equals the plain tree's")
     want = ls.normalize_df_ref(ls.update_df_ref(
         v, q, qp, (ah[j], al[j]), (bh[j - 1], bl[j - 1])), (bh[j], bl[j]))
     acc = (ans0[0].clone(), ans0[1].clone())
@@ -645,8 +657,9 @@ def step_df_case(torch, v, q, qp, j: int = 3):
 
 def step_inputs(torch, cg, x64, dev, df: bool = False):
     """q (the pack's permuted x, normalized), q_prev (ones on the real
-    rows, scaled) and v = A q on the card: float32/float64 tensors or,
-    with ``df``, (hi, lo) pairs and the df SpMV."""
+    rows, scaled) and v = A q before its realmask multiply on the card:
+    float32/float64 tensors or, with ``df``, (hi, lo) pairs and the df
+    SpMV."""
     from tpu_lanczos_torch.kernels import spmv_cpg
 
     xp = cg.permute_in(x64 / np.linalg.norm(x64), np.float64)
@@ -654,12 +667,12 @@ def step_inputs(torch, cg, x64, dev, df: bool = False):
     if df:
         q, qp = split_dev(torch, cg, x64 / np.linalg.norm(x64), dev), \
             split_dev(torch, cg, np.ones(cg.n) / np.sqrt(cg.n), dev)
-        return spmv_cpg.spmv_cpg_df(cg, *q), q, qp
+        return spmv_cpg.spmv_cpg_df(cg, *q, masked=False), q, qp
     out = []
     for dt in (torch.float32, torch.float64):
         q = torch.from_numpy(xp).to(dev, dt)
         qp = torch.from_numpy(pp).to(dev, dt)
-        out.append((spmv_cpg.spmv_cpg(cg, q), q, qp))
+        out.append((spmv_cpg.spmv_cpg(cg, q, masked=False), q, qp))
     return out
 
 
@@ -684,13 +697,15 @@ def eager_steps():
 
 
 def step_bound(n_pad: int, df: bool):
-    """Row 5 (float32) or 5c bound at n_pad: read v, q_j and q_{j-1} and
-    write q_{j+1} once (each a (hi, lo) pair in df64); the operations
+    """Row 5 (float32) or 5c bound at n_pad: read v, the pack's float32
+    realmask (the SpMV's multiply, which the step folds in), q_j and
+    q_{j-1} and write q_{j+1} once (each vector a (hi, lo) pair in
+    df64); the operations
     counted as float32 adds and multiplies (row 5: a dot, the update and
     the norm, a divide, 9 an element; row 5c: the df ops of
     core/df64.py, 209 an element: the dot 39, the update and the norm's
     dot 133, the scale 37) at the float32 peak."""
-    vecs = 4 * n_pad * (8 if df else 4)
+    vecs = 4 * n_pad * (8 if df else 4) + 4 * n_pad
     ops = n_pad * (209 if df else 9)
     return bound(vecs, ops)
 
@@ -1538,39 +1553,75 @@ def traced_lanczos(torch, dg) -> dict:
             "idle_share": 1 - busy / span if span else None}
 
 
-def trace_part(torch, dg, suite_cache: str, t_all: float) -> None:
-    """Phase 12's traced Lanczos runs: bench.py's graph (the trace must
-    name ``cpg_level_kernel`` k * levels times and each step kernel k
-    times: three launches a step) and the suite's stencil_2600, the
-    first profile of a mesh (its graph and pack from phase 12's suite
-    cache).  They run after phase 9, whose profiled probe calls saw no
-    CUDA events when a trace had run before them in this process."""
-    from tpu_lanczos_torch.eval import bench_suite
+TRACE_CHILD = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+print(json.dumps(chip_smoke.trace_child(sys.argv[2], sys.argv[3])))
+"""
 
-    for name, pack, in (("bn1M", dg), ("stencil_2600", None)):
-        if pack is None:
-            cfg = next(c for c in bench_suite.CONFIGS if c["name"] == name)
-            with contextlib.redirect_stdout(io.StringIO()):
-                gs = bench_suite.build(cfg, suite_cache)
-                pack, _ = bench_suite.load_or_pack(cfg, gs, suite_cache,
-                                                   dg.device)
-            del gs
-        t = traced_lanczos(torch, pack)
-        L = len(pack.levels)
+
+def trace_child(name: str, suite_cache: str) -> dict:
+    """Run in a child process of its own: pack ``name`` (bench.py's
+    graph, phase 3's seed, or a suite config from phase 12's cache) and
+    trace one Lanczos of it (``traced_lanczos``)."""
+    import torch
+
+    from tpu_lanczos_torch import generators
+    from tpu_lanczos_torch.eval import bench_suite
+    from tpu_lanczos_torch.kernels.cpg import pack_cpg
+
+    if name == "bn1M":
+        g = generators.barabasi_albert(N, M, seed=SEED, use_native=True)
+        pack = pack_cpg(g, sub=SUB, device="cuda")
+    else:
+        cfg = next(c for c in bench_suite.CONFIGS if c["name"] == name)
+        with contextlib.redirect_stdout(io.StringIO()):
+            g = bench_suite.build(cfg, suite_cache)
+            pack, _ = bench_suite.load_or_pack(cfg, g, suite_cache, "cuda")
+    del g
+    return dict(traced_lanczos(torch, pack), n_pad=pack.n_pad,
+                levels=len(pack.levels))
+
+
+def trace_part(suite_cache: str, t_all: float) -> None:
+    """Phase 12's traced Lanczos runs: bench.py's graph (the trace must
+    name ``cpg_level_kernel`` k * levels times and the step kernel k
+    times, one launch a step, and fewer than k other kernels: no
+    per-step realmask multiply) and the suite's stencil_2600, a mesh's
+    profile (its graph and pack from phase 12's suite cache).  Each runs
+    in a child process with a profiler of its own: in this process, after
+    the profiled probe calls of phase 9, a trace once lost one kernel's
+    record (and a profiler session before phase 9 once left the probe's
+    profiled calls with no CUDA events)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    for name in ("bn1M", "stencil_2600"):
+        proc = subprocess.run(
+            [sys.executable, "-c", TRACE_CHILD, root, name, suite_cache],
+            capture_output=True, text=True, timeout=600,
+            preexec_fn=_die_with_parent)
+        check(proc.returncode == 0,
+              f"trace child for {name} failed: {proc.stderr[-3000:]}")
+        t = json.loads(proc.stdout.strip().splitlines()[-1])
+        L = t["levels"]
         got = {k: t["by_name"].get(k, {}).get("launches", 0)
                for k in ("cpg_level_kernel", *STEP_KERNELS)}
         want = {"cpg_level_kernel": K * L, **{k: K for k in STEP_KERNELS}}
         check(got == want, f"{name}: the trace names the level and step "
               f"kernels {got} times, want {want} (categories "
               f"{t['categories']})")
+        others = t["kernel_events"] - sum(got.values())
+        check(others < K, f"{name}: {others} kernels besides the level and "
+              f"step kernels in a Lanczos of k={K}: one a step or more "
+              f"(the realmask multiply is folded into the step)")
         step_ms = sum(t["by_name"][k]["ms"] for k in STEP_KERNELS)
-        emit({"phase": 12, "part": f"trace_{name}", "n_pad": pack.n_pad,
-              "levels": L, **t, "step_kernels_ms": step_ms,
+        emit({"phase": 12, "part": f"trace_{name}", **t,
+              "step_kernels_ms": step_ms,
               "kernels_per_lanczos": t["kernel_events"],
+              "other_kernels": others,
+              "ms_by_kernel": {k: r["ms"] for k, r in t["by_name"].items()},
               "launches_per_step": sum(got[k] for k in STEP_KERNELS) / K,
               "total_s": time.time() - t_all})
-        del pack
-        torch.cuda.empty_cache()
 
 
 def eval_phase(torch, g, dg, ref, ref_shift, t_all: float, suite_cache: str,
@@ -1735,8 +1786,9 @@ def main() -> None:
     for kernel in ("cpg_level_kernel", "cpg_level_comp_kernel",
                    "cst_level_kernel", "gpg_level_kernel", "probe_kernel",
                    "probe_reduce_kernel", *STEP_KERNELS,
-                   "step_sub_norm_kernel", "df_dot_kernel",
-                   "df_update_kernel", "df_normalize_kernel"):
+                   "lanczos_step_df_kernel", "step_dot_kernel",
+                   "step_update_kernel", "step_sub_norm_kernel",
+                   "step_normalize_kernel", "df_norm_kernel"):
         check(any(kernel in k["kernel"] for k in ptxas), f"{kernel} built")
     os.makedirs(BUILD_DIR, exist_ok=True)
     cst_path = os.path.join(BUILD_DIR, f"cst_bn1M.{os.getpid()}.npz")
@@ -1817,10 +1869,11 @@ def main() -> None:
         # rows 5 and 5c on this pack's f32, f64 and df SpMV outputs
         reset_counts()
         for v_s, q_s, qp_s in step_inputs(torch, cg, xr, dev):
-            e, r = step_case(torch, v_s, q_s, qp_s)
+            e, r = step_case(torch, v_s, q_s, qp_s, cg.realmask)
             step_err["5"], step_rel["5"] = (max(step_err["5"], e),
                                             max(step_rel["5"], r))
-        e, r = step_df_case(torch, *step_inputs(torch, cg, xr, dev, df=True))
+        e, r = step_df_case(torch, *step_inputs(torch, cg, xr, dev, df=True),
+                            cg.realmask)
         step_err["5c"], step_rel["5c"] = (max(step_err["5c"], e),
                                           max(step_rel["5c"], r))
         check_counts(read_counts(torch), {
@@ -1932,7 +1985,7 @@ def main() -> None:
 
     ins = step_inputs(torch, dg, rng.standard_normal(N), dev)
     for v_s, q_s, qp_s in ins:
-        e, r = step_case(torch, v_s, q_s, qp_s)
+        e, r = step_case(torch, v_s, q_s, qp_s, dg.realmask)
         step_err["5"], step_rel["5"] = (max(step_err["5"], e),
                                         max(step_rel["5"], r))
     v_s, q_s, qp_s = ins[0]
@@ -1941,10 +1994,14 @@ def main() -> None:
     ab_e = [torch.zeros(8, device=dev) for _ in range(2)]
     ab_k[1][2] = ab_e[1][2] = 0.75
     v_k = v_s.clone()
+    # the step as the loops run it on a CPG pack: v before its realmask
+    # multiply, the mask folded into the step (the eager step multiplies)
+    rm = dg.realmask
     step_fns = {
         "kernel": (lambda: ls.lanczos_step(v_k, q_s, qp_s, *ab_k, 3,
-                                           work=work), 100),
-        "eager": (lambda: ls.lanczos_step_ref(v_s, q_s, qp_s, *ab_e, 3), 20),
+                                           work=work, mask=rm), 100),
+        "eager": (lambda: ls.lanczos_step_ref(v_s, q_s, qp_s, *ab_e, 3,
+                                              mask=rm), 20),
     }
     step_turns, lanczos_turns = {}, {}
     for tag in ("eager_1", "kernel_1", "kernel_2", "eager_2"):
@@ -1960,6 +2017,7 @@ def main() -> None:
     eager_step_ms = float(np.median([step_turns[t]["device_ms"]
                                      for t in ("eager_1", "eager_2")]))
     step_bound_ms, step_bound_by = step_bound(dg.n_pad, False)
+    step_plan = ls.plan_for(dev, dg.n_pad, 4)
     del ins, v_s, q_s, qp_s, v_k
     emit({"phase": 3, "graph": f"ba_{N}_{M}_{SEED}_native", "nnz": g.nnz,
           "gen_s": gen_s, "pack_s": pack_s, "sub": SUB,
@@ -1995,6 +2053,9 @@ def main() -> None:
                        "device_ms": step_ms, "eager_device_ms": eager_step_ms,
                        "bound_ms": step_bound_ms, "bound_by": step_bound_by,
                        "bound_share": step_bound_ms / step_ms,
+                       "plan": {"grid": step_plan.grid,
+                                "smem_chunks": step_plan.smem_chunks,
+                                "tier": step_plan.tier(dg.n_pad, 4)},
                        "turns": step_turns},
           "lanczos_k50_turns_ms": {t: v[0] for t, v in lanczos_turns.items()},
           "lanczos_k50_turn_samples": {t: v[1]
@@ -2151,7 +2212,7 @@ def main() -> None:
 
     v_d, q_d, qp_d = step_inputs(torch, dg, rng.standard_normal(N), dev,
                                  df=True)
-    e, r = step_df_case(torch, v_d, q_d, qp_d)
+    e, r = step_df_case(torch, v_d, q_d, qp_d, dg.realmask)
     step_err["5c"], step_rel["5c"] = (max(step_err["5c"], e),
                                       max(step_rel["5c"], r))
     work = ls.workspace(dev)
@@ -2160,11 +2221,13 @@ def main() -> None:
     ab_e = [z8.clone() for _ in range(4)]
     ab_k[2][2] = ab_e[2][2] = 0.75
     v_k = (v_d[0].clone(), v_d[1].clone())
+    rm = dg.realmask
     df_fns = {
         "kernel": (lambda: ls.lanczos_step_df(v_k, q_d, qp_d, ab_k[:2],
-                                              ab_k[2:], 3, work=work), 50),
+                                              ab_k[2:], 3, work=work,
+                                              mask=rm), 50),
         "eager": (lambda: ls.lanczos_step_df_ref(v_d, q_d, qp_d, ab_e[:2],
-                                                 ab_e[2:], 3), 1),
+                                                 ab_e[2:], 3, mask=rm), 1),
     }
     df_step_turns, ab_turns, df_query_turns = {}, {}, {}
     for tag in ("eager_1", "kernel_1", "kernel_2", "eager_2"):
@@ -2183,6 +2246,7 @@ def main() -> None:
     eager_df_step_ms = float(np.median([df_step_turns[t]["device_ms"]
                                         for t in ("eager_1", "eager_2")]))
     df_step_bound_ms, df_step_bound_by = step_bound(dg.n_pad, True)
+    df_plan = ls.df_plan_for(dev, dg.n_pad)
     del v_d, q_d, qp_d, v_k
     emit({"phase": 5, "part": "df64", "k": K, "levels": L, "n_bcast": nb,
           "launches_comp": df_comp_launches,
@@ -2214,6 +2278,9 @@ def main() -> None:
                       "bound_ms": df_step_bound_ms,
                       "bound_by": df_step_bound_by,
                       "bound_share": df_step_bound_ms / df_step_ms,
+                      "plan": {"grid": df_plan.grid,
+                               "rows_log": df_plan.rows_log,
+                               "hold": df_plan.hold},
                       "turns": df_step_turns},
           "alphabeta_df_k50_turns_ms": ab_turns,
           "expm_action_df_turns_s": df_query_turns,
@@ -2695,7 +2762,7 @@ def main() -> None:
     del a_p, xh_p, xl_p, x_rep, want, lib_out
 
     # ---- 12's traced Lanczos, after phase 9's profiled probe calls
-    trace_part(torch, dg, suite_cache, t_all)
+    trace_part(suite_cache, t_all)
     shutil.rmtree(suite_cache, True)
 
     print(smi, flush=True)

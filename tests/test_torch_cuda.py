@@ -792,3 +792,189 @@ def test_lanczos_step_refuses_what_the_kernel_does_not_take(dev):
         ls.lanczos_step(torch.ones(257, device=dev)[1:], v, v.clone(), *ab, 0)
     with pytest.raises(TypeError):
         ls.lanczos_step(v.half(), v.half(), v.half(), *ab, 0)
+
+
+# ---- the one-launch step: its residency tiers, the folded mask, a
+# refused launch
+
+def _row5_edges(vb):
+    """n at the edges of row 5's tiers on this card: the register tier's
+    capacity (then shared memory) and the most the chip holds (then
+    re-read), each and one 16-byte chunk and an element past it."""
+    from tpu_lanczos_torch.kernels import lanczos_step as ls
+
+    vec = 16 // vb
+    caps = []
+    for s in range(ls.MAX_SMEM_CHUNKS + 1):
+        g = min(ls._occupancy_on(0, 0, vb, s * ls.SMEM_CHUNK_BYTES),
+                ls.MAX_GRID)
+        caps.append(g * ls.THREADS * (ls.REG_CHUNKS + s) * vec)
+    edges = []
+    for cap in (caps[0], max(caps)):
+        edges += [cap, cap + vec + 1]
+    return edges
+
+
+def _mask(dev, n, seed):
+    m = np.random.default_rng(seed).random(n) < 0.9
+    return torch.from_numpy(m.astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lanczos_step_tiers_and_mask(dev, dtype):
+    """Row 5 at each residency tier's edges (registers, shared memory,
+    re-read; up to ~5.4M float32 elements on an H100), with and without
+    ``mask=``, on a v shaped as a step's A q_j: with the mask on the raw v, the
+    kernel equals the kernel without it on v * mask bit for bit (alpha,
+    beta, q_{j+1}, the stored row, the fold); given the kernel's scalars
+    q_{j+1} and the fold equal the plain version's bit for bit; alpha and
+    beta within 1e-6 (f32) or 1e-13 (f64) of the plain version's; two
+    runs bit-identical."""
+    from tpu_lanczos_torch.kernels import lanczos_step as ls
+
+    vb = torch.finfo(dtype).bits // 8
+    tiers = set()
+    for n in _row5_edges(vb):
+        tiers.add(ls.plan_for(dev, n, vb).tier(n, vb))
+        (noise, q, qp), alpha, beta = _step_inputs(dev, n, dtype, n % 1000)
+        # v as A q is in a Lanczos step, 2.5 q plus a part orthogonal-ish
+        # to it: alpha does not cancel (a random v's <v, q> would, and
+        # its relative error would grow with n whatever the order)
+        v = 2.5 * q + noise / n ** 0.5
+        mask = _mask(dev, n, 2)
+        coeff = torch.linspace(0.5, 1.5, 8, dtype=dtype, device=dev)
+        runs = []
+        for m in (mask, mask, None):
+            vin = v.clone() if m is not None else v * mask.to(dtype)
+            a, b, store, ans = (alpha.clone(), beta.clone(),
+                                torch.zeros_like(v), qp.clone())
+            qn = ls.lanczos_step(vin, q, qp, a, b, 3, store=store, ans=ans,
+                                 coeff=coeff, mask=m)
+            runs.append((a, b, qn, store, ans))
+        torch.cuda.synchronize()
+        for other in runs[1:]:
+            for x, y in zip(runs[0], other):
+                assert torch.equal(x, y), n
+        a, b, qn, store, ans = runs[0]
+        vm = v * mask.to(dtype)
+        ar, br = alpha.clone(), beta.clone()
+        ls.lanczos_step_ref(v.clone(), q, qp, ar, br, 3, mask=mask)
+        bar = 1e-6 if dtype == torch.float32 else 1e-13
+        assert _rel(a[3].item(), ar[3].item()) < bar
+        assert _rel(b[3].item(), br[3].item()) < bar
+        want = ls.normalize_ref(ls.update_ref(vm, q, qp, a[3], b[2]), b[3])
+        assert torch.equal(qn, want) and torch.equal(store, want)
+        assert torch.equal(ans, qp + coeff[4] * want)
+    assert tiers == {"registers", "shared", "stream"}
+
+
+@pytest.mark.parametrize("n", [5000, 1 << 20, (1 << 20) + 1, (1 << 23) + 1])
+def test_lanczos_step_df_mask_and_tree(dev, n):
+    """Row 5c with ``mask=`` equals the kernel on the masked v bit for
+    bit, q_{j+1} and the fold equal the plain version's given the
+    kernel's scalars, and alpha's hi word equals the plain version's (the
+    same pairwise tree: the hi sums agree, and the error sums differ at
+    second order only)."""
+    from tpu_lanczos_torch.kernels import lanczos_step as ls
+
+    v, q, qp = _df_inputs(dev, n, 5)
+    mask = _mask(dev, n, 3)
+    zk = [torch.zeros(8, device=dev) for _ in range(4)]
+    zk[2][2], zk[3][2] = 0.75, 1e-9
+    coeff = (torch.linspace(0.5, 1.5, 8, device=dev),
+             torch.full((8,), 1e-9, device=dev))
+    runs = []
+    for m in (mask, None):
+        vin = ((v[0].clone(), v[1].clone()) if m is not None
+               else (v[0] * mask, v[1] * mask))
+        ab = [t.clone() for t in zk]
+        ans = (qp[0].clone(), qp[1].clone())
+        qn = ls.lanczos_step_df(vin, q, qp, ab[:2], ab[2:], 3, ans=ans,
+                                coeff=coeff, mask=m)
+        runs.append((*ab, *qn, *ans))
+    torch.cuda.synchronize()
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
+    ah, al, bh, bl, qh, ql, sh, sl = runs[0]
+    vm = (v[0] * mask, v[1] * mask)
+    ref = [t.clone() for t in zk]
+    ls.lanczos_step_df_ref(v, q, qp, ref[:2], ref[2:], 3, mask=mask)
+    assert ah[3].item() == ref[0][3].item()
+    want = ls.normalize_df_ref(ls.update_df_ref(
+        vm, q, qp, (ah[3], al[3]), (bh[2], bl[2])), (bh[3], bl[3]))
+    assert torch.equal(qh, want[0]) and torch.equal(ql, want[1])
+    acc = (qp[0].clone(), qp[1].clone())
+    ls.accum_df_ref(acc, coeff, 4, want)
+    assert torch.equal(sh, acc[0]) and torch.equal(sl, acc[1])
+
+
+def test_lanczos_step_cooperative_launch_too_large_raises(dev):
+    """A grid that cannot be co-resident is refused by the launch: the
+    wrapper raises, nothing runs (v, alpha and the counter unchanged),
+    and the next step runs."""
+    from tpu_lanczos_torch.kernels import lanczos_step as ls
+
+    n = 1 << 22
+    (v, q, qp), alpha, beta = _step_inputs(dev, n, torch.float32, 9)
+    whole = ls._occupancy_on(0, 0, 4, 0)
+    v0, before = v.clone(), ls.launches_step
+    # 720: cudaErrorCooperativeLaunchTooLarge
+    with pytest.raises(RuntimeError, match="CUDA error 720"):
+        ls.lanczos_step(v, q, qp, alpha, beta, 3,
+                        plan=ls.StepPlan(whole + 1, 0))
+    torch.cuda.synchronize()
+    assert torch.equal(v, v0) and not bool(alpha.any())
+    assert ls.launches_step == before
+    # row 5c: 512 blocks, each with a node stack of 20 levels (160 KB of
+    # shared memory: one block an SM)
+    hd, qd, pd = _df_inputs(dev, 512 * ls.DF_SPAN, 4)
+    ab = [torch.zeros(8, device=dev) for _ in range(4)]
+    h0 = hd[0].clone()
+    with pytest.raises(RuntimeError, match="CUDA error 720"):
+        ls.lanczos_step_df(hd, qd, pd, ab[:2], ab[2:], 3,
+                           plan=ls.DfPlan(512, 20, 0))
+    torch.cuda.synchronize()
+    assert torch.equal(hd[0], h0) and not bool(ab[0].any())
+    ls.lanczos_step(v, q, qp, alpha, beta, 3)
+    torch.cuda.synchronize()
+    assert ls.launches_step == before + 1 and bool(alpha[3] != 0)
+
+
+def test_loops_fold_the_mask_bit_for_bit(dev, monkeypatch):
+    """On a CPG pack every loop passes the realmask to the step: alpha,
+    beta and Q equal the loop over the masked SpMV bit for bit (f32, f64,
+    df64)."""
+    import importlib
+
+    from tpu_lanczos_torch.kernels import lanczos_step as ls
+    from tpu_lanczos_torch.kernels.spmv import spmv
+
+    lz = importlib.import_module("tpu_lanczos_torch.core.lanczos")
+    ldf = importlib.import_module("tpu_lanczos_torch.core.lanczos_df")
+    g = generators.barabasi_albert(20000, 4, seed=9)
+    cg = cpg.pack_cpg(g, device=dev)
+    k = 15
+    x = torch.from_numpy(cg.permute_in(np.random.default_rng(2)
+                                       .standard_normal(g.n), np.float64))
+    hi, lo = (torch.from_numpy(t).to(dev) for t in ldf.split_f64(
+        x.numpy()))
+    folded = {dt: (lz.lanczos(cg, x.to(dev, dt), k),
+                   lz.lanczos_alphabeta(cg, x.to(dev, dt), k))
+              for dt in (torch.float32, torch.float64)}
+    df_folded = ldf.lanczos_alphabeta_df(cg, hi, lo, k)
+    monkeypatch.setattr(lz, "step_spmv", lambda dg, q: (spmv(dg, q), None))
+    for dt, (st, ab) in folded.items():
+        st2 = lz.lanczos(cg, x.to(dev, dt), k)
+        ab2 = lz.lanczos_alphabeta(cg, x.to(dev, dt), k)
+        for a, b in ((st.alpha, st2.alpha), (st.beta, st2.beta),
+                     (st.q_basis, st2.q_basis), *zip(ab, ab2)):
+            assert torch.equal(a, b)
+    real_step = ls.lanczos_step_df
+
+    def masked(v, *a, mask=None, **kw):
+        return real_step((v[0] * mask, v[1] * mask), *a, **kw)
+
+    monkeypatch.setattr(ldf, "lanczos_step_df", masked)
+    for got, want in zip(ldf.lanczos_alphabeta_df(cg, hi, lo, k), df_folded):
+        for g_t, w_t in zip(got, want):
+            assert torch.equal(g_t, w_t)

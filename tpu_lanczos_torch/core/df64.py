@@ -108,12 +108,11 @@ def df_to_f64(x) -> np.ndarray:
 # ------------------------------------------------------------- reductions
 
 
-def _tree_sum_df(p, e_vec):
-    """Pairwise two-sum reduction of p (n,) to a df scalar.  The tree's
-    error terms and the caller's ``e_vec`` are summed plainly: their own
-    rounding is second order (~n * 2^-48 relative), and ``torch.sum``
-    orders them differently from ``jnp.sum`` only at that order."""
-    err = torch.sum(e_vec)
+def _pair_tree(p, err):
+    """The pairwise two-sum tree over p (n,) zero-padded to a power of 2,
+    index i with i + half at each level: its root (the hi sum the step
+    kernel's reduction must reproduce) and ``err`` plus each level's
+    error terms."""
     n = p.shape[0]
     pow2 = 1 << max((n - 1).bit_length(), 0)
     if pow2 != n:
@@ -122,7 +121,16 @@ def _tree_sum_df(p, e_vec):
         m = p.shape[0] // 2
         p, t = two_sum(p[:m], p[m:])
         err = err + torch.sum(t)
-    return fast_two_sum(p[0], err)
+    return p[0], err
+
+
+def _tree_sum_df(p, e_vec):
+    """Pairwise two-sum reduction of p (n,) to a df scalar.  The tree's
+    error terms and the caller's ``e_vec`` are summed plainly: their own
+    rounding is second order (~n * 2^-48 relative), and ``torch.sum``
+    orders them differently from ``jnp.sum`` only at that order."""
+    root, err = _pair_tree(p, torch.sum(e_vec))
+    return fast_two_sum(root, err)
 
 
 def df_dot(x, y):

@@ -6,8 +6,9 @@ optional full reorthogonalization), its restartable pieces
 memory-light Q-free mode, ``lanczos_alphabeta`` and
 ``lanczos_recombine``.  The reference runs each k-step recurrence as one
 ``lax.fori_loop`` whose step XLA fuses; here each step is the SpMV and
-then ``kernels/lanczos_step.py::lanczos_step`` (on the card three
-launches of a hand-written kernel: dot, update with norm, normalize).
+then ``kernels/lanczos_step.py::lanczos_step`` (on the card one
+cooperative launch of a hand-written kernel: dot, update with norm,
+normalize; on a CPG pack it also does the SpMV's realmask multiply).
 The recurrence scalars stay on the device: alpha and beta are written
 into device tensors and no step reads a value back to the host, so the
 loop never syncs.  Q is stored (k, n_pad), iteration-major, the layout
@@ -22,6 +23,8 @@ import dataclasses
 
 import torch
 
+from tpu_lanczos_torch.kernels import spmv_cpg
+from tpu_lanczos_torch.kernels.cpg import CPGGraph
 from tpu_lanczos_torch.kernels.lanczos_step import lanczos_step, workspace
 from tpu_lanczos_torch.kernels.spmv import spmv
 
@@ -40,6 +43,15 @@ class LanczosState:
         return self.alpha.shape[0]
 
 
+def step_spmv(dg, q: torch.Tensor):
+    """The SpMV a step starts from: on a CPG pack A q before its realmask
+    multiply and that mask, which ``lanczos_step`` folds into its load
+    (exact: the same bits); on any other pack ``spmv`` and None."""
+    if isinstance(dg, CPGGraph):
+        return spmv_cpg.spmv_cpg(dg, q, masked=False), dg.realmask
+    return spmv(dg, q), None
+
+
 def lanczos_range(dg, carry, j0: int, j1: int,
                   reorthogonalize: bool = False):
     """Run iterations [j0, j1) of the recurrence on a loop carry
@@ -56,10 +68,12 @@ def lanczos_range(dg, carry, j0: int, j1: int,
     for j in range(j0, j1):
         # step j stores q_{j+1} in its row; the chunk's last step leaves
         # row j1 to the next chunk, as the reference's loop does
+        v, mask = step_spmv(dg, q)
         q_next = lanczos_step(
-            spmv(dg, q), q, q_prev, alpha, beta, j,
+            v, q, q_prev, alpha, beta, j,
             q_basis=q_basis if reorthogonalize else None,
-            store=q_basis[j + 1] if j + 1 < j1 else None, work=work)
+            store=q_basis[j + 1] if j + 1 < j1 else None, work=work,
+            mask=mask)
         q_prev, q = q, q_next
     return (q, q_prev, q_basis, alpha, beta)
 
@@ -100,8 +114,9 @@ def lanczos_alphabeta(dg, x: torch.Tensor, k: int):
     beta = x.new_zeros((k,))
     work = workspace(q.device)
     for j in range(k):
-        q_next = lanczos_step(spmv(dg, q), q, q_prev, alpha, beta, j,
-                              work=work)
+        v, mask = step_spmv(dg, q)
+        q_next = lanczos_step(v, q, q_prev, alpha, beta, j, work=work,
+                              mask=mask)
         q_prev, q = q, q_next
     return alpha, beta, x_norm
 
@@ -121,7 +136,8 @@ def lanczos_recombine(dg, x: torch.Tensor, coeff: torch.Tensor,
     beta = x.new_zeros((k,))
     work = workspace(q.device)
     for j in range(k - 1):
-        q_next = lanczos_step(spmv(dg, q), q, q_prev, alpha, beta, j,
-                              ans=ans, coeff=coeff, work=work)
+        v, mask = step_spmv(dg, q)
+        q_next = lanczos_step(v, q, q_prev, alpha, beta, j, ans=ans,
+                              coeff=coeff, work=work, mask=mask)
         q_prev, q = q, q_next
     return ans

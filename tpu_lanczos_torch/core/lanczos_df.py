@@ -10,9 +10,10 @@ It is the same two-pass Q-free scheme as core/lanczos.py: an alpha/beta
 pass, host eigh, then a pass that regenerates q_j and accumulates the
 answer, so memory stays O(n).  As there, each pass is a Python loop
 whose recurrence scalars stay on the device: each step is the df SpMV
-and then ``kernels/lanczos_step.py::lanczos_step_df`` (on the card three
-launches of a hand-written kernel, which also folds the answer's
-accumulation into its last pass); breakdown is a select on the device,
+and then ``kernels/lanczos_step.py::lanczos_step_df`` (on the card one
+cooperative launch of a hand-written kernel, which also does the df
+SpMV's realmask multiply as it loads v and folds the answer's
+accumulation into its last phase); breakdown is a select on the device,
 never a Python branch on a device value.
 """
 
@@ -49,8 +50,9 @@ def lanczos_alphabeta_df_range(cg: CPGGraph, carry, j0: int, j1: int):
     qh, ql, ph, pl, ah, al, bh, bl = carry
     work = workspace(qh.device)
     for j in range(j0, j1):
-        q_next = lanczos_step_df(spmv_cpg_df(cg, qh, ql), (qh, ql),
-                                 (ph, pl), (ah, al), (bh, bl), j, work=work)
+        q_next = lanczos_step_df(spmv_cpg_df(cg, qh, ql, masked=False),
+                                 (qh, ql), (ph, pl), (ah, al), (bh, bl), j,
+                                 work=work, mask=cg.realmask)
         (ph, pl), (qh, ql) = (qh, ql), q_next
     return qh, ql, ph, pl, ah, al, bh, bl
 
@@ -82,8 +84,9 @@ def _recombine(cg: CPGGraph, x_hi, x_lo, coeff, k: int, ans):
     accum_df_ref(ans, coeff, 0, q)
     ab = tuple(q0h.new_zeros((k,)) for _ in range(4))
     for j in range(k - 1):
-        q_next = lanczos_step_df(spmv_cpg_df(cg, *q), q, q_prev, ab[:2],
-                                 ab[2:], j, ans=ans, coeff=coeff, work=work)
+        q_next = lanczos_step_df(spmv_cpg_df(cg, *q, masked=False), q,
+                                 q_prev, ab[:2], ab[2:], j, ans=ans,
+                                 coeff=coeff, work=work, mask=cg.realmask)
         q_prev, q = q, q_next
     return ans
 

@@ -9,7 +9,11 @@ n=1M, m=10, seed 0, native generator; sub=512) and times what chip_smoke
 phase 3 times on it: one SpMV and ``lanczos(dg, realmask, 50)`` (CUDA
 events) and the top-20 query ``expm_action_summary`` with the host and
 the device eigensolve (host wall, synchronised); medians of 5 after one
-warm run.  The turns run other, this, this, other, so drift on the card
+warm run; the df64 query ``expm_action_df`` (median of 3); and the
+Lanczos step alone (rows 5 and 5c, device microseconds a step queued
+behind a sleeping kernel) at bn1M's n_pad, at 2^23 (stencil_2600's) and,
+for df64, at Europe's size, with and without the pack's realmask
+multiply.  The turns run other, this, this, other, so drift on the card
 or its host shows in the other checkout's two rows.  One JSON line per
 turn; the first line is the card's name and power limit.  Needs a CUDA
 GPU.
@@ -34,6 +38,7 @@ import numpy as np, torch
 import tpu_lanczos_torch
 assert tpu_lanczos_torch.__file__.startswith(root), tpu_lanczos_torch.__file__
 from tpu_lanczos_torch import generators, expm_action_summary
+from tpu_lanczos_torch.core.lanczos_df import expm_action_df
 from tpu_lanczos_torch.core.lanczos import lanczos
 from tpu_lanczos_torch.kernels import spmv_cpg
 from tpu_lanczos_torch.kernels.cpg import pack_cpg
@@ -78,6 +83,82 @@ row["query_host_eig_s"], row["query_host_eig_samples"] = wall_s(
     lambda: expm_action_summary(g, k=50, topk=20, dg=dg))
 row["query_device_eig_s"], row["query_device_eig_samples"] = wall_s(
     lambda: expm_action_summary(g, k=50, topk=20, dg=dg, eig_impl="device"))
+row["df64_query_s"], row["df64_query_samples"] = wall_s(
+    lambda: expm_action_df(g, k=50, dg=dg, log_scale=True), reps=3)
+
+# the Lanczos step alone, device microseconds a step (queued behind a
+# sleeping kernel, so the host's enqueue is not timed), on seeded vectors:
+# "step" without the realmask, "step_masked" with it as a Lanczos on a CPG
+# pack pays for it (the step's mask= where the checkout has it, else the
+# SpMV's separate multiply)
+import inspect
+from tpu_lanczos_torch.kernels import lanczos_step as ls
+folds = "mask" in inspect.signature(ls.lanczos_step).parameters
+row["step_folds_mask"] = folds
+
+
+def queued_us(fn, calls=50, reps=5):
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(calls):
+        fn()
+    enqueue = time.time() - t0
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        torch.cuda._sleep(int(2e9 * (2 * enqueue + 0.01)))
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(calls):
+            fn()
+        e.record()
+        e.synchronize()
+        out.append(s.elapsed_time(e) / calls * 1e3)
+    return float(np.median(out)), out
+
+
+def step_times(n, df):
+    rng = np.random.default_rng(0)
+    q = rng.standard_normal(n)
+    q /= np.linalg.norm(q)
+    xs = [rng.standard_normal(n), q, rng.standard_normal(n) / np.sqrt(n)]
+    mask = torch.from_numpy((rng.random(n) < 0.9).astype(np.float32)).cuda()
+    work = ls.workspace("cuda")
+    if df:
+        vecs = []
+        for x in xs:
+            hi = x.astype(np.float32)
+            vecs.append((torch.from_numpy(hi).cuda(), torch.from_numpy(
+                (x - hi.astype(np.float64)).astype(np.float32)).cuda()))
+        v, q, qp = vecs
+        ab = [torch.zeros(8, device="cuda") for _ in range(4)]
+        ab[2][2] = 0.75
+        step = lambda vv, **kw: ls.lanczos_step_df(vv, q, qp, ab[:2], ab[2:],
+                                                   3, work=work, **kw)
+        masked = ((lambda: step(v, mask=mask)) if folds else
+                  (lambda: step((v[0] * mask, v[1] * mask))))
+    else:
+        v, q, qp = (torch.from_numpy(x).float().cuda() for x in xs)
+        ab = [torch.zeros(8, device="cuda") for _ in range(2)]
+        ab[1][2] = 0.75
+        step = lambda vv, **kw: ls.lanczos_step(vv, q, qp, *ab, 3, work=work,
+                                                **kw)
+        masked = ((lambda: step(v, mask=mask)) if folds else
+                  (lambda: step(v * mask)))
+    plain = queued_us(lambda: step(v))
+    with_mask = queued_us(masked)
+    return {"n": n, "step_us": plain[0], "step_samples": plain[1],
+            "step_masked_us": with_mask[0],
+            "step_masked_samples": with_mask[1]}
+
+
+# bn1M's n_pad, stencil_2600's, and (df64) Europe's 7134^2 nodes padded to
+# 512-row chunks of 128 lanes
+row["step_f32"] = [step_times(n, False) for n in (dg.n_pad, 1 << 23)]
+row["step_df64"] = [step_times(n, True)
+                    for n in (dg.n_pad, 1 << 23, 777 * 65536)]
 print(json.dumps(row), flush=True)
 """
 

@@ -78,17 +78,20 @@ def bind_step(lib):
     p, i, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.tlt_lanczos_step_workspace_bytes.restype = i
     lib.tlt_lanczos_step_workspace_bytes.argtypes = []
+    lib.tlt_lanczos_step_occupancy.restype = i
+    lib.tlt_lanczos_step_occupancy.argtypes = [i, i, n]
     lib.tlt_lanczos_step.restype = i
-    lib.tlt_lanczos_step.argtypes = [p, p, p, p, p, n, i, i, p, p, p, i,
-                                     p, p]
+    lib.tlt_lanczos_step.argtypes = [p, p, p, p, p, p, n, i, i, p, p, p, i,
+                                     p, i, i, p]
     lib.tlt_lanczos_step_head.restype = i
     lib.tlt_lanczos_step_head.argtypes = [p, p, p, p, p, n, i, i, p, p]
     lib.tlt_lanczos_step_tail.restype = i
     lib.tlt_lanczos_step_tail.argtypes = [p, p, p, n, i, i, p, p, p, i, p,
                                           p]
     lib.tlt_lanczos_step_df.restype = i
-    lib.tlt_lanczos_step_df.argtypes = [p, p, p, p, p, p, p, p, p, p, n, i,
-                                        p, p, p, p, i, i, n, p, p]
+    lib.tlt_lanczos_step_df.argtypes = [p, p, p, p, p, p, p, p, p, p, p, n,
+                                        i, p, p, p, p, i, i, n, p, i, i, i,
+                                        p]
     lib.tlt_df_norm.restype = i
     lib.tlt_df_norm.argtypes = [p, p, p, p, n, p, p]
     return lib

@@ -10,37 +10,53 @@
 //   alpha_j = <v, q_j>;  v' = v - alpha_j q_j - beta_{j-1} q_{j-1};
 //   beta_j = ||v'||;     q_{j+1} = v' / beta_j, or 0 when beta_j <= 0
 //
-// in float or double (row 5), or in df64 pairs of floats (row 5c).  Each
-// step is three launches on the caller's stream:
-//   1. the dot pass: alpha_j -> alpha[j];
-//   2. the update pass: v' written over v, and ||v'|| -> beta[j] (row 5c
-//      also 1/beta_j and the breakdown flag, into the workspace);
-//   3. the normalize pass: q_{j+1} written over v (and, if asked, into a
-//      row of the stored basis, and ans += coeff[jc] * q_{j+1} for the
-//      recombine pass).
-// With reorthogonalization (row 5 only) the caller runs its two GEMVs
-// between passes 2 and 3, and a fourth pass subtracts their result and
-// takes the norm: head (1, 2 without the norm), tail (sub+norm, 3).
+// in float or double (row 5), or in df64 pairs of floats (row 5c).
 //
-// What bounds it: bytes.  A step must read v, q_j and q_{j-1} and write
-// q_{j+1}: 4n values (8n floats in df64).  The three passes move 8n (16n)
-// values, half of them from the L2 cache when the vectors fit its 50 MB.
-// Each pass streams 16-byte vector loads in a grid sized to the 132 SMs.
+// What bounds it: bytes.  A step must read v, q_j and q_{j-1} (and the
+// pack's realmask, whose multiply the step folds into its load of v) and
+// write q_{j+1} (and the stored row or the recombine fold): about 5n
+// values.  So a step is ONE cooperative launch of a persistent grid
+// (every block co-resident, sized by the occupancy calculator; a grid
+// that cannot be co-resident is refused by the launch, never hung) in
+// three phases, separated by two grid barriers:
+//   1. the dot: v (times the mask) and q_j loaded once, alpha_j;
+//   2. the update and its norm: q_{j-1} loaded, v' = ..., beta_j;
+//   3. the normalize: q_{j+1} written over v (and, if asked, into a row of
+//      the stored basis, and ans += coeff[jc] * q_{j+1}).
+// Each thread holds its slice of v and q_j (then v') on chip between the
+// phases, so the step reads its inputs once: the first chunks in
+// registers (row 5: four 16-byte vectors an array), the next in
+// shared memory, and what does not fit on the chip is re-read in the
+// later phases (from the 50 MB L2 where it is there).  The caller (kernels/
+// lanczos_step.py) picks the tier and the grid from the occupancy this
+// file reports; the crossovers are measured (PERF.md).  Row 5c's dot and
+// norm must follow the plain tree's element map below, which puts a
+// warp's lanes G 32-byte sectors apart; those scattered sectors, not the
+// df arithmetic, bound it, so its phase 3 (no reduction) recomputes v'
+// past the held row in a grid-stride order whose warps touch contiguous
+// memory, and phase 2 stores nothing.
+// With reorthogonalization (row 5 only) the caller runs its two GEMVs
+// between passes, so that path keeps separate pass kernels: head (dot,
+// update without the norm), tail (sub+norm, normalize).  The df64 start
+// norm (tlt_df_norm) keeps its one-launch dot kernel.
 //
 // Reductions are deterministic: no floating-point atomics.  Each block
-// reduces its part in a fixed order and writes one partial; the block that
-// arrives last (an integer atomic counter in the workspace) folds the
-// partials in index order, writes the scalar and resets the counter.  So
-// two runs, and the two passes of the two-pass mode, agree bit for bit.
-// Row 5 accumulates in the vector's dtype with fused multiply-adds.
+// reduces its part in a fixed order and writes one partial; after the
+// grid barrier EVERY block folds the G partials in index order itself, so
+// each holds the same bits and no third barrier is needed (the pass
+// kernels instead let the last block to arrive fold them).  So two runs,
+// and the two passes of the two-pass mode, agree bit for bit.  Row 5
+// accumulates in the vector's dtype with fused multiply-adds.
 //
 // Rounding.  The elementwise arithmetic rounds as the eager torch ops do:
 // every add, multiply, divide and square root is written with the _rn
 // intrinsics, which nvcc never contracts into a fused multiply-add, so
 // given the same scalars q_{j+1} (and v', ans) equal the plain version's
-// bit for bit.  Row 5c keeps core/df64.py's forms: the bit-mask split,
-// the four-product two_prod, Knuth's two-sum; nothing here may be built
-// with -use_fast_math or any flag that reassociates.
+// bit for bit; the mask multiply is by exact 0 or 1, so v * mask is the
+// bit pattern the SpMV's separate multiply produced, -0.0 included.  Row
+// 5c keeps core/df64.py's forms: the bit-mask split, the four-product
+// two_prod, Knuth's two-sum; nothing here may be built with
+// -use_fast_math or any flag that reassociates.
 //
 // Row 5c's dot keeps the plain version's pairwise two-sum tree over the
 // hi products (df64.py _tree_sum_df: the vector zero-padded to a power of
@@ -51,41 +67,56 @@
 // with G a power of 2 blocks of 256 threads, r < 8 (one 32-byte sector of
 // each array a thread) and row < 2^rows_log.  The tree's levels then pair,
 // in order: rows (inside a thread: the rows are taken in bit-reversed
-// order and summed by a binary counter of partial nodes), threads (inside
-// the block, in shared memory), then blocks and r (the last block's fold
-// over the 8*G partials in index order).  Every level pairs the same
-// indices as the plain tree, and two_sum's sum is symmetric, so the hi sum
-// equals the plain version's (up to the sign of an all-zero sum below P =
-// 2048).  The error terms are summed in the kernel's own fixed order,
-// which differs from the plain torch.sum's at second order (df64.py
-// _tree_sum_df).
+// order and summed by a binary counter of partial nodes, in shared
+// memory), threads (t with t + 128, 64, 32 in shared memory, then t + 16,
+// ..., 1 by warp shuffles), then blocks and r (the fold over the 8*G
+// partials in index order).  Every level pairs the same indices as the
+// plain tree, and two_sum's sum is symmetric, so the hi sum equals the
+// plain version's (up to the sign of an all-zero sum below P = 2048).
+// The error terms are summed in the kernel's own fixed order, which
+// differs from the plain torch.sum's at second order (df64.py
+// _tree_sum_df).  kernels/lanczos_step.py ``df_geometry`` picks G (the
+// largest power of 2 that is co-resident), rows_log and the held row.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kThreads = 256;
-// row 5: four blocks on each of the H100's 132 SMs, grid-stride
+constexpr int kWarps = kThreads / 32;
+// the pass kernels (reorthogonalization): four blocks on each of the
+// H100's 132 SMs, grid-stride
 constexpr int kGrid = 4 * 132;
 // row 5c's geometry (above): 8 elements a thread a row, at most
-// kDfMaxBlocks blocks and 2^kDfMaxDepth rows (P <= 2^31); the fold's
-// threads hold at most 8 * kDfMaxBlocks / kThreads = 2^kFoldDepth values
+// kDfMaxBlocks blocks and 2^kDfMaxDepth rows in the df_norm kernel (P <=
+// 2^31); the fold's threads hold at most 8 * kDfMaxBlocks / kThreads =
+// 2^kFoldDepth values
 constexpr int kDfVec = 8;
 constexpr int kDfSpan = kThreads * kDfVec;
 constexpr int kDfMaxBlocks = 4096;
 constexpr int kDfMaxDepth = 8;
 constexpr int kFoldDepth = 7;
+// the one-launch step: at most kMaxGrid blocks; row 5c at most
+// kDfStepMaxGrid blocks (its fold stages their 8 * G partials in shared
+// memory) and 2^kDfMaxRowsLog rows (P <= 2^31 at G = 1)
+constexpr int kMaxGrid = kDfMaxBlocks;
+constexpr int kRegChunks = 4;
+constexpr int kDfStepMaxGrid = 512;
+constexpr int kDfMaxRowsLog = 20;
+static_assert(kWarps == kDfVec, "row 5c: one warp a lane r in the block tree");
 
-// the workspace: the arrival counter, row 5c's scalars (1/beta hi, lo and
-// the breakdown flag), then the partials (row 5: kGrid values; row 5c:
-// 8 hi values and one error sum a block)
-constexpr int kScalarOff = 64;
+// the workspace: the pass kernels' arrival counter, then two regions of
+// partials (row 5: G values; row 5c: 8 hi values and one error sum a
+// block), one for each of a step's two reductions
 constexpr int kPartOff = 256;
-constexpr int kWorkspaceBytes = kPartOff + kDfMaxBlocks * (kDfVec + 1) * 4;
-static_assert(kGrid * 8 <= kDfMaxBlocks * (kDfVec + 1) * 4,
-              "row 5's partials fit the workspace");
+constexpr int kRegionBytes = kDfMaxBlocks * (kDfVec + 1) * 4;
+constexpr int kWorkspaceBytes = kPartOff + 2 * kRegionBytes;
+static_assert(kMaxGrid * 8 <= kRegionBytes, "row 5's partials fit a region");
 
 // ------------------------------------------------------------- rounding
 
@@ -208,6 +239,56 @@ __device__ bool grid_sum(T x, T* part, unsigned int* counter, T& total) {
     *counter = 0u;
   }
   return true;
+}
+
+// The one-launch step's reductions: a warp's sum pairs lane l with l + 16,
+// 8, 4, 2, 1 by shuffles (lane 0 gets it); a block's sum is its warps'
+// sums folded by warp 0 in the same order (thread 0 gets it).
+template <typename T>
+__device__ __forceinline__ T warp_sum(T x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    x = add_rn(x, __shfl_down_sync(0xffffffffu, x, o));
+  }
+  return x;
+}
+
+template <typename T>
+__device__ T block_reduce(T x, T* sm) {
+  x = warp_sum(x);
+  __syncthreads();  // an earlier reduction's readers of sm are done
+  if ((threadIdx.x & 31) == 0) {
+    sm[threadIdx.x >> 5] = x;
+  }
+  __syncthreads();
+  T s = T(0);
+  if (threadIdx.x < 32) {
+    s = warp_sum(threadIdx.x < kWarps ? sm[threadIdx.x] : T(0));
+  }
+  return s;
+}
+
+// The grid's sum of every thread's x, in every thread: the block sums go
+// to part[blockIdx.x], the grid waits at a barrier, then every block
+// folds the G partials in index order (so every block holds the same
+// bits).
+template <typename T>
+__device__ T grid_total(T x, T* part, T* sm, T* bcast) {
+  const T b = block_reduce(x, sm);
+  if (threadIdx.x == 0) {
+    part[blockIdx.x] = b;
+  }
+  cg::this_grid().sync();
+  T s = T(0);
+  for (int i = threadIdx.x; i < static_cast<int>(gridDim.x); i += kThreads) {
+    s = add_rn(s, __ldcg(part + i));
+  }
+  const T t = block_reduce(s, sm);
+  if (threadIdx.x == 0) {
+    *bcast = t;
+  }
+  __syncthreads();
+  return *bcast;
 }
 
 // ------------------------------------------------------------- row 5
@@ -364,6 +445,263 @@ step_normalize_kernel(T* v, int64_t n, const T* beta, int j, T* row, T* ans,
   }
 }
 
+// The one-launch row 5 step.  Held slot h of a thread is chunk (16 bytes
+// of each array) h * G * kThreads + blockIdx.x * kThreads + threadIdx.x:
+// slots h < kRegChunks in registers, kRegChunks <= h < kRegChunks + S in
+// shared memory (S = smem_chunks, v's chunks then q's), and the chunks
+// past the held ones grid-stride, re-read in the later phases.  Four
+// register chunks on fewer blocks beat one or two on more at every size
+// from 2^19 elements (PERF.md, eval/step_tiers.py), so C is 4.
+template <typename T>
+struct StepArgs {
+  T* v;
+  const float* mask;  // or null
+  const T* q;
+  const T* qp;
+  T* alpha;
+  T* beta;
+  T* row;  // or null
+  T* ans;  // or null
+  const T* coeff;
+  T* part1;
+  T* part2;
+  int64_t n;
+  int j;
+  int jc;
+  int smem_chunks;
+};
+
+// chunk c of v, times the mask's chunk when there is one (exact: 0 or 1)
+__device__ __forceinline__ void load_v(const StepArgs<float>& a, int64_t c,
+                                       float (&e)[4]) {
+  load(a.v, c, e);
+  if (a.mask != nullptr) {
+    float m[4];
+    load(a.mask, c, m);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      e[i] = __fmul_rn(e[i], m[i]);
+    }
+  }
+}
+__device__ __forceinline__ void load_v(const StepArgs<double>& a, int64_t c,
+                                       double (&e)[2]) {
+  load(a.v, c, e);
+  if (a.mask != nullptr) {
+    const float2 m = reinterpret_cast<const float2*>(a.mask)[c];
+    e[0] = __dmul_rn(e[0], static_cast<double>(m.x));
+    e[1] = __dmul_rn(e[1], static_cast<double>(m.y));
+  }
+}
+template <typename T>
+__device__ __forceinline__ T load_v1(const StepArgs<T>& a, int64_t i) {
+  return a.mask != nullptr ? mul_rn(a.v[i], static_cast<T>(a.mask[i]))
+                           : a.v[i];
+}
+
+// phase 3 on one chunk (or, with V = 1, the tail element) of v': q_{j+1}
+// over v, into the stored row, and the recombine fold
+template <typename T, int V>
+__device__ __forceinline__ void finish(const StepArgs<T>& a, int64_t c,
+                                       T (&x)[V], bool ok, T b, T cf) {
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    x[e] = ok ? div_rn(x[e], b) : T(0);
+  }
+  if constexpr (V == 1) {
+    a.v[c] = x[0];
+    if (a.row != nullptr) {
+      a.row[c] = x[0];
+    }
+    if (a.ans != nullptr) {
+      a.ans[c] = add_rn(a.ans[c], mul_rn(cf, x[0]));
+    }
+  } else {
+    store(a.v, c, x);
+    if (a.row != nullptr) {
+      store(a.row, c, x);
+    }
+    if (a.ans != nullptr) {
+      T s[V];
+      load(a.ans, c, s);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        s[e] = add_rn(s[e], mul_rn(cf, x[e]));
+      }
+      store(a.ans, c, s);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+lanczos_step_kernel(StepArgs<T> a) {
+  constexpr int V = Vec<T>::n;
+  constexpr int C = kRegChunks;
+  __shared__ T sm[kWarps];
+  __shared__ T bc;
+  extern __shared__ __align__(16) unsigned char dyn[];
+  T* held_v = reinterpret_cast<T*>(dyn);
+  T* held_q = held_v + static_cast<int64_t>(a.smem_chunks) * kThreads * V;
+  const int S = a.smem_chunks;
+  const int64_t n = a.n;
+  const int64_t nv = n / V;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t held = (C + S) * stride;
+  const int64_t tail = nv * V + g;  // this thread's element past the chunks
+  const bool has_tail = g < n - nv * V;
+  const T bp = a.j > 0 ? a.beta[a.j - 1] : T(0);
+
+  // phase 1: alpha_j = <v, q_j>; every load issued before the first use
+  T rv[C][V], rq[C][V];
+#pragma unroll
+  for (int h = 0; h < C; ++h) {
+    const int64_t c = h * stride + g;
+    if (c < nv) {
+      load_v(a, c, rv[h]);
+      load(a.q, c, rq[h]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        rv[h][e] = T(0);
+        rq[h][e] = T(0);
+      }
+    }
+  }
+  T acc = T(0);
+#pragma unroll
+  for (int h = 0; h < C; ++h) {
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      acc = fma_rn(rv[h][e], rq[h][e], acc);
+    }
+  }
+#pragma unroll 4
+  for (int s = 0; s < S; ++s) {
+    const int64_t c = (C + s) * stride + g;
+    if (c < nv) {
+      T x[V], y[V];
+      load_v(a, c, x);
+      load(a.q, c, y);
+      store(held_v, s * kThreads + threadIdx.x, x);
+      store(held_q, s * kThreads + threadIdx.x, y);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        acc = fma_rn(x[e], y[e], acc);
+      }
+    }
+  }
+#pragma unroll 2
+  for (int64_t c = held + g; c < nv; c += stride) {
+    T x[V], y[V];
+    load_v(a, c, x);
+    load(a.q, c, y);
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      acc = fma_rn(x[e], y[e], acc);
+    }
+  }
+  if (has_tail) {
+    acc = fma_rn(load_v1(a, tail), a.q[tail], acc);
+  }
+  const T al = grid_total(acc, a.part1, sm, &bc);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    a.alpha[a.j] = al;
+  }
+
+  // phase 2: v' = v - alpha_j q_j - beta_{j-1} q_{j-1}, beta_j = ||v'||
+  T rp[C][V];
+#pragma unroll
+  for (int h = 0; h < C; ++h) {
+    const int64_t c = h * stride + g;
+    if (c < nv) {
+      load(a.qp, c, rp[h]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        rp[h][e] = T(0);
+      }
+    }
+  }
+  acc = T(0);
+#pragma unroll
+  for (int h = 0; h < C; ++h) {
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      rv[h][e] = update(rv[h][e], rq[h][e], rp[h][e], al, bp);
+      acc = fma_rn(rv[h][e], rv[h][e], acc);
+    }
+  }
+#pragma unroll 4
+  for (int s = 0; s < S; ++s) {
+    const int64_t c = (C + s) * stride + g;
+    if (c < nv) {
+      T x[V], y[V], z[V];
+      load(a.qp, c, z);
+      load(held_v, s * kThreads + threadIdx.x, x);
+      load(held_q, s * kThreads + threadIdx.x, y);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        x[e] = update(x[e], y[e], z[e], al, bp);
+        acc = fma_rn(x[e], x[e], acc);
+      }
+      store(held_v, s * kThreads + threadIdx.x, x);
+    }
+  }
+#pragma unroll 2
+  for (int64_t c = held + g; c < nv; c += stride) {
+    T x[V], y[V], z[V];
+    load_v(a, c, x);
+    load(a.q, c, y);
+    load(a.qp, c, z);
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      x[e] = update(x[e], y[e], z[e], al, bp);
+      acc = fma_rn(x[e], x[e], acc);
+    }
+    store(a.v, c, x);
+  }
+  T w_tail = T(0);
+  if (has_tail) {
+    w_tail = update(load_v1(a, tail), a.q[tail], a.qp[tail], al, bp);
+    acc = fma_rn(w_tail, w_tail, acc);
+  }
+  const T b = sqrt_rn(grid_total(acc, a.part2, sm, &bc));
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    a.beta[a.j] = b;
+  }
+
+  // phase 3: q_{j+1} = v' / beta_j (0 on breakdown) over v, the stored
+  // row, the recombine fold
+  const bool ok = b > T(0);
+  const T cf = a.ans != nullptr ? a.coeff[a.jc] : T(0);
+#pragma unroll
+  for (int h = 0; h < C; ++h) {
+    const int64_t c = h * stride + g;
+    if (c < nv) {
+      finish<T, V>(a, c, rv[h], ok, b, cf);
+    }
+  }
+  for (int s = 0; s < S; ++s) {
+    const int64_t c = (C + s) * stride + g;
+    if (c < nv) {
+      T x[V];
+      load(held_v, s * kThreads + threadIdx.x, x);
+      finish<T, V>(a, c, x, ok, b, cf);
+    }
+  }
+  for (int64_t c = held + g; c < nv; c += stride) {
+    T x[V];
+    load(a.v, c, x);
+    finish<T, V>(a, c, x, ok, b, cf);
+  }
+  if (has_tail) {
+    T x[1] = {w_tail};
+    finish<T, 1>(a, tail, x, ok, b, cf);
+  }
+}
+
 // ------------------------------------------------------------- df64 ops
 // core/df64.py's forms, every operation rounded as written
 
@@ -471,22 +809,6 @@ __device__ __forceinline__ void load8(const float* p, int64_t i0, int64_t n,
   }
 }
 
-__device__ __forceinline__ void store8(float* p, int64_t i0, int64_t n,
-                                       const float (&e)[kDfVec]) {
-  if (i0 + kDfVec <= n) {
-    *reinterpret_cast<float4*>(p + i0) = make_float4(e[0], e[1], e[2], e[3]);
-    *reinterpret_cast<float4*>(p + i0 + 4) =
-        make_float4(e[4], e[5], e[6], e[7]);
-  } else {
-#pragma unroll
-    for (int r = 0; r < kDfVec; ++r) {
-      if (i0 + r < n) {
-        p[i0 + r] = e[r];
-      }
-    }
-  }
-}
-
 __device__ __forceinline__ int bit_reverse(int m, int bits) {
   return bits == 0 ? 0
                    : static_cast<int>(__brev(static_cast<unsigned>(m)) >>
@@ -545,40 +867,16 @@ __device__ void smem_tree(float (*sm)[kThreads], int width, int count,
   }
 }
 
-// What the last block does with a df reduction: mode 0 writes the dot to
-// (out_h[j], out_l[j]); mode 1 its df_sqrt; mode 2 the df_sqrt and, in
-// the workspace's scalars, 1/beta (df_div of 1 by the guarded beta) and
-// the breakdown flag (lanczos_df.py _body_core).
-__device__ void df_finish(Df d, int mode, float* out_h, float* out_l, int j,
-                          float* scalars) {
-  if (mode == 0) {
-    out_h[j] = d.h;
-    out_l[j] = d.l;
-    return;
-  }
-  const Df b = df_sqrt(d);
-  out_h[j] = b.h;
-  out_l[j] = b.l;
-  if (mode == 2) {
-    const bool ok = b.h > 0.0f;
-    const Df inv = df_div(Df{1.0f, 0.0f}, ok ? b : Df{1.0f, 0.0f});
-    scalars[0] = inv.h;
-    scalars[1] = inv.l;
-    scalars[2] = ok ? 1.0f : 0.0f;
-  }
-}
-
 // The tree after the rows: the thread's 8 nodes in x, its error sum in
 // err.  Reduces over the block's threads, writes the block's 8 partials
 // and its error sum, and lets the last block fold every block's partials
-// in index order and finish (df_finish).
-__device__ void df_grid_tree(float (&x)[kDfVec], float err, int mode,
-                             float* out_h, float* out_l, int j,
-                             unsigned char* work) {
+// in index order and write the df_sqrt of the sum to (out_h[0],
+// out_l[0]).
+__device__ void df_grid_tree(float (&x)[kDfVec], float err, float* out_h,
+                             float* out_l, unsigned char* work) {
   __shared__ float sm[kDfVec][kThreads];
   __shared__ float sm_err[kThreads];
   unsigned int* counter = reinterpret_cast<unsigned int*>(work);
-  float* scalars = reinterpret_cast<float*>(work + kScalarOff);
   float* part = reinterpret_cast<float*>(work + kPartOff);
   float* part_err = part + kDfVec * kDfMaxBlocks;
 
@@ -619,35 +917,33 @@ __device__ void df_grid_tree(float (&x)[kDfVec], float err, int mode,
   }
   const float total_err = block_sum(e2, sm_err);
   if (threadIdx.x == 0) {
-    df_finish(fast_two_sum(sm[0][0], total_err), mode, out_h, out_l, j,
-              scalars);
+    const Df b = df_sqrt(fast_two_sum(sm[0][0], total_err));
+    out_h[0] = b.h;
+    out_l[0] = b.l;
     *counter = 0u;
   }
 }
 
-// Pass 1 of row 5c (and the start vector's norm): df_dot(x, y), finished
-// by df_finish's `mode`.
+// The df64 start vector's norm, df_norm(x): the df_dot tree of x with
+// itself in one launch, its last block folding the partials.
 template <int Depth>
 __global__ void __launch_bounds__(kThreads)
-df_dot_kernel(const float* __restrict__ xh, const float* __restrict__ xl,
-              const float* __restrict__ yh, const float* __restrict__ yl,
-              int64_t n, int rows_log, float* out_h, float* out_l, int j,
-              int mode, unsigned char* work) {
+df_norm_kernel(const float* __restrict__ xh, const float* __restrict__ xl,
+               int64_t n, int rows_log, float* out_h, float* out_l,
+               unsigned char* work) {
   TreeStack<kDfVec, Depth> stack;
   float x[kDfVec];
   float err = 0.0f;
   for (int m = 0; m < (1 << rows_log); ++m) {
     const int64_t i0 = df_base(bit_reverse(m, rows_log));
     if (i0 < n) {
-      float a[kDfVec], b[kDfVec], c[kDfVec], d[kDfVec];
+      float a[kDfVec], b[kDfVec];
       load8(xh, i0, n, a);
       load8(xl, i0, n, b);
-      load8(yh, i0, n, c);
-      load8(yl, i0, n, d);
 #pragma unroll
       for (int r = 0; r < kDfVec; ++r) {
         float e;
-        x[r] = dot_term(Df{a[r], b[r]}, Df{c[r], d[r]}, e);
+        x[r] = dot_term(Df{a[r], b[r]}, Df{a[r], b[r]}, e);
         if (i0 + r < n) {
           err = __fadd_rn(err, e);
         } else {
@@ -662,102 +958,426 @@ df_dot_kernel(const float* __restrict__ xh, const float* __restrict__ xl,
     }
     stack.push(m, x, err);
   }
-  df_grid_tree(x, err, mode, out_h, out_l, j, work);
+  df_grid_tree(x, err, out_h, out_l, work);
 }
 
-// Pass 2 of row 5c: v' = df_sub(v, df_add(df_scale(a, q), df_scale(b_prev,
-// q_prev))) over v, then beta[j] = df_norm(v') and 1/beta[j].
-template <int Depth>
-__global__ void __launch_bounds__(kThreads)
-df_update_kernel(float* vh, float* vl, const float* __restrict__ qh,
-                 const float* __restrict__ ql, const float* __restrict__ ph,
-                 const float* __restrict__ pl, int64_t n, int rows_log,
-                 const float* ah, const float* al, float* bh, float* bl,
-                 int j, unsigned char* work) {
-  const Df a{ah[j], al[j]};
-  const Df bp = j > 0 ? Df{bh[j - 1], bl[j - 1]} : Df{0.0f, 0.0f};
-  TreeStack<kDfVec, Depth> stack;
+// ---- the one-launch row 5c step
+
+struct DfStepArgs {
+  float* vh;
+  float* vl;
+  const float* mask;  // or null
+  const float* qh;
+  const float* ql;
+  const float* ph;
+  const float* pl;
+  float* ah;
+  float* al;
+  float* bh;
+  float* bl;
+  float* ans_h;  // n_ans rows of n, or null
+  float* ans_l;
+  const float* ch;
+  const float* cl;
+  float* part1;  // each: 8 * kDfMaxBlocks hi partials, then kDfMaxBlocks
+  float* part2;  // error sums
+  int64_t n;
+  int64_t c_stride;
+  int j;
+  int jc;
+  int n_ans;
+  int rows_log;
+  int hold;  // 1: row 0's inputs (then v') held in shared memory
+};
+
+// K (4 or 8) of a thread's 8 elements from i0 (a multiple of K), zero
+// past n, as 16-byte accesses where they are all inside
+template <int K>
+__device__ __forceinline__ void loadk(const float* p, int64_t i0, int64_t n,
+                                      float (&e)[K]) {
+  if (i0 + K <= n) {
+    if constexpr (K == 8) {
+      const float4 a = *reinterpret_cast<const float4*>(p + i0);
+      const float4 b = *reinterpret_cast<const float4*>(p + i0 + 4);
+      e[0] = a.x;
+      e[1] = a.y;
+      e[2] = a.z;
+      e[3] = a.w;
+      e[4] = b.x;
+      e[5] = b.y;
+      e[6] = b.z;
+      e[7] = b.w;
+    } else {
+      const float4 a = *reinterpret_cast<const float4*>(p + i0);
+      e[0] = a.x;
+      e[1] = a.y;
+      e[2] = a.z;
+      e[3] = a.w;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < K; ++r) {
+      e[r] = i0 + r < n ? p[i0 + r] : 0.0f;
+    }
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void storek(float* p, int64_t i0, int64_t n,
+                                       const float (&e)[K]) {
+  if (i0 + K <= n) {
+    if constexpr (K == 8) {
+      *reinterpret_cast<float4*>(p + i0) =
+          make_float4(e[0], e[1], e[2], e[3]);
+      *reinterpret_cast<float4*>(p + i0 + 4) =
+          make_float4(e[4], e[5], e[6], e[7]);
+    } else {
+      *reinterpret_cast<float4*>(p + i0) =
+          make_float4(e[0], e[1], e[2], e[3]);
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < K; ++r) {
+      if (i0 + r < n) {
+        p[i0 + r] = e[r];
+      }
+    }
+  }
+}
+
+// v's K elements (hi and lo) times the mask's (exact: 0 or 1)
+template <int K>
+__device__ __forceinline__ void load_v_df(const DfStepArgs& a, int64_t i0,
+                                          float (&h)[K], float (&l)[K]) {
+  loadk<K>(a.vh, i0, a.n, h);
+  loadk<K>(a.vl, i0, a.n, l);
+  if (a.mask != nullptr) {
+    float m[K];
+    loadk<K>(a.mask, i0, a.n, m);
+#pragma unroll
+    for (int r = 0; r < K; ++r) {
+      h[r] = __fmul_rn(h[r], m[r]);
+      l[r] = __fmul_rn(l[r], m[r]);
+    }
+  }
+}
+
+// v' = df_sub(v, df_add(df_scale(a, q), df_scale(b_prev, q_prev))) for
+// one element: phases 2 and 3 both compute it (phase 3 again, in its own
+// element order), with the same ops, so the same bits.
+__device__ __forceinline__ Df df_update(Df v, Df q, Df p, Df a, Df bp) {
+  return df_sub(v, df_add(df_mul(a, q), df_mul(bp, p)));
+}
+
+// q_{j+1} from v' (0 on breakdown) over v's K elements at i0, and the
+// recombine fold into each of the n_ans answers
+template <int K>
+__device__ __forceinline__ void df_finish(const DfStepArgs& a, int64_t i0,
+                                          float (&w0)[K], float (&w1)[K],
+                                          Df inv, bool ok) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const Df q = df_mul(inv, Df{w0[k], w1[k]});
+    w0[k] = ok ? q.h : 0.0f;
+    w1[k] = ok ? q.l : 0.0f;
+  }
+  storek<K>(a.vh, i0, a.n, w0);
+  storek<K>(a.vl, i0, a.n, w1);
+  for (int t = 0; t < a.n_ans; ++t) {
+    const Df c{a.ch[t * a.c_stride + a.jc], a.cl[t * a.c_stride + a.jc]};
+    float s0[K], s1[K];
+    loadk<K>(a.ans_h + t * a.n, i0, a.n, s0);
+    loadk<K>(a.ans_l + t * a.n, i0, a.n, s1);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const Df sum = df_add(Df{s0[k], s1[k]}, df_mul(c, Df{w0[k], w1[k]}));
+      s0[k] = sum.h;
+      s1[k] = sum.l;
+    }
+    storek<K>(a.ans_h + t * a.n, i0, a.n, s0);
+    storek<K>(a.ans_l + t * a.n, i0, a.n, s1);
+  }
+}
+
+// Held array k (0..3: vh, vl, qh, ql of row 0, then v' in 0 and 1),
+// element r of this thread.
+__device__ __forceinline__ float& held(float* hold, int k, int r) {
+  return hold[(k * kDfVec + r) * kThreads + threadIdx.x];
+}
+
+// The binary counter of TreeStack with its nodes in shared memory: node
+// l, lane r of this thread at stack[(l * 8 + r) * kThreads + threadIdx.x].
+__device__ __forceinline__ void push_smem(float* stack, int depth, int m,
+                                          float (&x)[kDfVec], float& err) {
+  for (int l = 0; l < depth; ++l) {
+    float* node = stack + l * kDfVec * kThreads + threadIdx.x;
+    if ((m >> l) & 1) {
+#pragma unroll
+      for (int r = 0; r < kDfVec; ++r) {
+        float t;
+        two_sum(node[r * kThreads], x[r], x[r], t);
+        err = __fadd_rn(err, t);
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < kDfVec; ++r) {
+        node[r * kThreads] = x[r];
+      }
+      return;
+    }
+  }
+}
+
+// The tree over count (a power of 2) values in buf: index i with i +
+// count/2 and so on, in shared memory down to 32 values, then by shuffles
+// in warp 0.  The root in thread 0; the errors go to err.  buf is read
+// after a barrier.
+__device__ float tree_smem(float* buf, int count, float& err) {
+  for (int s = count / 2; s >= 32; s >>= 1) {
+    for (int i = threadIdx.x; i < s; i += kThreads) {
+      float hi, lo;
+      two_sum(buf[i], buf[i + s], hi, lo);
+      buf[i] = hi;
+      err = __fadd_rn(err, lo);
+    }
+    __syncthreads();
+  }
+  float y = 0.0f;
+  if (threadIdx.x < 32) {
+    y = static_cast<int>(threadIdx.x) < count ? buf[threadIdx.x] : 0.0f;
+    for (int s = (count < 32 ? count : 32) / 2; s > 0; s >>= 1) {
+      const float z = __shfl_down_sync(0xffffffffu, y, s);
+      if (static_cast<int>(threadIdx.x) < s) {
+        float hi, lo;
+        two_sum(y, z, hi, lo);
+        y = hi;
+        err = __fadd_rn(err, lo);
+      }
+    }
+  }
+  return y;
+}
+
+// The tree over the block's threads for each lane r (sm[r][t] = thread
+// t's x[r]): t with t + 128, 64, 32 in shared memory, then t + 16, ..., 1
+// by shuffles in warp r, whose lane 0 writes lane r's root to out[r].  The
+// two-sum errors go to err.
+__device__ void block_tree8(const float (&x)[kDfVec], float& err,
+                            float (*sm)[kThreads], float* out) {
+#pragma unroll
+  for (int r = 0; r < kDfVec; ++r) {
+    sm[r][threadIdx.x] = x[r];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int s = kThreads / 2; s >= 32; s >>= 1) {
+    for (int it = threadIdx.x; it < kDfVec * s; it += kThreads) {
+      const int r = it / s;
+      const int t = it - r * s;
+      float hi, lo;
+      two_sum(sm[r][t], sm[r][t + s], hi, lo);
+      sm[r][t] = hi;
+      err = __fadd_rn(err, lo);
+    }
+    __syncthreads();
+  }
+  const int lane = threadIdx.x & 31;
+  float y = sm[threadIdx.x >> 5][lane];
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+    const float z = __shfl_down_sync(0xffffffffu, y, s);
+    if (lane < s) {
+      float hi, lo;
+      two_sum(y, z, hi, lo);
+      y = hi;
+      err = __fadd_rn(err, lo);
+    }
+  }
+  if (lane == 0) {
+    out[threadIdx.x >> 5] = y;
+  }
+}
+
+// A block's part of a df reduction: the thread tree over x, the block's 8
+// hi partials to part[blockIdx.x * 8 + r] and its error sum to part[8 *
+// kDfMaxBlocks + blockIdx.x]; the grid barrier; then every block copies
+// the 8*G partials into shared memory (all its loads in flight) and folds
+// them in index order (index i with i + 4G first), with the G error
+// sums, so every block holds the same df value.  buf holds 8 *
+// kDfStepMaxGrid floats.
+__device__ Df df_grid_total(const float (&x)[kDfVec], float err,
+                            float* part, float* buf, float* smw, Df* bcast) {
+  float* part_err = part + kDfVec * kDfMaxBlocks;
+  block_tree8(x, err, reinterpret_cast<float(*)[kThreads]>(buf),
+              part + blockIdx.x * kDfVec);
+  const float block_err = block_reduce(err, smw);
+  if (threadIdx.x == 0) {
+    part_err[blockIdx.x] = block_err;
+  }
+  cg::this_grid().sync();
+  const int nf = kDfVec * gridDim.x;
+  for (int i = threadIdx.x; i < nf / 4; i += kThreads) {
+    reinterpret_cast<float4*>(buf)[i] =
+        __ldcg(reinterpret_cast<const float4*>(part) + i);
+  }
+  float e2 = 0.0f;
+  for (int i = threadIdx.x; i < static_cast<int>(gridDim.x); i += kThreads) {
+    e2 = __fadd_rn(e2, __ldcg(part_err + i));
+  }
+  __syncthreads();
+  const float root = tree_smem(buf, nf, e2);
+  const float total_err = block_reduce(e2, smw);
+  if (threadIdx.x == 0) {
+    *bcast = fast_two_sum(root, total_err);
+  }
+  __syncthreads();
+  return *bcast;
+}
+
+// Row 5c in one launch: the three phases of the file header on the
+// element map above.  Row 0's inputs (then v') stay in shared memory when
+// `hold`; other rows are re-read in the later phases.  The node stack
+// sits in shared memory (rows_log levels), so registers do not grow with
+// the depth.  Each array's 8 elements of a row (one 32-byte sector) are
+// loaded by back-to-back 16-byte loads: the map puts neighbouring threads
+// G sectors apart, and a sector split over two phases of the loop fell
+// out of L1 in between.  128 registers, two blocks an SM: faster than 64
+// registers and four blocks at every size measured (PERF.md).
+__global__ void __launch_bounds__(kThreads, 2)
+lanczos_step_df_kernel(DfStepArgs a) {
+  __shared__ __align__(16) float buf[kDfVec * kDfStepMaxGrid];
+  __shared__ float smw[kWarps];
+  __shared__ Df bc;
+  extern __shared__ __align__(16) float dyn_f[];
+  const int d = a.rows_log;
+  float* stack = dyn_f;
+  float* hold = dyn_f + d * kDfVec * kThreads;
+  const int64_t n = a.n;
+  const int rows = 1 << d;
+  const Df bp = a.j > 0 ? Df{a.bh[a.j - 1], a.bl[a.j - 1]} : Df{0.0f, 0.0f};
+
+  // phase 1: alpha_j = df_dot(v * mask, q); each array's 8 elements (one
+  // 32-byte sector) loaded at once
   float x[kDfVec];
   float err = 0.0f;
-  for (int m = 0; m < (1 << rows_log); ++m) {
-    const int64_t i0 = df_base(bit_reverse(m, rows_log));
-    if (i0 < n) {
-      float v0[kDfVec], v1[kDfVec], q0[kDfVec], q1[kDfVec], p0[kDfVec],
-          p1[kDfVec];
-      load8(vh, i0, n, v0);
-      load8(vl, i0, n, v1);
-      load8(qh, i0, n, q0);
-      load8(ql, i0, n, q1);
-      load8(ph, i0, n, p0);
-      load8(pl, i0, n, p1);
+  for (int m = 0; m < rows; ++m) {
+    const int64_t i0 = df_base(bit_reverse(m, d));
+    const bool keep = m == 0 && a.hold != 0;
+    float v0[8], v1[8], q0[8], q1[8];
+    load_v_df<8>(a, i0, v0, v1);
+    loadk<8>(a.qh, i0, n, q0);
+    loadk<8>(a.ql, i0, n, q1);
 #pragma unroll
-      for (int r = 0; r < kDfVec; ++r) {
-        const Df w = df_sub(Df{v0[r], v1[r]},
-                            df_add(df_mul(a, Df{q0[r], q1[r]}),
-                                   df_mul(bp, Df{p0[r], p1[r]})));
-        v0[r] = w.h;
-        v1[r] = w.l;
-        float e;
-        x[r] = dot_term(w, w, e);
-        if (i0 + r < n) {
-          err = __fadd_rn(err, e);
-        } else {
-          x[r] = 0.0f;
-        }
+    for (int r = 0; r < kDfVec; ++r) {
+      if (keep) {
+        held(hold, 0, r) = v0[r];
+        held(hold, 1, r) = v1[r];
+        held(hold, 2, r) = q0[r];
+        held(hold, 3, r) = q1[r];
       }
-      store8(vh, i0, n, v0);
-      store8(vl, i0, n, v1);
-    } else {
-#pragma unroll
-      for (int r = 0; r < kDfVec; ++r) {
+      float e;
+      x[r] = dot_term(Df{v0[r], v1[r]}, Df{q0[r], q1[r]}, e);
+      if (i0 + r < n) {
+        err = __fadd_rn(err, e);
+      } else {
         x[r] = 0.0f;
       }
     }
-    stack.push(m, x, err);
+    push_smem(stack, d, m, x, err);
   }
-  df_grid_tree(x, err, 2, bh, bl, j, work);
-}
+  const Df al = df_grid_total(x, err, a.part1, buf, smw, &bc);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    a.ah[a.j] = al.h;
+    a.al[a.j] = al.l;
+  }
 
-// Pass 3 of row 5c: q = where(ok, df_scale(1/beta, v'), 0) over v, and
-// for each of n_ans answers ans_m = df_add(ans_m, df_scale(c_m, q)) with
-// c_m = coeff[m * c_stride + jc] (the recombine pass's accumulation).
-__global__ void __launch_bounds__(kThreads)
-df_normalize_kernel(float* vh, float* vl, int64_t n,
-                    const unsigned char* work, float* ans_h, float* ans_l,
-                    const float* ch, const float* cl, int jc, int n_ans,
-                    int64_t c_stride) {
-  const float* scalars = reinterpret_cast<const float*>(work + kScalarOff);
-  const Df inv{scalars[0], scalars[1]};
-  const bool ok = scalars[2] != 0.0f;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads * kDfVec;
-  for (int64_t i0 = (static_cast<int64_t>(blockIdx.x) * kThreads +
-                     threadIdx.x) * kDfVec;
-       i0 < n; i0 += stride) {
-    float q0[kDfVec], q1[kDfVec];
-    load8(vh, i0, n, q0);
-    load8(vl, i0, n, q1);
-#pragma unroll
-    for (int r = 0; r < kDfVec; ++r) {
-      const Df q = df_mul(inv, Df{q0[r], q1[r]});
-      q0[r] = ok ? q.h : 0.0f;
-      q1[r] = ok ? q.l : 0.0f;
-    }
-    store8(vh, i0, n, q0);
-    store8(vl, i0, n, q1);
-    for (int m = 0; m < n_ans; ++m) {
-      const Df c{ch[m * c_stride + jc], cl[m * c_stride + jc]};
-      float s0[kDfVec], s1[kDfVec];
-      load8(ans_h + m * n, i0, n, s0);
-      load8(ans_l + m * n, i0, n, s1);
+  // phase 2: v' = df_update(v, q, q_prev), beta_j = df_norm(v'); v' kept
+  // only for the held row (phase 3 recomputes the rest)
+  err = 0.0f;
+  for (int m = 0; m < rows; ++m) {
+    const int64_t i0 = df_base(bit_reverse(m, d));
+    const bool keep = m == 0 && a.hold != 0;
+    float v0[8], v1[8], q0[8], q1[8], p0[8], p1[8];
+    loadk<8>(a.ph, i0, n, p0);
+    loadk<8>(a.pl, i0, n, p1);
+    if (keep) {
 #pragma unroll
       for (int r = 0; r < kDfVec; ++r) {
-        const Df s = df_add(Df{s0[r], s1[r]}, df_mul(c, Df{q0[r], q1[r]}));
-        s0[r] = s.h;
-        s1[r] = s.l;
+        v0[r] = held(hold, 0, r);
+        v1[r] = held(hold, 1, r);
+        q0[r] = held(hold, 2, r);
+        q1[r] = held(hold, 3, r);
       }
-      store8(ans_h + m * n, i0, n, s0);
-      store8(ans_l + m * n, i0, n, s1);
+    } else {
+      load_v_df<8>(a, i0, v0, v1);
+      loadk<8>(a.qh, i0, n, q0);
+      loadk<8>(a.ql, i0, n, q1);
     }
+#pragma unroll
+    for (int r = 0; r < kDfVec; ++r) {
+      const Df w = df_update(Df{v0[r], v1[r]}, Df{q0[r], q1[r]},
+                             Df{p0[r], p1[r]}, al, bp);
+      if (keep) {
+        held(hold, 0, r) = w.h;
+        held(hold, 1, r) = w.l;
+      }
+      float e;
+      x[r] = dot_term(w, w, e);
+      if (i0 + r < n) {
+        err = __fadd_rn(err, e);
+      } else {
+        x[r] = 0.0f;
+      }
+    }
+    push_smem(stack, d, m, x, err);
+  }
+  const Df b = df_sqrt(df_grid_total(x, err, a.part2, buf, smw, &bc));
+  const bool ok = b.h > 0.0f;
+  const Df inv = df_div(Df{1.0f, 0.0f}, ok ? b : Df{1.0f, 0.0f});
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    a.bh[a.j] = b.h;
+    a.bl[a.j] = b.l;
+  }
+
+  // phase 3: q_{j+1} = where(ok, df_scale(1/beta, v'), 0) over v, and for
+  // each of n_ans answers ans_m = df_add(ans_m, df_scale(c_m, q_{j+1}))
+  // with c_m = coeff[m * c_stride + jc].  It needs no reduction, so past
+  // the held row (elements [0, G * 2048)) it leaves the tree's element map
+  // for a grid-stride one whose warps read and write contiguous memory,
+  // recomputing v' from v, q_j and q_{j-1}.
+  if (a.hold != 0) {
+    const int64_t i0 = df_base(0);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float w0[4], w1[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        w0[k] = held(hold, 0, 4 * hf + k);
+        w1[k] = held(hold, 1, 4 * hf + k);
+      }
+      df_finish<4>(a, i0 + 4 * hf, w0, w1, inv, ok);
+    }
+  }
+  const int64_t start = a.hold != 0
+      ? static_cast<int64_t>(gridDim.x) * kDfSpan : 0;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kThreads * 4;
+  for (int64_t i0 = start + (static_cast<int64_t>(blockIdx.x) * kThreads +
+                             threadIdx.x) * 4;
+       i0 < n; i0 += step) {
+    float w0[4], w1[4], q0[4], q1[4], p0[4], p1[4];
+    load_v_df<4>(a, i0, w0, w1);
+    loadk<4>(a.qh, i0, n, q0);
+    loadk<4>(a.ql, i0, n, q1);
+    loadk<4>(a.ph, i0, n, p0);
+    loadk<4>(a.pl, i0, n, p1);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const Df w = df_update(Df{w0[k], w1[k]}, Df{q0[k], q1[k]},
+                             Df{p0[k], p1[k]}, al, bp);
+      w0[k] = w.h;
+      w1[k] = w.l;
+    }
+    df_finish<4>(a, i0, w0, w1, inv, ok);
   }
 }
 
@@ -816,7 +1436,7 @@ int launch_tail(void* v, const void* w, void* beta, int64_t n, int j,
   return launch_normalize<T>(v, beta, n, j, row, ans, coeff, jc, s);
 }
 
-// row 5c's grid: P = the padded length (a power of 2, at least kDfSpan),
+// df_norm's grid: P = the padded length (a power of 2, at least kDfSpan),
 // G = min(P / kDfSpan, kDfMaxBlocks) blocks, P / (G * kDfSpan) rows.
 // False past P = 2^31.  bn1M: P = 2^20, 512 blocks, one row; a 2600^2
 // mesh 4,096 blocks, one row; 51M nodes 4,096 blocks, 8 rows.
@@ -834,25 +1454,105 @@ bool df_geometry(int64_t n, int& blocks, int& rows_log) {
   return rows_log <= kDfMaxDepth;
 }
 
-int launch_df_dot(const float* xh, const float* xl, const float* yh,
-                  const float* yl, int64_t n, float* out_h, float* out_l,
-                  int j, int mode, unsigned char* work, cudaStream_t s) {
+int launch_df_norm(const float* xh, const float* xl, int64_t n,
+                   float* out_h, float* out_l, unsigned char* work,
+                   cudaStream_t s) {
   int blocks, rows_log;
   if (!df_geometry(n, blocks, rows_log)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // the node stack sized to the rows: registers only where rows need them
   if (rows_log == 0) {
-    df_dot_kernel<0><<<blocks, kThreads, 0, s>>>(xh, xl, yh, yl, n, 0, out_h,
-                                                 out_l, j, mode, work);
+    df_norm_kernel<0><<<blocks, kThreads, 0, s>>>(xh, xl, n, 0, out_h, out_l,
+                                                  work);
   } else if (rows_log <= 3) {
-    df_dot_kernel<3><<<blocks, kThreads, 0, s>>>(
-        xh, xl, yh, yl, n, rows_log, out_h, out_l, j, mode, work);
+    df_norm_kernel<3><<<blocks, kThreads, 0, s>>>(xh, xl, n, rows_log, out_h,
+                                                  out_l, work);
   } else {
-    df_dot_kernel<kDfMaxDepth><<<blocks, kThreads, 0, s>>>(
-        xh, xl, yh, yl, n, rows_log, out_h, out_l, j, mode, work);
+    df_norm_kernel<kDfMaxDepth><<<blocks, kThreads, 0, s>>>(
+        xh, xl, n, rows_log, out_h, out_l, work);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// the one-launch row 5 kernel for value_bytes 4 or 8
+const void* step_fn(int value_bytes) {
+  return value_bytes == 4
+      ? reinterpret_cast<const void*>(lanczos_step_kernel<float>)
+      : (value_bytes == 8
+             ? reinterpret_cast<const void*>(lanczos_step_kernel<double>)
+             : nullptr);
+}
+
+// Lets fn take all the dynamic shared memory the device's opt-in limit
+// leaves beside its static shared memory (past 48 KB a launch needs it).
+cudaError_t allow_smem(const void* fn) {
+  int dev = 0;
+  int optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  cudaFuncAttributes fa;
+  if (err == cudaSuccess) {
+    err = cudaFuncGetAttributes(&fa, fn);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        optin - static_cast<int>(fa.sharedSizeBytes));
+  }
+  return err;
+}
+
+// A cooperative launch of fn with one argument: refused (and the error
+// cleared, so no later launch check reports it) when the grid cannot be
+// co-resident.
+int launch_coop(const void* fn, void* arg, int grid, size_t smem,
+                cudaStream_t s) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = allow_smem(fn);
+    if (err != cudaSuccess) {
+      return static_cast<int>(err);
+    }
+  }
+  void* args[] = {arg};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      fn, dim3(grid), dim3(kThreads), args, smem, s);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+  }
+  return static_cast<int>(err);
+}
+
+// the dynamic shared memory of a launch (kernels/lanczos_step.py mirrors
+// these): row 5, smem_chunks 16-byte chunks of v and of q a thread; row
+// 5c, rows_log node-stack levels and, with hold, row 0's four arrays, 8
+// floats a thread each
+size_t step_smem(int smem_chunks) {
+  return static_cast<size_t>(smem_chunks) * kThreads * 16 * 2;
+}
+size_t df_step_smem(int rows_log, int hold) {
+  return static_cast<size_t>(rows_log + 4 * hold) * kDfVec * kThreads * 4;
+}
+
+template <typename T>
+int launch_step(void* v, const void* mask, const void* q, const void* qp,
+                void* alpha, void* beta, int64_t n, int j, void* row,
+                void* ans, const void* coeff, int jc, void* work, int grid,
+                int smem_chunks, cudaStream_t s) {
+  unsigned char* w = static_cast<unsigned char*>(work);
+  StepArgs<T> a{static_cast<T*>(v), static_cast<const float*>(mask),
+                static_cast<const T*>(q), static_cast<const T*>(qp),
+                static_cast<T*>(alpha), static_cast<T*>(beta),
+                static_cast<T*>(row), static_cast<T*>(ans),
+                static_cast<const T*>(coeff),
+                reinterpret_cast<T*>(w + kPartOff),
+                reinterpret_cast<T*>(w + kPartOff + kRegionBytes), n, j, jc,
+                smem_chunks};
+  return launch_coop(step_fn(sizeof(T)), &a, grid, step_smem(smem_chunks),
+                     s);
 }
 
 }  // namespace
@@ -860,29 +1560,52 @@ int launch_df_dot(const float* xh, const float* xl, const float* yh,
 // The workspace one loop of steps needs (bytes, zeroed once).
 extern "C" int tlt_lanczos_step_workspace_bytes() { return kWorkspaceBytes; }
 
-// Row 5, one step on `stream`: the dot, update and normalize passes.
-// value_bytes 4 (float) or 8 (double); v is overwritten with q_{j+1};
-// alpha[j] and beta[j] written; beta[j-1] read (0 at j=0); row (or null)
-// receives q_{j+1}; with ans non-null, ans += coeff[jc] * q_{j+1}.  Every
-// vector 16-byte aligned.  Returns cudaGetLastError() (0 = launched).
-extern "C" int tlt_lanczos_step(void* v, const void* q, const void* q_prev,
-                                void* alpha, void* beta, long long n, int j,
-                                int value_bytes, void* row, void* ans,
-                                const void* coeff, int jc, void* work,
-                                void* stream) {
+// Blocks of the one-launch kernel that fit an SM (the occupancy
+// calculator), or a negative CUDA error: kind 0 row 5 (value_bytes 4 or
+// 8), kind 1 row 5c; smem_bytes its dynamic shared memory.
+// kernels/lanczos_step.py sizes the grids from it.
+extern "C" int tlt_lanczos_step_occupancy(int kind, int value_bytes,
+                                          long long smem_bytes) {
+  const void* fn = kind == 0
+      ? step_fn(value_bytes)
+      : (kind == 1 ? reinterpret_cast<const void*>(lanczos_step_df_kernel)
+                   : nullptr);
+  if (fn == nullptr || smem_bytes < 0) {
+    return -static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = allow_smem(fn);
+  int blocks = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, fn, kThreads, static_cast<size_t>(smem_bytes));
+  }
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
+// Row 5, one step on `stream` in one cooperative launch of `grid` blocks
+// (all co-resident, or the launch is refused), holding 4 (registers) and
+// smem_chunks (shared memory) 16-byte chunks of v and q a thread on chip.
+// value_bytes 4 (float) or 8 (double); v (times mask, a float 0/1 vector,
+// when mask is not null) is read and overwritten with q_{j+1}; alpha[j]
+// and beta[j] written; beta[j-1] read (0 at j=0); row (or null) receives
+// q_{j+1}; with ans non-null, ans += coeff[jc] * q_{j+1}.  Every vector
+// 16-byte aligned.  Returns the launch's CUDA error (0 = launched).
+extern "C" int tlt_lanczos_step(void* v, const void* mask, const void* q,
+                                const void* q_prev, void* alpha, void* beta,
+                                long long n, int j, int value_bytes,
+                                void* row, void* ans, const void* coeff,
+                                int jc, void* work, int grid,
+                                int smem_chunks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n < 1 || j < 0 || (value_bytes != 4 && value_bytes != 8)) {
+  if (n < 1 || j < 0 || (value_bytes != 4 && value_bytes != 8) ||
+      grid < 1 || grid > kMaxGrid || smem_chunks < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int err = value_bytes == 4
-      ? launch_head<float>(v, q, q_prev, alpha, beta, n, j, 1, work, s)
-      : launch_head<double>(v, q, q_prev, alpha, beta, n, j, 1, work, s);
-  if (err != 0) {
-    return err;
-  }
   return value_bytes == 4
-      ? launch_normalize<float>(v, beta, n, j, row, ans, coeff, jc, s)
-      : launch_normalize<double>(v, beta, n, j, row, ans, coeff, jc, s);
+      ? launch_step<float>(v, mask, q, q_prev, alpha, beta, n, j, row, ans,
+                           coeff, jc, work, grid, smem_chunks, s)
+      : launch_step<double>(v, mask, q, q_prev, alpha, beta, n, j, row, ans,
+                            coeff, jc, work, grid, smem_chunks, s);
 }
 
 // Row 5 with reorthogonalization, before the caller's GEMVs: the dot and
@@ -915,60 +1638,41 @@ extern "C" int tlt_lanczos_step_tail(void* v, const void* w, void* beta,
       : launch_tail<double>(v, w, beta, n, j, row, ans, coeff, jc, work, s);
 }
 
-// Row 5c, one df64 step on `stream`: the dot, update and normalize passes
-// on (hi, lo) float vectors.  v is overwritten with q_{j+1}; (ah, al)[j]
-// and (bh, bl)[j] written, (bh, bl)[j-1] read (0 at j=0).  With n_ans > 0,
-// ans rows m (n_ans of n floats each) += coeff[m * c_stride + jc] *
-// q_{j+1}.  Every vector 16-byte aligned.  Returns cudaGetLastError().
+// Row 5c, one df64 step on `stream` in one cooperative launch of `grid`
+// blocks (a power of 2, all co-resident) over 2^rows_log rows of the
+// element map (grid * 2048 << rows_log >= n), row 0 held in shared memory
+// with `hold`.  v (times mask when mask is not null) is read and
+// overwritten with q_{j+1}; (ah, al)[j] and (bh, bl)[j] written, (bh,
+// bl)[j-1] read (0 at j=0).  With n_ans > 0, ans rows m (n_ans of n
+// floats each) += coeff[m * c_stride + jc] * q_{j+1}.  Every vector
+// 16-byte aligned.  Returns the launch's CUDA error.
 extern "C" int tlt_lanczos_step_df(
-    void* vh, void* vl, const void* qh, const void* ql, const void* ph,
-    const void* pl, void* ah, void* al, void* bh, void* bl, long long n,
-    int j, void* ans_h, void* ans_l, const void* ch, const void* cl, int jc,
-    int n_ans, long long c_stride, void* work, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int blocks, rows_log;
-  if (n < 1 || j < 0 || n_ans < 0 || !df_geometry(n, blocks, rows_log)) {
+    void* vh, void* vl, const void* mask, const void* qh, const void* ql,
+    const void* ph, const void* pl, void* ah, void* al, void* bh, void* bl,
+    long long n, int j, void* ans_h, void* ans_l, const void* ch,
+    const void* cl, int jc, int n_ans, long long c_stride, void* work,
+    int grid, int rows_log, int hold, void* stream) {
+  if (n < 1 || j < 0 || n_ans < 0 || grid < 1 || grid > kDfStepMaxGrid ||
+      (grid & (grid - 1)) != 0 || rows_log < 0 || rows_log > kDfMaxRowsLog ||
+      (hold != 0 && hold != 1) ||
+      (static_cast<int64_t>(grid) * kDfSpan << rows_log) < n) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   unsigned char* w = static_cast<unsigned char*>(work);
-  int err = launch_df_dot(static_cast<const float*>(vh),
-                          static_cast<const float*>(vl),
-                          static_cast<const float*>(qh),
-                          static_cast<const float*>(ql), n,
-                          static_cast<float*>(ah), static_cast<float*>(al), j,
-                          0, w, s);
-  if (err != 0) {
-    return err;
-  }
-  auto* v0 = static_cast<float*>(vh);
-  auto* v1 = static_cast<float*>(vl);
-  auto* q0 = static_cast<const float*>(qh);
-  auto* q1 = static_cast<const float*>(ql);
-  auto* p0 = static_cast<const float*>(ph);
-  auto* p1 = static_cast<const float*>(pl);
-  auto* a0 = static_cast<const float*>(ah);
-  auto* a1 = static_cast<const float*>(al);
-  auto* b0 = static_cast<float*>(bh);
-  auto* b1 = static_cast<float*>(bl);
-  if (rows_log == 0) {
-    df_update_kernel<0><<<blocks, kThreads, 0, s>>>(
-        v0, v1, q0, q1, p0, p1, n, 0, a0, a1, b0, b1, j, w);
-  } else if (rows_log <= 3) {
-    df_update_kernel<3><<<blocks, kThreads, 0, s>>>(
-        v0, v1, q0, q1, p0, p1, n, rows_log, a0, a1, b0, b1, j, w);
-  } else {
-    df_update_kernel<kDfMaxDepth><<<blocks, kThreads, 0, s>>>(
-        v0, v1, q0, q1, p0, p1, n, rows_log, a0, a1, b0, b1, j, w);
-  }
-  err = static_cast<int>(cudaGetLastError());
-  if (err != 0) {
-    return err;
-  }
-  df_normalize_kernel<<<grid_for(n, kDfVec), kThreads, 0, s>>>(
-      v0, v1, n, w, static_cast<float*>(ans_h), static_cast<float*>(ans_l),
-      static_cast<const float*>(ch), static_cast<const float*>(cl), jc, n_ans,
-      c_stride);
-  return static_cast<int>(cudaGetLastError());
+  DfStepArgs a{static_cast<float*>(vh), static_cast<float*>(vl),
+               static_cast<const float*>(mask), static_cast<const float*>(qh),
+               static_cast<const float*>(ql), static_cast<const float*>(ph),
+               static_cast<const float*>(pl), static_cast<float*>(ah),
+               static_cast<float*>(al), static_cast<float*>(bh),
+               static_cast<float*>(bl), static_cast<float*>(ans_h),
+               static_cast<float*>(ans_l), static_cast<const float*>(ch),
+               static_cast<const float*>(cl),
+               reinterpret_cast<float*>(w + kPartOff),
+               reinterpret_cast<float*>(w + kPartOff + kRegionBytes), n,
+               c_stride, j, jc, n_ans, rows_log, hold};
+  return launch_coop(reinterpret_cast<const void*>(lanczos_step_df_kernel),
+                     &a, grid, df_step_smem(rows_log, hold),
+                     static_cast<cudaStream_t>(stream));
 }
 
 // The df64 norm of (xh, xl) (df_norm: df_sqrt of the df_dot tree) into
@@ -979,10 +1683,9 @@ extern "C" int tlt_df_norm(const void* xh, const void* xl, void* out_h,
   if (n < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const float* x0 = static_cast<const float*>(xh);
-  const float* x1 = static_cast<const float*>(xl);
-  return launch_df_dot(x0, x1, x0, x1, n, static_cast<float*>(out_h),
-                       static_cast<float*>(out_l), 0, 1,
-                       static_cast<unsigned char*>(work),
-                       static_cast<cudaStream_t>(stream));
+  return launch_df_norm(static_cast<const float*>(xh),
+                        static_cast<const float*>(xl), n,
+                        static_cast<float*>(out_h), static_cast<float*>(out_l),
+                        static_cast<unsigned char*>(work),
+                        static_cast<cudaStream_t>(stream));
 }

@@ -5,9 +5,11 @@ The reference runs each k-step recurrence as one ``lax.fori_loop`` and
 XLA fuses each step's dot, axpys, norm and normalize
 (``tpu_lanczos/core/lanczos.py:84-96``), and for df64 the whole df-op
 chain with its two-sum tree (``core/lanczos_df.py:30-40``).  Here a step
-after the SpMV is three launches of ``csrc/lanczos_step.cu`` (a dot
-pass, an update pass with the norm, a normalize pass; four with
-reorthogonalization, whose two GEMVs stay ``torch.matmul`` between
+after the SpMV is ONE cooperative launch of ``csrc/lanczos_step.cu``: a
+persistent grid whose three phases (the dot; the update and its norm;
+the normalize) are separated by grid barriers, each thread holding its
+slice of v and q_j on chip between them (with reorthogonalization, whose
+two GEMVs stay ``torch.matmul``, the step keeps pass kernels around
 them):
 
 - ``lanczos_step`` (row 5, float32/float64) and ``lanczos_step_df`` (row
@@ -15,14 +17,23 @@ them):
   q_{j-1} and the (k,) alpha and beta buffers; they read beta[j-1] (0 at
   j=0), write alpha[j] and beta[j] and return q_{j+1}, with no scalar
   sent to the host.  ``v`` is consumed: on the card q_{j+1} is written
-  over it.
+  over it.  ``mask`` (a CPG pack's float32 0/1 ``realmask``) is the
+  SpMV's last multiply, folded into the step: the step reads v as ``v *
+  mask``, exactly the separate multiply's bits.
 - ``store`` (a (n,) tensor, row 5) also receives q_{j+1}; ``ans`` and
-  ``coeff`` fold ``ans += coeff[j + 1] * q_{j+1}`` into the last pass
+  ``coeff`` fold ``ans += coeff[j + 1] * q_{j+1}`` into the last phase
   (the recombine pass's accumulation, in place).
+- ``step_plan`` and ``df_geometry`` choose each launch's grid (every
+  block co-resident, from the card's occupancy) and how much of the
+  vectors is held on chip: the tiers of row 5 (registers, then shared
+  memory, then re-read) and row 5c's element map (G blocks, 2^rows_log
+  rows, row 0 held or not).  They are plain functions of n and the
+  occupancy, so the CPU tests reach them.
 - On a CUDA tensor the wrappers launch the kernels (and raise on what
-  they do not take); on a CPU tensor they run the plain versions
-  ``lanczos_step_ref`` and ``lanczos_step_df_ref``, which are the eager
-  ops of the first port; any other device raises.
+  they do not take, or on a launch the card refuses); on a CPU tensor
+  they run the plain versions ``lanczos_step_ref`` and
+  ``lanczos_step_df_ref``, which are the eager ops of the first port; any
+  other device raises.
 
 The kernels' reductions are fixed-order (no floating-point atomics), so
 their alpha and beta differ from the plain version's torch.dot in
@@ -33,14 +44,40 @@ q_{j+1} equals the plain version's bit for bit (``update_ref``,
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 
 from tpu_lanczos_torch.core import df64 as df
 
 # CUDA steps launched by each wrapper; only the wrapper adds to it, once a
-# step (three kernel launches, four with reorthogonalization)
+# step (one kernel launch; four with reorthogonalization)
 launches_step = 0
 launches_step_df = 0
+
+# the kernels' shapes (csrc/lanczos_step.cu): blocks of THREADS threads,
+# at most MAX_GRID of them; row 5 holds 16-byte chunks of v and of q a
+# thread, REG_CHUNKS in registers and up to MAX_SMEM_CHUNKS more in
+# shared memory (SMEM_CHUNK_BYTES a block each); row 5c runs at most
+# DF_MAX_GRID blocks, maps 8 elements a thread a row (DF_SPAN a
+# block-row), its node stack takes DF_LEVEL_BYTES of shared memory a
+# level and a held row DF_HOLD_BYTES
+THREADS = 256
+MAX_GRID = 4096
+REG_CHUNKS = 4
+SMEM_CHUNK_BYTES = THREADS * 16 * 2
+MAX_SMEM_CHUNKS = 28
+DF_MAX_GRID = 512
+DF_SPAN = THREADS * 8
+DF_LEVEL_BYTES = 8 * THREADS * 4
+DF_HOLD_BYTES = 4 * DF_LEVEL_BYTES
+DF_MAX_ROWS_LOG = 20
+# row 5c holds row 0 only up to 2^DF_HOLD_MAX_ROWS_LOG rows: the held row
+# saves a re-read of 1/rows of the data but takes shared memory from the
+# L1 cache, and at 2^7 rows (Europe's size, on an H100) it cost 22%
+# (eval/step_tiers.py)
+DF_HOLD_MAX_ROWS_LOG = 4
 
 
 def workspace(device) -> torch.Tensor | None:
@@ -55,6 +92,130 @@ def workspace(device) -> torch.Tensor | None:
 
     nbytes = _build.library().tlt_lanczos_step_workspace_bytes()
     return torch.zeros(nbytes, dtype=torch.uint8, device=device)
+
+
+# ------------------------------------------------------------- the plans
+
+
+@dataclasses.dataclass(frozen=True)
+class StepPlan:
+    """Row 5's launch: ``grid`` co-resident blocks, each thread holding
+    REG_CHUNKS 16-byte chunks of v and of q in registers and
+    ``smem_chunks`` more in shared memory; chunks past those are re-read
+    in the later phases."""
+
+    grid: int
+    smem_chunks: int
+
+    def held_chunks(self) -> int:
+        return self.grid * THREADS * (REG_CHUNKS + self.smem_chunks)
+
+    def tier(self, n: int, value_bytes: int) -> str:
+        """"registers", "shared" or "stream" (part re-read)."""
+        if self.held_chunks() < n // (16 // value_bytes):
+            return "stream"
+        return "shared" if self.smem_chunks else "registers"
+
+
+def step_plan(n: int, value_bytes: int, coresident) -> StepPlan:
+    """Row 5's tier and grid for n elements of ``value_bytes`` (4 or 8).
+    ``coresident(smem_bytes)`` is the number of blocks of that kernel the
+    card holds at once.  The fewest shared chunks (0: registers only)
+    that hold all of v and q on chip, with only the blocks its chunks
+    need; else the count that holds the most, on its full grid,
+    re-reading the rest."""
+    chunks = max(n // (16 // value_bytes), 1)
+    best = None
+    for s in range(MAX_SMEM_CHUNKS + 1):
+        g = min(coresident(s * SMEM_CHUNK_BYTES), MAX_GRID)
+        if g < 1:
+            continue
+        per_block = THREADS * (REG_CHUNKS + s)
+        if g * per_block >= chunks:
+            return StepPlan(-(-chunks // per_block), s)
+        if best is None or g * per_block > best.held_chunks():
+            best = StepPlan(g, s)
+    if best is None:
+        raise RuntimeError("lanczos_step: no block of the kernel fits the "
+                           "card")
+    return best
+
+
+@dataclasses.dataclass(frozen=True)
+class DfPlan:
+    """Row 5c's launch: ``grid`` = G co-resident blocks (a power of 2),
+    2^``rows_log`` rows of the element map, row 0 held in shared memory
+    when ``hold``."""
+
+    grid: int
+    rows_log: int
+    hold: int
+
+    def smem_bytes(self) -> int:
+        return (self.rows_log * DF_LEVEL_BYTES
+                + self.hold * DF_HOLD_BYTES)
+
+
+def df_geometry(n: int, coresident) -> DfPlan:
+    """Row 5c's element map for n elements: P = the padded length (a
+    power of 2, at least 2048), G = the largest power of 2 at most P /
+    2048 and DF_MAX_GRID whose blocks are co-resident
+    (``coresident(smem_bytes)`` blocks fit the card at once), with row 0
+    held if that still fits and there are at most
+    2^DF_HOLD_MAX_ROWS_LOG rows, and P / (G * 2048) rows.  bn1M (n_pad
+    2^20) on an H100 (two blocks an SM): 256 blocks, two rows."""
+    p = DF_SPAN
+    while p < n:
+        p <<= 1
+    g = min(p // DF_SPAN, DF_MAX_GRID)
+    while g >= 1:
+        rows_log = (p // (g * DF_SPAN)).bit_length() - 1
+        if rows_log <= DF_MAX_ROWS_LOG:
+            holds = (1, 0) if rows_log <= DF_HOLD_MAX_ROWS_LOG else (0,)
+            for hold in holds:
+                plan = DfPlan(g, rows_log, hold)
+                if coresident(plan.smem_bytes()) >= g:
+                    return plan
+        g //= 2
+    raise RuntimeError(f"lanczos_step_df: no co-resident grid for n={n}")
+
+
+@functools.lru_cache(maxsize=None)
+def _occupancy_on(index: int, kind: int, value_bytes: int,
+                  smem_bytes: int) -> int:
+    """Blocks of a one-launch kernel (kind 0 row 5, 1 row 5c) the whole
+    card holds at once."""
+    from tpu_lanczos_torch.kernels import _build
+
+    lib = _build.library()
+    with torch.cuda.device(index):
+        per_sm = lib.tlt_lanczos_step_occupancy(kind, value_bytes,
+                                                smem_bytes)
+    if per_sm < 0:
+        raise RuntimeError(f"lanczos step occupancy failed: CUDA error "
+                           f"{-per_sm}")
+    return per_sm * torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_on(index: int, n: int, value_bytes: int) -> StepPlan:
+    return step_plan(n, value_bytes, lambda smem: _occupancy_on(
+        index, 0, value_bytes, smem))
+
+
+@functools.lru_cache(maxsize=None)
+def _df_plan_on(index: int, n: int) -> DfPlan:
+    return df_geometry(n, lambda smem: _occupancy_on(index, 1, 4, smem))
+
+
+def plan_for(device, n: int, value_bytes: int) -> StepPlan:
+    """The plan ``lanczos_step`` uses on ``device`` (a CUDA device)."""
+    return _plan_on(torch.device(device).index or 0, n, value_bytes)
+
+
+def df_plan_for(device, n: int) -> DfPlan:
+    """The plan ``lanczos_step_df`` uses on ``device``."""
+    return _df_plan_on(torch.device(device).index or 0, n)
 
 
 # ------------------------------------------------------------- row 5, plain
@@ -83,8 +244,11 @@ def _reorthogonalize(v, q_basis, j: int):
 
 
 def lanczos_step_ref(v, q, q_prev, alpha, beta, j: int, *, q_basis=None,
-                     store=None, ans=None, coeff=None):
-    """The plain version of ``lanczos_step``: the eager torch ops."""
+                     store=None, ans=None, coeff=None, mask=None):
+    """The plain version of ``lanczos_step``: the eager torch ops (with
+    ``mask``, first the SpMV's multiply ``v * mask``)."""
+    if mask is not None:
+        v = v * mask.to(v.dtype)
     b_prev = beta[j - 1] if j > 0 else beta.new_zeros(())
     a = torch.dot(v, q)
     v = update_ref(v, q, q_prev, a, b_prev)
@@ -137,9 +301,12 @@ def accum_df_ref(ans, coeff, jc: int, q):
 
 
 def lanczos_step_df_ref(v, q, q_prev, alpha, beta, j: int, *, ans=None,
-                        coeff=None):
+                        coeff=None, mask=None):
     """The plain version of ``lanczos_step_df``: core/df64.py's eager
-    ops."""
+    ops (with ``mask``, first the df SpMV's multiply of hi and lo)."""
+    if mask is not None:
+        m = mask.to(v[0].dtype)
+        v = (v[0] * m, v[1] * m)
     zero = alpha[0].new_zeros(())
     b_prev = (beta[0][j - 1], beta[1][j - 1]) if j > 0 else (zero, zero)
     a = df.df_dot(v, q)
@@ -222,25 +389,32 @@ def _check_distinct(what: str, out, *ins) -> None:
     input it reads later."""
     for t in ins:
         if t is not None and out.data_ptr() == t.data_ptr():
-            raise ValueError(f"{what}: v must not alias q or q_prev")
+            raise ValueError(f"{what}: v must not alias q, q_prev or mask")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def lanczos_step(v, q, q_prev, alpha, beta, j: int, *, q_basis=None,
-                 store=None, ans=None, coeff=None, work=None):
+                 store=None, ans=None, coeff=None, work=None, mask=None,
+                 plan: StepPlan | None = None):
     """One step of the recurrence after the SpMV ``v = A q``: alpha[j] =
     <v, q>; v' = v - alpha[j] q - beta[j-1] q_prev; with ``q_basis``
     (k, n), v' is reorthogonalized against rows 0..j; beta[j] = ||v'||;
     returns q_{j+1} = v' / beta[j] (zero on breakdown).  ``store`` also
     receives q_{j+1}; with ``ans``, ``ans += coeff[j + 1] * q_{j+1}`` in
-    place.  ``work`` is the loop's ``workspace`` (made here if None).
+    place.  With ``mask`` (float32 0/1, (n,)) the step takes ``v * mask``
+    for v.  ``work`` is the loop's ``workspace`` (made here if None);
+    ``plan`` the launch (``plan_for``'s if None).
 
-    The CUDA kernels on a CUDA tensor (``v`` is overwritten with the
+    The CUDA kernel on a CUDA tensor (``v`` is overwritten with the
     returned q_{j+1}), the plain version on a CPU tensor."""
     global launches_step
     if v.device.type == "cpu":
         return lanczos_step_ref(v, q, q_prev, alpha, beta, j,
                                 q_basis=q_basis, store=store, ans=ans,
-                                coeff=coeff)
+                                coeff=coeff, mask=mask)
     if v.device.type != "cuda":
         raise ValueError(f"no Lanczos step for device {v.device}")
     if v.dtype not in (torch.float32, torch.float64):
@@ -248,10 +422,11 @@ def lanczos_step(v, q, q_prev, alpha, beta, j: int, *, q_basis=None,
                         f"{v.dtype}")
     n = v.shape[0]
     _check_vectors("lanczos_step", v.dtype, n, v, q, q_prev, store, ans)
+    _check_vectors("lanczos_step", torch.float32, n, mask)
     _check_scalars("lanczos_step", v.dtype, v.device, j, alpha, beta)
     if v.dim() != 1:
         raise ValueError(f"lanczos_step: v must be (n,), got {tuple(v.shape)}")
-    _check_distinct("lanczos_step", v, q, q_prev, store, ans)
+    _check_distinct("lanczos_step", v, q, q_prev, store, ans, mask)
     if ans is not None:
         _check_scalars("lanczos_step", v.dtype, v.device, j + 1, coeff)
     from tpu_lanczos_torch.kernels import _build
@@ -261,17 +436,19 @@ def lanczos_step(v, q, q_prev, alpha, beta, j: int, *, q_basis=None,
         work = workspace(v.device)
     stream = torch.cuda.current_stream(v.device).cuda_stream
     vb = v.element_size()
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    tail = (ptr(store), ptr(ans), ptr(coeff), j + 1, work.data_ptr(),
-            stream)
+    tail = (_ptr(store), _ptr(ans), _ptr(coeff), j + 1, work.data_ptr())
     if q_basis is None:
+        if plan is None:
+            plan = plan_for(v.device, n, vb)
         _raise_on(lib.tlt_lanczos_step(
-            v.data_ptr(), q.data_ptr(), q_prev.data_ptr(), alpha.data_ptr(),
-            beta.data_ptr(), n, j, vb, *tail), "lanczos_step")
+            v.data_ptr(), _ptr(mask), q.data_ptr(), q_prev.data_ptr(),
+            alpha.data_ptr(), beta.data_ptr(), n, j, vb, *tail, plan.grid,
+            plan.smem_chunks, stream), "lanczos_step")
     else:
+        # off the main path: the pass kernels around the two GEMVs, after
+        # the mask's multiply in place
+        if mask is not None:
+            v.mul_(mask.to(v.dtype))
         _raise_on(lib.tlt_lanczos_step_head(
             v.data_ptr(), q.data_ptr(), q_prev.data_ptr(), alpha.data_ptr(),
             beta.data_ptr(), n, j, vb, work.data_ptr(), stream),
@@ -279,14 +456,15 @@ def lanczos_step(v, q, q_prev, alpha, beta, j: int, *, q_basis=None,
         w = _reorthogonalize(v, q_basis, j).contiguous()
         _check_vectors("lanczos_step", v.dtype, n, w)
         _raise_on(lib.tlt_lanczos_step_tail(
-            v.data_ptr(), w.data_ptr(), beta.data_ptr(), n, j, vb, *tail),
-            "lanczos_step")
+            v.data_ptr(), w.data_ptr(), beta.data_ptr(), n, j, vb, *tail,
+            stream), "lanczos_step")
     launches_step += 1
     return v
 
 
 def lanczos_step_df(v, q, q_prev, alpha, beta, j: int, *, ans=None,
-                    coeff=None, work=None):
+                    coeff=None, work=None, mask=None,
+                    plan: DfPlan | None = None):
     """One df64 step after the df SpMV ``v = A q``, every vector a (hi,
     lo) float32 pair and alpha, beta (hi, lo) pairs of (k,) buffers:
     alpha[j] = df_dot(v, q); v' = df_sub(v, df_add(df_scale(alpha[j], q),
@@ -294,26 +472,28 @@ def lanczos_step_df(v, q, q_prev, alpha, beta, j: int, *, ans=None,
     = df_scale(1 / beta[j], v') (zero on breakdown).  With ``ans`` (a
     (hi, lo) pair of (n,) or (n_ans, n)) and ``coeff`` ((k,) or (n_ans,
     k) pairs), ``ans = df_add(ans, df_scale(coeff[j + 1], q_{j+1}))`` in
-    place.  ``work`` as in ``lanczos_step``.
+    place.  ``work`` and ``mask`` as in ``lanczos_step`` (the mask
+    multiplies hi and lo); ``plan`` the launch (``df_plan_for``'s if
+    None).
 
-    The CUDA kernels on CUDA tensors (v's two tensors are overwritten
+    The CUDA kernel on CUDA tensors (v's two tensors are overwritten
     with the returned q_{j+1}), the plain version on CPU tensors."""
     global launches_step_df
     vh, vl = v
     if vh.device.type == "cpu":
         return lanczos_step_df_ref(v, q, q_prev, alpha, beta, j, ans=ans,
-                                   coeff=coeff)
+                                   coeff=coeff, mask=mask)
     if vh.device.type != "cuda":
         raise ValueError(f"no df64 Lanczos step for device {vh.device}")
     n = vh.shape[0]
     f32 = torch.float32
-    _check_vectors("lanczos_step_df", f32, n, *v, *q, *q_prev)
+    _check_vectors("lanczos_step_df", f32, n, *v, *q, *q_prev, mask)
     if vh.dim() != 1:
         raise ValueError(f"lanczos_step_df: v must be (n,) pairs, got "
                          f"{tuple(vh.shape)}")
     _check_scalars("lanczos_step_df", f32, vh.device, j, *alpha, *beta)
-    _check_distinct("lanczos_step_df", vh, *q, *q_prev, vl)
-    _check_distinct("lanczos_step_df", vl, *q, *q_prev)
+    _check_distinct("lanczos_step_df", vh, *q, *q_prev, vl, mask)
+    _check_distinct("lanczos_step_df", vl, *q, *q_prev, mask)
     n_ans, c_stride, ans_p, coeff_p = 0, 0, (None, None), (None, None)
     if ans is not None:
         _check_vectors("lanczos_step_df", f32, n, *ans)
@@ -341,11 +521,14 @@ def lanczos_step_df(v, q, q_prev, alpha, beta, j: int, *, ans=None,
     lib = _build.library()
     if work is None:
         work = workspace(vh.device)
+    if plan is None:
+        plan = df_plan_for(vh.device, n)
     _raise_on(lib.tlt_lanczos_step_df(
-        vh.data_ptr(), vl.data_ptr(), q[0].data_ptr(), q[1].data_ptr(),
-        q_prev[0].data_ptr(), q_prev[1].data_ptr(), alpha[0].data_ptr(),
-        alpha[1].data_ptr(), beta[0].data_ptr(), beta[1].data_ptr(), n, j,
-        *ans_p, *coeff_p, j + 1, n_ans, c_stride, work.data_ptr(),
+        vh.data_ptr(), vl.data_ptr(), _ptr(mask), q[0].data_ptr(),
+        q[1].data_ptr(), q_prev[0].data_ptr(), q_prev[1].data_ptr(),
+        alpha[0].data_ptr(), alpha[1].data_ptr(), beta[0].data_ptr(),
+        beta[1].data_ptr(), n, j, *ans_p, *coeff_p, j + 1, n_ans, c_stride,
+        work.data_ptr(), plan.grid, plan.rows_log, plan.hold,
         torch.cuda.current_stream(vh.device).cuda_stream),
         "lanczos_step_df")
     launches_step_df += 1

@@ -239,9 +239,11 @@ def run_level_comp(x2d: torch.Tensor, level: dict, n_chunks: int,
     return out, err_out
 
 
-def _spmv(cg: CPGGraph, x: torch.Tensor, level_fn) -> torch.Tensor:
+def _spmv(cg: CPGGraph, x: torch.Tensor, level_fn,
+          masked: bool = True) -> torch.Tensor:
     """The reference's level loop (spmv_cpg.py:379-416) over ``level_fn``,
-    each level run in the pack's layout."""
+    each level run in the pack's layout; with ``masked=False`` the result
+    before its realmask multiply (which a Lanczos step folds in)."""
     C, sub = cg.n_chunks, cg.sub
     slab = cg.layout == "slab"
     x2d = x.reshape(cg.n_sub, LANE)
@@ -256,13 +258,19 @@ def _spmv(cg: CPGGraph, x: torch.Tensor, level_fn) -> torch.Tensor:
     for level in cg.levels[nb + 1:]:
         # reduce pass: fold virtual-row partial sums into their parents
         y2d = level_fn(y2d, level, C, sub, base=y2d, slab=slab)
+    if not masked:
+        return y2d.reshape(-1)
     return y2d.reshape(-1) * cg.realmask.to(x.dtype)
 
 
-def spmv_cpg(cg: CPGGraph, x: torch.Tensor) -> torch.Tensor:
+def spmv_cpg(cg: CPGGraph, x: torch.Tensor, *,
+             masked: bool = True) -> torch.Tensor:
     """y = A @ x; x is (n_pad,) in CPG-permuted order, lane-127 slots zero.
-    Every level goes through ``run_level``."""
-    return _spmv(cg, x, run_level)
+    Every level goes through ``run_level``.  ``masked=False`` returns y
+    before its multiply by ``cg.realmask`` (exact 0/1): the Lanczos step
+    (``kernels/lanczos_step.py``, ``mask=``) does that multiply as it
+    loads y."""
+    return _spmv(cg, x, run_level, masked)
 
 
 def spmv_cpg_ref(cg: CPGGraph, x: torch.Tensor) -> torch.Tensor:
@@ -272,7 +280,8 @@ def spmv_cpg_ref(cg: CPGGraph, x: torch.Tensor) -> torch.Tensor:
 
 
 def _spmv_df(cg: CPGGraph, x_hi: torch.Tensor, x_lo: torch.Tensor,
-             level_fn, comp_fn) -> tuple[torch.Tensor, torch.Tensor]:
+             level_fn, comp_fn,
+             masked: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """The reference's double-word level loop (spmv_cpg.py:419-483) over
     ``level_fn`` and ``comp_fn``.  Routing moves values exactly; the only
     rounding is the tile sum, which ``comp_fn`` two-sums into an error
@@ -298,14 +307,18 @@ def _spmv_df(cg: CPGGraph, x_hi: torch.Tensor, x_lo: torch.Tensor,
     # two_sum, not fast_two_sum: after cancellation in the hi stream a
     # cell's |e| can exceed |y|, where the fast form is inexact
     hi, lo = two_sum(y2d.reshape(-1), e2d.reshape(-1))
+    if not masked:
+        return hi, lo
     mask = cg.realmask.to(x_hi.dtype)  # exact 0/1 multiply
     return hi * mask, lo * mask
 
 
-def spmv_cpg_df(cg: CPGGraph, x_hi: torch.Tensor, x_lo: torch.Tensor):
+def spmv_cpg_df(cg: CPGGraph, x_hi: torch.Tensor, x_lo: torch.Tensor, *,
+                masked: bool = True):
     """Double-word SpMV: y = A @ (x_hi + x_lo) as a (hi, lo) float32 pair.
-    Every level goes through ``run_level`` and ``run_level_comp``."""
-    return _spmv_df(cg, x_hi, x_lo, run_level, run_level_comp)
+    Every level goes through ``run_level`` and ``run_level_comp``.
+    ``masked=False`` as in ``spmv_cpg``: the df64 step folds the mask."""
+    return _spmv_df(cg, x_hi, x_lo, run_level, run_level_comp, masked)
 
 
 def spmv_cpg_df_ref(cg: CPGGraph, x_hi: torch.Tensor, x_lo: torch.Tensor):
