@@ -80,7 +80,12 @@ jax or of the JAX package.  Each phase prints one JSON line:
      the halo path on a 2-D stencil, the sharded estimators against
      phase 10, one NCCL rank, the CLI's ``--shards``, and CUDA-event
      times (the shards run in turn on one card: kernel work and
-     launches, no collective over a link);
+     launches, no collective over a link); and rows 5d and 5cd, the
+     step's per-shard passes: each pass kernel against its plain version
+     at a shard's n_loc and at an odd chunk count, the exact pass counts
+     of every sharded loop, the per-shard step's device time beside the
+     eager passes' and its bound, and the 4-shard Lanczos and df64 query
+     through the kernels and through the eager passes in turns;
  12  the eval harness (``tpu_lanczos_torch.eval``) on phase 3's graph,
      pack and phase 4's oracle answer: the stage breakdown (kernel 1's
      launches per Lanczos, the staged answer against ``expm_action``'s;
@@ -160,6 +165,8 @@ COUNTERS = tuple(("tpu_lanczos_torch.kernels.spmv_cpg", c) for c in (
     ("tpu_lanczos_torch.eval.mxu_probe", "launches_mxu"),
     ("tpu_lanczos_torch.kernels.lanczos_step", "launches_step"),
     ("tpu_lanczos_torch.kernels.lanczos_step", "launches_step_df"),
+    ("tpu_lanczos_torch.kernels.lanczos_step", "launches_step_sharded"),
+    ("tpu_lanczos_torch.kernels.lanczos_step", "launches_step_df_sharded"),
 )
 CLI_SMALL = ["-b", "4", "-n", "20000", "-k", "50"]
 # phase 10: the library defaults of estrada_index and subgraph_centrality,
@@ -958,6 +965,14 @@ SHARD_REPLACES = ("tpu_lanczos/dist/cpg_sharded.py:439 (_local_spmv; "
                   "tpu_lanczos/kernels/spmv_cpg.py:342)")
 SHARD_COMP_REPLACES = ("tpu_lanczos/dist/lanczos_df.py:79 (_local_spmv_df; "
                        "tpu_lanczos/kernels/spmv_cpg.py:342, compensated)")
+SHARD_STEP_REPLACES = ("tpu_lanczos/dist/mesh.py:82-107 and :189-220 (the "
+                       "XLA-fused step of the sharded fori_loops around "
+                       "their psums; no Pallas kernel)")
+SHARD_STEP_DF_REPLACES = ("tpu_lanczos/dist/lanczos_df.py:171-188 "
+                          "(_body_core_sh after the df SpMV, _df_allsum :48 "
+                          "between; no Pallas kernel)")
+# one 512-row chunk of 128 lanes: the odd chunk count of the pass checks
+CHUNK = SUB * 128
 
 
 def shard_level_checks(torch, spmv_cpg, errs: dict, what: str):
@@ -998,6 +1013,214 @@ def shard_passes(sg) -> list:
     is skipped on the host)."""
     return [i for i in range(len(sg.levels))
             if i >= sg.n_main or sg.t_reals[i] > 0]
+
+
+def shard_pass_case(torch, v_raw, q, qp, mask):
+    """Row 5d on one shard's inputs (v before its realmask multiply):
+    the dot within 1e-6 (f32) or 1e-13 (f64) relative of torch.dot and
+    equal in two runs; v' from the update pass given that dot, then
+    reorthogonalization's pass on v' with w the two GEMVs' result
+    against the basis (q_{j-1}, q_j), and q_{j+1} and the stored row
+    from the normalize pass given the kernel's norm, equal to the plain
+    versions bit for bit; each norm within the same bar.  The vectors
+    the passes write keep v_raw's alignment, so inputs sliced off a
+    16-byte boundary run the one-value (V = 1) builds.  Returns (largest
+    |kernel - plain|, largest relative dot or norm difference)."""
+    from tpu_lanczos_torch.kernels import lanczos_step as ls
+
+    off = v_raw.data_ptr() % 16 // v_raw.element_size()
+
+    def fresh(t):  # a copy of t at v_raw's offset from 16 bytes
+        return t.new_empty(t.numel() + off)[off:].copy_(t)
+
+    dt = v_raw.dtype
+    tol = 1e-6 if dt == torch.float32 else 1e-13
+    a = ls.shard_step_dot(v_raw, q, mask=mask)
+    check(torch.equal(a, ls.shard_step_dot(v_raw, q, mask=mask)),
+          "row 5d: two runs of the dot pass bit-identical")
+    a_ref = ls.shard_step_dot_ref(v_raw, q, mask)
+    ss_prev = torch.tensor(0.5625, dtype=dt, device=v_raw.device)
+    v_k, part = ls.shard_step_update(fresh(v_raw), q, qp, a, ss_prev,
+                                     mask=mask)
+    v_r, part_r = ls.shard_step_update_ref(v_raw, q, qp, a, ss_prev, mask)
+    check(torch.equal(v_k, v_r), f"row 5d ({dt}, offset {off}): v' == "
+          f"plain given the kernel's dot")
+    basis = torch.stack((qp, q))
+    w = torch.matmul(basis.T, torch.matmul(basis, v_k))
+    v_s, sub = ls.shard_step_sub_norm(v_k, fresh(w))
+    v_sr, sub_r = ls.shard_step_sub_norm_ref(v_r, w)
+    check(torch.equal(v_s, v_sr), f"row 5d ({dt}, offset {off}): v' - w "
+          f"of the sub-norm pass == plain")
+    store = fresh(torch.zeros_like(q))
+    q_k = ls.shard_step_normalize(fresh(v_s), sub, store=store)
+    q_r = ls.shard_step_normalize_ref(v_sr, sub)
+    check(torch.equal(q_k, q_r) and torch.equal(store, q_r),
+          f"row 5d ({dt}, offset {off}): q_(j+1) and the stored row == "
+          f"plain given the kernel's norm")
+    diffs = [(a, a_ref), (part, part_r), (sub, sub_r)]
+    rel = max(float(abs(x - y) / abs(y)) for x, y in diffs)
+    check(rel < tol, f"row 5d ({dt}, offset {off}): dot and norms within "
+          f"{tol} ({rel})")
+    return max(float(abs(x - y)) for x, y in diffs), rel
+
+
+def shard_df_pass_case(torch, v_raw, q, qp, mask):
+    """Row 5cd as ``shard_pass_case`` on (hi, lo) pairs: the df dot's
+    and the norm's hi words equal to the plain tree's, both within 5e-11
+    of its df value, two runs equal; v', q_{j+1} and the recombine fold
+    bit-identical to the plain versions given the kernel's scalars."""
+    from tpu_lanczos_torch.core import df64 as df
+    from tpu_lanczos_torch.kernels import lanczos_step as ls
+
+    def f64(p):
+        return float(df.df_to_f64((p[0], p[1])))
+
+    a = ls.shard_df_dot(v_raw, q, mask=mask)
+    check(torch.equal(a, ls.shard_df_dot(v_raw, q, mask=mask)),
+          "row 5cd: two runs of the df dot pass bit-identical")
+    a_ref = ls.shard_df_dot_ref(v_raw, q, mask)
+    a = (a[0], a[1])
+    dev = q[0].device
+    ssp = (torch.tensor(0.5625, device=dev), torch.tensor(1e-9, device=dev))
+    v_k, part = ls.shard_df_update((v_raw[0].clone(), v_raw[1].clone()), q,
+                                   qp, a, ssp, mask=mask)
+    v_r, part_r = ls.shard_df_update_ref(v_raw, q, qp, a, ssp, mask)
+    check(torch.equal(v_k[0], v_r[0]) and torch.equal(v_k[1], v_r[1]),
+          "row 5cd: v' == plain given the kernel's dot")
+    check(float(a[0]) == float(a_ref[0])
+          and float(part[0]) == float(part_r[0]),
+          "row 5cd: the dot's and the norm's hi words == the plain tree's")
+    rel = max(abs(f64(a) - f64(a_ref)) / abs(f64(a_ref)),
+              abs(f64(part) - f64(part_r)) / abs(f64(part_r)))
+    check(rel < 5e-11, f"row 5cd: dot and norm within 5e-11 ({rel})")
+    ss = (part[0], part[1])
+    k = 4
+    coeff = (torch.linspace(0.5, 1.5, k, device=dev),
+             torch.full((k,), 1e-9, device=dev))
+    ans = (3.0 * qp[0], 3.0 * qp[1])
+    acc = (ans[0].clone(), ans[1].clone())
+    q_k = ls.shard_df_normalize((v_k[0].clone(), v_k[1].clone()), ss,
+                                j=2, ans=ans, coeff=coeff)
+    q_r = ls.shard_df_normalize_ref(v_r, ss, j=2, ans=acc, coeff=coeff)
+    check(all(torch.equal(x, y) for x, y in zip((*q_k, *ans),
+                                                 (*q_r, *acc))),
+          "row 5cd: q_(j+1) and the fold == plain given the kernel's norm")
+    err = max(abs(f64(a) - f64(a_ref)), abs(f64(part) - f64(part_r)))
+    return err, rel
+
+
+def shard_step_bound(n_loc: int, df: bool):
+    """A shard's step after the SpMV at least: v, the realmask, q_j and
+    q_{j-1} read and q_{j+1} written once, plus the second read of v that
+    the split at the psums adds (each vector a (hi, lo) pair in df64);
+    the operations as ``step_bound`` counts them."""
+    vb = 8 if df else 4
+    return bound(n_loc * (5 * vb + 4), n_loc * (209 if df else 9))
+
+
+@contextlib.contextmanager
+def eager_shard_passes():
+    """Every sharded loop runs the plain versions of rows 5d and 5cd in
+    the block: the eager step of the first port, to time beside the
+    kernels in one run."""
+    from tpu_lanczos_torch.kernels import lanczos_step as ls
+
+    names = ("shard_step_dot", "shard_step_update", "shard_step_sub_norm",
+             "shard_step_normalize", "shard_df_dot", "shard_df_update",
+             "shard_df_normalize")
+    real = {n: getattr(ls, n) for n in names}
+    for n in names:
+        ref = getattr(ls, n + "_ref")
+        setattr(ls, n, lambda *a, ref=ref, work=None, **kw: ref(*a, **kw))
+    try:
+        yield
+    finally:
+        for n, fn in real.items():
+            setattr(ls, n, fn)
+
+
+def shard_step_phase(torch, g, sg4, mesh4, xr, rng) -> dict:
+    """Rows 5d and 5cd at bn1M on 4 shards: ``shard_pass_case`` and
+    ``shard_df_pass_case`` on every shard's inputs of one step (the
+    unmasked SpMV of x / ||x||, q_{j-1} the normalized ones), on
+    random inputs of 3 chunks and (row 5d) on those sliced one value off
+    16 bytes; then one shard's step (shard 1) through the
+    pass kernels and the eager passes (``eval/step_tiers.py``
+    ``shard_step``), queued behind a sleep, in turns, beside its bound.
+    Returns the part's numbers."""
+    from tpu_lanczos_torch.core.lanczos_df import split_f64
+    from tpu_lanczos_torch.dist.cpg_sharded import _local_spmv
+    from tpu_lanczos_torch.dist.lanczos_df import _local_spmv_df
+    from tpu_lanczos_torch.eval.step_tiers import shard_step
+    from tpu_lanczos_torch.kernels.spmv_cpg import run_level, run_level_comp
+
+    n_loc = sg4.n_loc
+    xq = sg4.permute_in(xr / np.linalg.norm(xr), np.float64)
+    xp = sg4.permute_in(np.ones(N) / np.sqrt(N), np.float64)
+    err = {"5d": 0.0, "5cd": 0.0}
+    rel = {"5d": 0.0, "5cd": 0.0}
+
+    def note(row, er):
+        err[row] = max(err[row], er[0])
+        rel[row] = max(rel[row], er[1])
+
+    inputs = {}
+    for dt in (torch.float32, torch.float64):
+        q = mesh4.split(xq, n_loc, dtype=dt)
+        qp = mesh4.split(xp, n_loc, dtype=dt)
+        v = _local_spmv(sg4, mesh4, q, run_level, masked=False)
+        for s in range(SHARDS):
+            note("5d", shard_pass_case(torch, v[s], q[s], qp[s],
+                                       sg4.realmask[s]))
+        inputs[dt] = (v[1], q[1], qp[1])
+    pairs = [list(zip(*(mesh4.split(t, n_loc) for t in split_f64(a))))
+             for a in (xq, xp)]
+    v_df = _local_spmv_df(sg4, mesh4, pairs[0], run_level, run_level_comp,
+                          masked=False)
+    for s in range(SHARDS):
+        note("5cd", shard_df_pass_case(torch, v_df[s], pairs[0][s],
+                                       pairs[1][s], sg4.realmask[s]))
+    # an odd chunk count: 3 chunks of random inputs
+    n3 = 3 * CHUNK
+    dev = sg4.realmask[0].device
+    m3 = torch.from_numpy((rng.random(n3) < 0.9).astype(np.float32)).to(dev)
+    r3 = [rng.standard_normal(n3) for _ in range(3)]
+    r3[1] /= np.linalg.norm(r3[1])
+    r3[2] /= np.linalg.norm(r3[2])
+    for dt in (torch.float32, torch.float64):
+        t3 = [torch.from_numpy(a).to(dev, dt) for a in r3]
+        note("5d", shard_pass_case(torch, *t3, m3))
+        # off 16 bytes: the one-value builds
+        note("5d", shard_pass_case(torch, *(t[1:] for t in t3), m3[1:]))
+    note("5cd", shard_df_pass_case(torch, *(tuple(
+        torch.from_numpy(t).to(dev) for t in split_f64(a)) for a in r3),
+        m3))
+    out = {"n_loc": n_loc, "odd_chunks_n": n3,
+           "max_abs_err_5d": err["5d"], "max_rel_5d": rel["5d"],
+           "max_abs_err_5cd": err["5cd"], "max_rel_5cd": rel["5cd"]}
+    # one shard's step, kernel and eager passes in turns
+    mask1 = sg4.realmask[1]
+    cases = {"f32": (*inputs[torch.float32], False, 100, 20),
+             "df64": (v_df[1], pairs[0][1], pairs[1][1], True, 50, 5)}
+    for name, (v, q, qp, df, k_calls, e_calls) in cases.items():
+        kernel = shard_step(v, q, qp, mask1, df, True)
+        eager = shard_step(v, q, qp, mask1, df, False)
+        turns = {}
+        for tag in ("eager_1", "kernel_1", "kernel_2", "eager_2"):
+            fn, calls = ((kernel, k_calls) if tag.startswith("kernel")
+                         else (eager, e_calls))
+            ms, samples, host_ms = queued_ms(torch, fn, calls)
+            turns[tag] = {"device_ms": ms, "samples": samples,
+                          "host_enqueue_ms": host_ms, "calls": calls}
+        b_ms, b_by = shard_step_bound(n_loc, df)
+        k_ms = float(np.median([turns[t]["device_ms"]
+                                for t in ("kernel_1", "kernel_2")]))
+        out[name] = {"device_ms": k_ms, "eager_device_ms": float(np.median(
+            [turns[t]["device_ms"] for t in ("eager_1", "eager_2")])),
+            "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / k_ms,
+            "turns": turns}
+    del inputs, v_df, pairs
+    return out
 
 
 def sharded_spmv_cost(sg, value_bytes: int = 4):
@@ -1150,17 +1373,26 @@ def sharded_phase(torch, g, dev, ref, ref_shift, top_ref, p10,
 
     # ---- the main path, each query counted exactly
     xr1 = sg4.permute_in(np.ones(N), np.float32)
+    # row 5d: 3 pass launches a shard a step; row 5cd: 3 a shard a step
+    # of the 2k - 1 and each pass's start norm (a df dot a shard)
+    steps_f32 = 3 * K * SHARDS
+    steps_df = SHARDS * (3 * (2 * K - 1) + 2)
     st, ms_l, wall_l, counts = timed_call(
         torch, lambda: lanczos_cpg_sharded(sg4, xr1, K, mesh4))
-    check_counts(counts, {"launches": K * per_spmv},
-                 "lanczos_cpg_sharded: k * shards * passes")
+    check_counts(counts, {"launches": K * per_spmv,
+                          "launches_step_sharded": steps_f32},
+                 "lanczos_cpg_sharded: k * shards * passes, 3 * k * shards "
+                 "step passes")
     lanczos_launches = counts["launches"]
     (ans, shift, _, _), _, wall_e, counts = timed_call(
         torch, lambda: expm_action_sharded(sg4, k=K, mesh=mesh4, fmt="cpg",
                                            log_scale=True))
-    check_counts(counts, {"launches": K * per_spmv},
-                 "expm_action_sharded: k * shards * passes")
+    check_counts(counts, {"launches": K * per_spmv,
+                          "launches_step_sharded": steps_f32},
+                 "expm_action_sharded: k * shards * passes, 3 * k * shards "
+                 "step passes")
     expm_launches = counts["launches"]
+    expm_step_launches = counts["launches_step_sharded"]
     rel32 = rel_to_oracle(ans, shift)
     top32 = set(np.argsort(ans)[-TOPK:].tolist())
     check(rel32 < 1e-4, f"sharded f32 rel_error {rel32} < 1e-4")
@@ -1169,9 +1401,12 @@ def sharded_phase(torch, g, dev, ref, ref_shift, top_ref, p10,
         torch, lambda: expm_action_df_sharded(g, k=K, mesh=mesh4, sg=sg4,
                                               log_scale=True))
     check_counts(counts, {"launches": (2 * K - 1) * per_spmv,
-                          "launches_comp": (2 * K - 1) * per_spmv},
-                 "expm_action_df_sharded: (2k-1) * shards * passes each")
+                          "launches_comp": (2 * K - 1) * per_spmv,
+                          "launches_step_df_sharded": steps_df},
+                 "expm_action_df_sharded: (2k-1) * shards * passes each, "
+                 "shards * (3 (2k-1) + 2) df step passes")
     df_comp_launches = counts["launches_comp"]
+    df_step_launches = counts["launches_step_df_sharded"]
     rel_df = rel_to_oracle(res_df.ans, res_df.log_scale)
     top_df = set(np.argsort(res_df.ans)[-TOPK:].tolist())
     check(rel_df < 1e-10, f"sharded df64 rel_error {rel_df} < 1e-10")
@@ -1180,7 +1415,9 @@ def sharded_phase(torch, g, dev, ref, ref_shift, top_ref, p10,
     (ans_a, shift_a, _, sga), _, wall_a, counts = timed_call(
         torch, lambda: expm_action_sharded(g, k=K, mesh=mesh4, fmt="auto",
                                            log_scale=True))
-    check_counts(counts, {}, "fmt auto (ELL/COO torch ops): no kernel")
+    check_counts(counts, {"launches_step_sharded": steps_f32},
+                 "fmt auto (ELL/COO torch ops): no SpMV kernel, 3 * k * "
+                 "shards step passes")
     rel_a = rel_to_oracle(ans_a, shift_a)
     check(rel_a < 1e-4, f"sharded fmt auto rel_error {rel_a} < 1e-4")
     emit({"phase": 11, "part": "main_path", "k": K,
@@ -1188,6 +1425,8 @@ def sharded_phase(torch, g, dev, ref, ref_shift, top_ref, p10,
           "launches_expm": expm_launches,
           "launches_df_comp": df_comp_launches,
           "launches_df_plain": (2 * K - 1) * per_spmv,
+          "launches_step_sharded": expm_step_launches,
+          "launches_step_df_sharded": df_step_launches,
           "rel_error_f32": rel32, "rel_error_df64": rel_df,
           "rel_error_fmt_auto": rel_a, "top20_equal": True,
           "fmt_auto_ell_width": sga.ell_width,
@@ -1197,6 +1436,31 @@ def sharded_phase(torch, g, dev, ref, ref_shift, top_ref, p10,
           "lanczos_k50_event_ms": ms_l, "shift": shift,
           "oracle_shift": ref_shift})
     del st, sga
+
+    # ---- rows 5d and 5cd: every pass kernel against its plain version,
+    # on each shard's inputs of one bn1M step (n_loc = 2^18) and on an odd
+    # chunk count; then the per-shard step and the loops timed in turns
+    # with the eager passes
+    step = shard_step_phase(torch, g, sg4, mesh4, xr, rng)
+    t_step = {}
+    x1 = [r.clone() for r in sg4.realmask]
+    for tag in ("kernel_1", "eager_1", "eager_2", "kernel_2"):
+        with (eager_shard_passes() if tag.startswith("eager")
+              else contextlib.nullcontext()):
+            t_step[tag] = {
+                "lanczos_4_shard_k50_ms": cuda_ms(
+                    torch, lambda: lanczos_cpg_sharded(sg4, x1, K, mesh4),
+                    reps=3)[0],
+                "df64_query_4_shard_s": wall_s(
+                    torch, lambda: expm_action_df_sharded(
+                        g, k=K, mesh=mesh4, sg=sg4, log_scale=True),
+                    reps=2)[0]}
+    for key in ("lanczos_4_shard_k50_ms", "df64_query_4_shard_s"):
+        for kind in ("kernel", "eager"):
+            step[f"{key}_{kind}"] = float(np.median(
+                [t_step[f"{kind}_{i}"][key] for i in (1, 2)]))
+    step["loop_turns"] = t_step
+    emit({"phase": 11, "part": "step", **step})
 
     # ---- the halo path: a locality-ordered 2-D stencil
     gs = generators.stencil_2d(HALO_SIDE)
@@ -1220,8 +1484,10 @@ def sharded_phase(torch, g, dev, ref, ref_shift, top_ref, p10,
     (ans_s, shift_s, _, _), _, _, counts = timed_call(
         torch, lambda: expm_action_sharded(sgs, k=HALO_K, mesh=mesh4,
                                            fmt="cpg", log_scale=True))
-    check_counts(counts, {"launches": HALO_K * per_spmv_s},
-                 "stencil expm_action_sharded: k * shards * passes")
+    check_counts(counts, {"launches": HALO_K * per_spmv_s,
+                          "launches_step_sharded": 3 * HALO_K * SHARDS},
+                 "stencil expm_action_sharded: k * shards * passes, "
+                 "3 * k * shards step passes")
     t0 = time.time()
     ref_s, ref_s_shift = oracle.expm_action_shifted(gs, np.ones(gs.n),
                                                     HALO_K)
@@ -1257,9 +1523,14 @@ def sharded_phase(torch, g, dev, ref, ref_shift, top_ref, p10,
                 sg4, mesh=mesh4, fmt="cpg", **ESTRADA))
         want_l = (len(attempts) * k_defl
                   + ESTRADA["probes"] * ESTRADA["k"]) * per_spmv
-        check_counts(counts, {"launches": want_l},
+        # the deflation's reorthogonalized steps run 4 passes a shard
+        want_s = (4 * len(attempts) * k_defl
+                  + 3 * ESTRADA["probes"] * ESTRADA["k"]) * SHARDS
+        check_counts(counts, {"launches": want_l,
+                              "launches_step_sharded": want_s},
                      "estrada_index_sharded: (attempts*k_defl + probes*k)"
-                     " * launches per SpMV")
+                     " * launches per SpMV; (4 attempts*k_defl + 3 "
+                     "probes*k) * shards step passes")
         e10 = p10["estrada_float32"]
         d_log = abs(r.log_estimate - e10["log_estimate"])
         tol = 3.0 * float(np.hypot(r.rel_stderr, e10["rel_stderr"]))
@@ -1267,6 +1538,7 @@ def sharded_phase(torch, g, dev, ref, ref_shift, top_ref, p10,
               and d_log <= tol, f"sharded Estrada log {r.log_estimate} vs "
               f"phase 10's {e10['log_estimate']}: {d_log} <= {tol}")
         est["estrada"] = {"launches": counts["launches"],
+                          "step_passes": counts["launches_step_sharded"],
                           "attempts": len(attempts), "cuda_ms": ms,
                           "wall_s": wall, "log_estimate": r.log_estimate,
                           "rel_stderr": r.rel_stderr,
@@ -1279,14 +1551,20 @@ def sharded_phase(torch, g, dev, ref, ref_shift, top_ref, p10,
                 sg4, mesh=mesh4, fmt="cpg", **SUBGRAPH))
         want_l = (len(attempts) * k_defl + (dr.retries + 1)
                   * SUBGRAPH["probes"] * SUBGRAPH["k"]) * per_spmv
-        check_counts(counts, {"launches": want_l},
+        want_s = (4 * len(attempts) * k_defl + 3 * (dr.retries + 1)
+                  * SUBGRAPH["probes"] * SUBGRAPH["k"]) * SHARDS
+        check_counts(counts, {"launches": want_l,
+                              "launches_step_sharded": want_s},
                      "subgraph_centrality_sharded: (attempts*k_defl + "
-                     "(retries+1)*probes*k) * launches per SpMV")
+                     "(retries+1)*probes*k) * launches per SpMV; (4 "
+                     "attempts*k_defl + 3 (retries+1)*probes*k) * shards "
+                     "step passes")
         top1 = int(dr.top_nodes(1)[0])
         top1_10 = p10["subgraph_float32"]["top_nodes"][0]
         check(top1 == top1_10 and bool(np.all(np.isfinite(dr.diag_scaled))),
               f"sharded subgraph top-1 {top1} == phase 10's {top1_10}")
         est["subgraph"] = {"launches": counts["launches"],
+                           "step_passes": counts["launches_step_sharded"],
                            "attempts": len(attempts),
                            "retries": dr.retries, "cuda_ms": ms,
                            "wall_s": wall, "top_nodes": dr.top_nodes(
@@ -1295,12 +1573,16 @@ def sharded_phase(torch, g, dev, ref, ref_shift, top_ref, p10,
             torch, lambda: stochastic.spectral_density_sharded(
                 sg4, mesh=mesh4, fmt="cpg", **DOS))
         check_counts(counts, {"launches": DOS["probes"] * DOS["k"]
-                              * per_spmv},
+                              * per_spmv,
+                              "launches_step_sharded": 3 * DOS["probes"]
+                              * DOS["k"] * SHARDS},
                      "spectral_density_sharded: probes*k * launches per "
-                     "SpMV")
+                     "SpMV; 3 probes*k * shards step passes")
         mass = float(np.trapezoid(d.density, d.grid))
         check(abs(mass - 1.0) < 1e-3, f"sharded DOS mass {mass}")
-        est["dos"] = {"launches": counts["launches"], "cuda_ms": ms,
+        est["dos"] = {"launches": counts["launches"],
+                      "step_passes": counts["launches_step_sharded"],
+                      "cuda_ms": ms,
                       "wall_s": wall, "mass": mass,
                       "lambda_max": d.lambda_max}
     finally:
@@ -1408,6 +1690,8 @@ def sharded_phase(torch, g, dev, ref, ref_shift, top_ref, p10,
         reps=2)[0]
     syncs_expm = syncs(torch, lambda: expm_action_sharded(
         sg4, k=K, mesh=mesh4, fmt="cpg", log_scale=True))
+    check(syncs_expm == 4, f"expm_action_sharded: 4 host syncs "
+          f"({syncs_expm}): the step passes add no host read")
     # the library yardstick: each shard's row block of the permuted
     # matrix as a cuSPARSE CSR times the full vector, summed over shards
     rows, cols = g.row_ids(), g.indices
@@ -1460,6 +1744,22 @@ def sharded_phase(torch, g, dev, ref, ref_shift, top_ref, p10,
         "plain_ms": times["df_spmv_4_shard_plain_ms"],
         "bound_ms": df_bound[0], "bound_by": df_bound[1],
         "library_ms": None})
+    # rows 5d and 5cd: ms and plain_ms are one shard's step (three pass
+    # launches) and the eager passes' at bn1M's n_loc; launches count
+    # pass launches
+    for name, key, row, launches, replaces in (
+            ("lanczos_step_sharded", "f32", "5d", expm_step_launches,
+             SHARD_STEP_REPLACES),
+            ("lanczos_step_df_sharded", "df64", "5cd", df_step_launches,
+             SHARD_STEP_DF_REPLACES)):
+        entries.append({
+            "name": name, "route": "cuda", "source": STEP_SOURCE,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": step[f"max_abs_err_{row}"],
+            "ms": step[key]["device_ms"],
+            "plain_ms": step[key]["eager_device_ms"],
+            "bound_ms": step[key]["bound_ms"],
+            "bound_by": step[key]["bound_by"], "library_ms": None})
     return entries
 
 
@@ -1788,7 +2088,10 @@ def main() -> None:
                    "probe_reduce_kernel", *STEP_KERNELS,
                    "lanczos_step_df_kernel", "step_dot_kernel",
                    "step_update_kernel", "step_sub_norm_kernel",
-                   "step_normalize_kernel", "df_norm_kernel"):
+                   "step_normalize_kernel", "df_dot_kernel",
+                   "shard_dot_kernel", "shard_update_kernel",
+                   "shard_sub_norm_kernel", "shard_normalize_kernel",
+                   "df_update_kernel", "df_normalize_kernel"):
         check(any(kernel in k["kernel"] for k in ptxas), f"{kernel} built")
     os.makedirs(BUILD_DIR, exist_ok=True)
     cst_path = os.path.join(BUILD_DIR, f"cst_bn1M.{os.getpid()}.npz")

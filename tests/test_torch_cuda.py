@@ -978,3 +978,212 @@ def test_loops_fold_the_mask_bit_for_bit(dev, monkeypatch):
     for got, want in zip(ldf.lanczos_alphabeta_df(cg, hi, lo, k), df_folded):
         for g_t, w_t in zip(got, want):
             assert torch.equal(g_t, w_t)
+
+
+# ---- rows 5d and 5cd: the per-shard passes of the sharded loops
+
+
+def _at(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """A copy of t starting ``offset`` elements into a fresh buffer (an
+    offset of 1 leaves it off 16-byte alignment)."""
+    buf = t.new_zeros(t.shape[0] + offset)
+    buf[offset:] = t
+    return buf[offset:]
+
+
+def _pass_inputs(dev, n, dtype, seed, offset=0):
+    """v, q, q_prev and a float32 0/1 mask of n elements on the card."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal(n)
+    q /= np.linalg.norm(q)
+    vecs = [_at(torch.from_numpy(a).to(dev, dtype), offset) for a in (
+        rng.standard_normal(n), q, rng.standard_normal(n) / np.sqrt(n))]
+    mask = torch.from_numpy((rng.random(n) < 0.9).astype(np.float32))
+    return vecs, _at(mask.to(dev), offset)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,offset", [(1 << 18, 0), (3 * 128 * 128, 0),
+                                      (4099, 0), (4099, 1)])
+def test_shard_step_passes_equal_plain_versions(dev, dtype, n, offset):
+    """Row 5d at a shard's n_loc of bn1M over 4 shards (2^18), an odd
+    chunk count (3 chunks of 128 x 128), a tail past the 16-byte chunks
+    and unaligned vectors (the one-value path): the dot and the partial
+    norm within 1e-6 (f32) or 1e-13 (f64) relative of torch.dot, equal
+    in two runs; given the same scalars v',
+    q_{j+1}, the stored row and v - w equal the plain versions bit for
+    bit; alpha[j] and beta[j] written; one count a pass launch."""
+    from tpu_lanczos_torch.kernels import lanczos_step as ls
+
+    (v, q, qp), mask = _pass_inputs(dev, n, dtype, n, offset)
+    tol = 1e-6 if dtype == torch.float32 else 1e-13
+    before = ls.launches_step_sharded
+    a = ls.shard_step_dot(v, q, mask=mask)
+    assert torch.equal(a, ls.shard_step_dot(v, q, mask=mask))
+    assert _rel(a, ls.shard_step_dot_ref(v, q, mask)) < tol
+    ss_prev = torch.tensor(0.5625, dtype=dtype, device=dev)
+    alpha, beta = (torch.zeros(4, dtype=dtype, device=dev) for _ in "ab")
+    vr, part_r = ls.shard_step_update_ref(v, q, qp, a, ss_prev, mask)
+    parts = []
+    for _ in range(2):
+        vk, part = ls.shard_step_update(_at(v.clone(), offset), q, qp, a,
+                                        ss_prev, mask=mask, alpha=alpha, j=2)
+        assert torch.equal(vk, vr) and _rel(part, part_r) < tol
+        parts.append(part)
+    assert torch.equal(*parts) and torch.equal(alpha[2], a)
+    store = _at(torch.zeros_like(v), offset)
+    qk = ls.shard_step_normalize(_at(vr.clone(), offset), part, beta=beta,
+                                 j=2, store=store)
+    qr = ls.shard_step_normalize_ref(vr, part)
+    assert torch.equal(qk, qr) and torch.equal(store, qr)
+    assert torch.equal(beta[2], torch.sqrt(part))
+    w = _at(torch.roll(q, 1) * 1e-3, offset)
+    vs, part_s = ls.shard_step_sub_norm(_at(vr.clone(), offset), w)
+    assert torch.equal(vs, vr - w)
+    assert _rel(part_s, torch.dot(vr - w, vr - w)) < tol
+    torch.cuda.synchronize()
+    assert ls.launches_step_sharded - before == 2 + 2 + 1 + 1
+
+
+@pytest.mark.parametrize("n", [1 << 18, 3 * 128 * 128, 5000])
+def test_shard_df_passes_equal_plain_versions(dev, n):
+    """Row 5cd: the df dot and the update's norm pair with the hi word of
+    the plain tree's and within 5e-11 of its df value, equal in two
+    runs; given the same scalars v', q_{j+1} and
+    the recombine fold equal the plain versions bit for bit; the slots
+    written; one count a pass launch."""
+    from tpu_lanczos_torch.core import df64 as df
+    from tpu_lanczos_torch.kernels import lanczos_step as ls
+
+    vd, qd, pd = _df_inputs(dev, n, 5)
+    mask = _pass_inputs(dev, n, torch.float32, 6)[1]
+    before = ls.launches_step_df_sharded
+
+    def df_rel(got, want):
+        g, w = df.df_to_f64((got[0], got[1])), df.df_to_f64((want[0],
+                                                             want[1]))
+        return float(abs(g - w) / abs(w))
+
+    a = ls.shard_df_dot(vd, qd, mask=mask)
+    a_ref = ls.shard_df_dot_ref(vd, qd, mask)
+    assert torch.equal(a, ls.shard_df_dot(vd, qd, mask=mask))
+    assert float(a[0]) == float(a_ref[0]) and df_rel(a, a_ref) < 5e-11
+    a = (a[0], a[1])
+    ssp = (torch.tensor(0.5625, device=dev), torch.tensor(1e-9, device=dev))
+    ab = [torch.zeros(6, device=dev) for _ in range(4)]
+    vr, part_r = ls.shard_df_update_ref(vd, qd, pd, a, ssp, mask)
+    parts = []
+    for _ in range(2):
+        vk, part = ls.shard_df_update((vd[0].clone(), vd[1].clone()), qd, pd,
+                                      a, ssp, mask=mask, alpha=ab[:2], j=2)
+        assert torch.equal(vk[0], vr[0]) and torch.equal(vk[1], vr[1])
+        assert float(part[0]) == float(part_r[0])
+        assert df_rel(part, part_r) < 5e-11
+        parts.append(part)
+    assert torch.equal(*parts)
+    assert float(ab[0][2]) == float(a[0]) and float(ab[1][2]) == float(a[1])
+    ss = (parts[0][0], parts[0][1])
+    coeff = (torch.linspace(0.5, 1.5, 6, device=dev),
+             torch.full((6,), 1e-9, device=dev))
+    ans = (3.0 * pd[0], 3.0 * pd[1])
+    acc = (ans[0].clone(), ans[1].clone())
+    qk = ls.shard_df_normalize((vr[0].clone(), vr[1].clone()), ss,
+                               beta=ab[2:], j=2, ans=ans, coeff=coeff)
+    qr = ls.shard_df_normalize_ref(vr, ss, ans=acc, coeff=coeff, j=2)
+    for got, want in zip((*qk, *ans), (*qr, *acc)):
+        assert torch.equal(got, want)
+    b = df.df_sqrt(ss)
+    assert float(ab[2][2]) == float(b[0]) and float(ab[3][2]) == float(b[1])
+    torch.cuda.synchronize()
+    assert ls.launches_step_df_sharded - before == 2 + 2 + 1
+
+
+def test_shard_passes_on_an_all_zero_shard(dev):
+    """A shard whose rows are all padding: every partial exactly zero,
+    q_{j+1} zero (breakdown, decided on the device)."""
+    from tpu_lanczos_torch.kernels import lanczos_step as ls
+
+    z = torch.zeros(1 << 14, device=dev)
+    zero = torch.zeros((), device=dev)
+    assert torch.equal(ls.shard_step_dot(z, z, mask=z), zero)
+    v, part = ls.shard_step_update(z.clone(), z, z, zero, zero, mask=z)
+    assert torch.equal(part, zero)
+    q = ls.shard_step_normalize(v, part)
+    zp = (z, z.clone())
+    d = ls.shard_df_dot(zp, zp, mask=z)
+    v2, part2 = ls.shard_df_update((z.clone(), z.clone()), zp, zp,
+                                   (d[0], d[1]), None, mask=z)
+    q2 = ls.shard_df_normalize(v2, (part2[0], part2[1]))
+    torch.cuda.synchronize()
+    assert not (q.any() or q2[0].any() or q2[1].any() or d.any()
+                or part2.any())
+
+
+def _eager_passes(monkeypatch):
+    """Every sharded loop on the plain versions of the passes (the eager
+    step of the first port)."""
+    from tpu_lanczos_torch.kernels import lanczos_step as ls
+
+    for name in ("shard_step_dot", "shard_step_update", "shard_step_sub_norm",
+                 "shard_step_normalize", "shard_df_dot", "shard_df_update",
+                 "shard_df_normalize"):
+        ref = getattr(ls, name + "_ref")
+        monkeypatch.setattr(ls, name, lambda *a, ref=ref, work=None, **kw:
+                            ref(*a, **kw))
+
+
+def test_sharded_loops_through_the_step_passes(dev, monkeypatch):
+    """On 4 shards of the card: lanczos_cpg_sharded (f32, f64, and f64
+    reorthogonalized) and the df64 query launch exactly their pass counts
+    (3 a shard a step, 4 with reorthogonalization; the df64 query 3 a
+    shard a step of its 2k - 1 and each pass's start norm) and no
+    single-device step; alpha and beta within rtol 1e-5 plus 1e-5 of
+    the spectrum's scale, max(|alpha|, |beta|) (f32: the kernel's dot
+    rounds in another order than torch.dot, and fifteen f32 steps grow
+    that to 4.3e-5 relative on the smallest alpha, 8e-6 absolute on
+    alphas up to 14), and rtol 1e-12 (f64), of the eager passes'; the mask-folded loop equals the loop over the masked SpMV
+    bit for bit; the df64 answer within 1e-11 of the oracle."""
+    from tpu_lanczos_torch.dist import cpg_sharded as cs
+    from tpu_lanczos_torch.dist.lanczos_df import expm_action_df_sharded
+    from tpu_lanczos_torch.dist.mesh import LocalSpmv
+    from tpu_lanczos_torch.kernels import lanczos_step as ls
+
+    g, mesh, sg = _sharded(dev, 4)
+    k = 15
+    x = sg.permute_in(np.ones(g.n), np.float64)
+    got = {}
+    for dt, reo in ((np.float32, False), (np.float64, False),
+                    (np.float64, True)):
+        before = (ls.launches_step_sharded, ls.launches_step)
+        got[dt, reo] = cs.lanczos_cpg_sharded(sg, x.astype(dt), k, mesh,
+                                              reorthogonalize=reo)
+        torch.cuda.synchronize()
+        assert (ls.launches_step_sharded - before[0],
+                ls.launches_step - before[1]) == ((4 if reo else 3) * k * 4,
+                                                  0)
+    before = ls.launches_step_df_sharded
+    res = expm_action_df_sharded(g, k=k, mesh=mesh, sg=sg)
+    assert ls.launches_step_df_sharded - before == 4 * (2 + 3 * (2 * k - 1))
+    assert oracle.rel_error(res.ans, oracle.expm_action(
+        g, np.ones(g.n), k)) < 1e-11
+    with monkeypatch.context() as m:
+        m.setattr(cs, "_local", lambda sg, mesh: LocalSpmv(
+            lambda q: cs._local_spmv(sg, mesh, q, cs.run_level)))
+        for (dt, reo), st in got.items():
+            st2 = cs.lanczos_cpg_sharded(sg, x.astype(dt), k, mesh,
+                                         reorthogonalize=reo)
+            assert torch.equal(st.alpha, st2.alpha)
+            assert torch.equal(st.beta, st2.beta)
+            assert all(torch.equal(a, b)
+                       for a, b in zip(st.q_basis, st2.q_basis))
+    _eager_passes(monkeypatch)
+    for (dt, reo), st in got.items():
+        st2 = cs.lanczos_cpg_sharded(sg, x.astype(dt), k, mesh,
+                                     reorthogonalize=reo)
+        want = [t.cpu().numpy() for t in (st2.alpha, st2.beta)]
+        f32 = dt == np.float32
+        atol = 1e-5 * max(np.abs(w).max() for w in want) if f32 else 0.0
+        for mine, w in zip((st.alpha, st.beta), want):
+            np.testing.assert_allclose(mine.cpu().numpy(), w,
+                                       rtol=1e-5 if f32 else 1e-12,
+                                       atol=atol)

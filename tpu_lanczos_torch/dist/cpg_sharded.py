@@ -43,8 +43,9 @@ import torch
 
 from tpu_lanczos_torch.core.lanczos import LanczosState
 from tpu_lanczos_torch.dist.mesh import (
-    Mesh, make_mesh, sharded_alphabeta_body, sharded_diag_probes_body,
-    sharded_lanczos_body, sharded_trace_probes_body)
+    LocalSpmv, Mesh, make_mesh, sharded_alphabeta_body,
+    sharded_diag_probes_body, sharded_lanczos_body,
+    sharded_trace_probes_body)
 from tpu_lanczos_torch.graphs.csr import CSRGraph
 from tpu_lanczos_torch.kernels.cpg import (
     CPGGraph, GROUP_PAD, LANE, _mask_is_sparse, _round_up, pack_cpg)
@@ -447,13 +448,17 @@ def _exchange(sg: ShardedCPG, mesh: Mesh, level, vec: list, key: str):
     return mesh.all_gather(vec)
 
 
-def _local_spmv(sg: ShardedCPG, mesh: Mesh, q: list, level_fn) -> list:
+def _local_spmv(sg: ShardedCPG, mesh: Mesh, q: list, level_fn,
+                masked: bool = True) -> list:
     """Every held shard's slice of y = A q (q a per-shard list): the
     reference's per-shard body (cpg_sharded.py:416-501) with each level
     through ``level_fn`` (``run_level`` or its plain version), in its
     order of additions.  A pass that follows another passes the running
     y as the kernel's ``base``: the kernel adds its tile sum to it, the
-    sum-then-add the reference writes as ``y + run(...)``."""
+    sum-then-add the reference writes as ``y + run(...)``.  With
+    ``masked=False`` the last multiply by the realmask is left out, for
+    the Lanczos step's passes to fold in (as ``spmv_cpg(...,
+    masked=False)`` on one device)."""
     c_loc, sub = sg.c_loc, sg.sub
     rows = c_loc * sub
 
@@ -491,6 +496,8 @@ def _local_spmv(sg: ShardedCPG, mesh: Mesh, q: list, level_fn) -> list:
         # virtual-cell partials); s_ids were remapped into the compact
         # buffer
         y = run(level, _exchange(sg, mesh, level, y, "sel"), base=y)
+    if not masked:
+        return y
     return [t * r.to(t.dtype) for t, r in zip(y, sg.realmask)]
 
 
@@ -508,8 +515,12 @@ def spmv_cpg_sharded_ref(sg: ShardedCPG, mesh: Mesh, q) -> list:
                        run_level_ref)
 
 
-def _local(sg: ShardedCPG, mesh: Mesh):
-    return lambda q: _local_spmv(sg, mesh, q, run_level)
+def _local(sg: ShardedCPG, mesh: Mesh) -> LocalSpmv:
+    """The Lanczos loops' local SpMV: the kernel's levels without the
+    realmask multiply, which the step's passes fold in."""
+    return LocalSpmv(lambda q: _local_spmv(sg, mesh, q, run_level,
+                                           masked=False),
+                     mask=list(sg.realmask))
 
 
 def lanczos_cpg_sharded(sg: ShardedCPG, x, k: int, mesh: Mesh,

@@ -13,12 +13,19 @@ scheme of core/lanczos_df.py on the row mesh, with
   (hi, lo) pair is gathered (2 floats a shard) and folded with
   ``df_add`` in shard order.  A plain psum of hi and lo separately
   would round the hi partials and lose the compensation;
-- the main level's own/cross-source overlap split of the sharded pack.
+- the main level's own/cross-source overlap split of the sharded pack;
+- the step after the SpMV (the reference's ``_body_core_sh``,
+  lanczos_df.py:171-188) on row 5cd's pass kernels
+  (kernels/lanczos_step.py): a df dot pass on every held shard (the SpMV's
+  realmask multiply folded in), the allsum, an update pass with the
+  shard's df norm, the allsum, a normalize pass (in pass 2 folding the
+  recombine's ``ans``); the start norm is the df dot pass too.
 
-Every operation keeps the reference's order, and every df op is a chain
-of separate eager torch ops (core/df64.py), so no multiply is fused into
-an add.  The cross-shard fold changes the order of summation, so results
-differ from single-device df64 at the df roundoff level, not above it.
+Every operation keeps the reference's order, and every df op outside
+the kernels is a chain of separate eager torch ops (core/df64.py), so no
+multiply is fused into an add.  The cross-shard fold changes the order
+of summation, so results differ from single-device df64 at the df
+roundoff level, not above it.
 """
 
 from __future__ import annotations
@@ -33,16 +40,19 @@ from tpu_lanczos_torch.core.lanczos_df import split_f64
 from tpu_lanczos_torch.core.pipeline import LanczosResult
 from tpu_lanczos_torch.dist.cpg_sharded import (ShardedCPG, _exchange,
                                                 pack_cpg_sharded)
-from tpu_lanczos_torch.dist.mesh import Mesh, make_mesh, per_replica
+from tpu_lanczos_torch.dist.mesh import (Mesh, make_mesh, per_replica,
+                                         workspaces)
+from tpu_lanczos_torch.kernels import lanczos_step as ls
 from tpu_lanczos_torch.kernels.cpg import LANE
 from tpu_lanczos_torch.kernels.spmv_cpg import (
     run_level, run_level_comp, run_level_comp_ref, run_level_ref)
 
 
-def _df_allsum(mesh: Mesh, pairs: list) -> list:
-    """Exact cross-shard sum of a df scalar: gather the (hi, lo) pairs
-    and fold them with df_adds in shard order, on every held shard."""
-    gathered = mesh.all_gather([torch.stack(p) for p in pairs])
+def _df_allsum(mesh: Mesh, parts: list) -> list:
+    """Exact cross-shard sum of a df scalar: gather each shard's (2,)
+    (hi, lo) partial and fold them with df_adds in shard order, on every
+    held shard."""
+    gathered = mesh.all_gather(parts)
 
     def fold(g):
         acc = (g[0], g[1])
@@ -53,16 +63,14 @@ def _df_allsum(mesh: Mesh, pairs: list) -> list:
     return per_replica(gathered, fold)
 
 
-def _df_pdot(mesh: Mesh, x: list, y: list) -> list:
-    return _df_allsum(mesh, [df.df_dot(a, b) for a, b in zip(x, y)])
-
-
 def _local_spmv_df(sg: ShardedCPG, mesh: Mesh, q: list, level_fn,
-                   comp_fn) -> list:
+                   comp_fn, masked: bool = True) -> list:
     """Every held shard's df y = A (q_hi + q_lo) (q a per-shard list of
     (hi, lo) pairs): the reference's per-shard body (lanczos_df.py:64-169)
     with each level run compensated on hi (``comp_fn``) and plain on lo
-    (``level_fn``), in its order of additions."""
+    (``level_fn``), in its order of additions.  With ``masked=False`` the
+    last multiply of hi and lo by the realmask is left out, for the
+    step's passes to fold in."""
     c_loc, sub = sg.c_loc, sg.sub
     rows = c_loc * sub
 
@@ -126,7 +134,7 @@ def _local_spmv_df(sg: ShardedCPG, mesh: Mesh, q: list, level_fn,
     for ys, es, r in zip(y, e, sg.realmask):
         # two_sum, not fast_two_sum: after cancellation |e| can exceed |y|
         hi, lo = two_sum(ys, es)
-        out.append((hi * r, lo * r))  # exact 0/1 multiply
+        out.append((hi * r, lo * r) if masked else (hi, lo))  # exact 0/1
     return out
 
 
@@ -146,37 +154,48 @@ def spmv_cpg_df_sharded_ref(sg: ShardedCPG, mesh: Mesh, q_hi: list,
                           run_level_comp_ref)
 
 
-def _body_core_sh(sg, mesh, q, q_prev, beta_prev):
-    """One df64 recurrence step on the mesh: returns (alpha_j, beta_j,
-    q_next), each a per-shard list of pairs; the sharded twin of
-    kernels/lanczos_step.py ``lanczos_step_df_ref`` with exact-fold dots."""
-    v = _local_spmv_df(sg, mesh, q, run_level, run_level_comp)
-    a = _df_pdot(mesh, v, q)
-    v = [df.df_sub(vs, df.df_add(df.df_scale(av, qs), df.df_scale(bp, qp)))
-         for vs, av, qs, bp, qp in zip(v, a, q, beta_prev, q_prev)]
-    b = [df.df_sqrt(p) for p in _df_pdot(mesh, v, v)]
-    q_next = []
-    for vs, bs in zip(v, b):
-        ok = bs[0] > 0
-        safe_b = (torch.where(ok, bs[0], 1.0), torch.where(ok, bs[1], 0.0))
-        inv_b = df.df_div(df.df_from(1.0, device=ok.device), safe_b)
-        qn = df.df_scale(inv_b, vs)
-        q_next.append((torch.where(ok, qn[0], 0.0),
-                       torch.where(ok, qn[1], 0.0)))
-    return a, b, q_next
+def _step_df(sg: ShardedCPG, mesh: Mesh, q: list, q_prev: list, ss_prev,
+             work: list, j: int, alpha=None, beta=None, ans=None,
+             coeff=None):
+    """One df64 recurrence step on the mesh, the sharded twin of
+    kernels/lanczos_step.py ``lanczos_step_df_ref`` with exact-fold dots:
+    the df SpMV without its realmask multiply, then row 5cd's passes on
+    every held shard around the two allsums.  The first held shard's
+    passes write (alpha)[j] and (beta)[j] (pairs of (k,) buffers) when
+    given; with ``ans`` (per-shard pairs) and ``coeff`` (per-shard pairs
+    of (k,)), ans += coeff[j + 1] q_{j+1}.  Returns (q_{j+1}, the
+    allsum'd norm pair) as per-shard lists; ``ss_prev`` is the last
+    step's (None at j = 0)."""
+    n = len(q)
+    v = _local_spmv_df(sg, mesh, q, run_level, run_level_comp, masked=False)
+    a = _df_allsum(mesh, [ls.shard_df_dot(vs, qs, mask=r, work=w)
+                          for vs, qs, r, w in zip(v, q, sg.realmask, work)])
+    first = [s == 0 for s in range(n)]
+    upd = [ls.shard_df_update(vs, qs, qp, av, sv, mask=r,
+                              alpha=alpha if f else None, j=j, work=w)
+           for vs, qs, qp, av, sv, r, f, w in zip(
+               v, q, q_prev, a, ss_prev or [None] * n, sg.realmask, first,
+               work)]
+    ss = _df_allsum(mesh, [u[1] for u in upd])
+    q_next = [ls.shard_df_normalize(u[0], sv, beta=beta if f else None, j=j,
+                                    ans=an, coeff=cf)
+              for u, sv, f, an, cf in zip(upd, ss, first, ans or [None] * n,
+                                          coeff or [None] * n)]
+    return q_next, ss
 
 
-def _df_start(mesh: Mesh, x: list):
+def _df_start(mesh: Mesh, x: list, work: list):
     """The normalised df start state: per-shard q0 pairs and the df
-    x_norm (replicated)."""
-    x_norm = [df.df_sqrt(p) for p in _df_pdot(mesh, x, x)]
+    x_norm (replicated); the shards' df dots on row 5cd's dot pass."""
+    x_norm = [df.df_sqrt(p) for p in _df_allsum(
+        mesh, [ls.shard_df_dot(xs, xs, work=w) for xs, w in zip(x, work)])]
     q0 = [df.df_scale(df.df_div(df.df_from(1.0, device=xn[0].device), xn),
                       xs) for xn, xs in zip(x_norm, x)]
     return q0, x_norm
 
 
-def _zero_pairs(q: list) -> list:
-    return [(p[0].new_zeros(()), p[0].new_zeros(())) for p in q]
+def _zero_vectors(q: list) -> list:
+    return [(torch.zeros_like(p[0]), torch.zeros_like(p[0])) for p in q]
 
 
 def lanczos_alphabeta_df_sharded(sg: ShardedCPG, mesh: Mesh, x: list,
@@ -185,17 +204,16 @@ def lanczos_alphabeta_df_sharded(sg: ShardedCPG, mesh: Mesh, x: list,
     (k,) tensors on the first held shard's device (beta's slot k-1
     written but unused), and the df x_norm.  ``x`` is the per-shard list
     of (hi, lo) pairs."""
-    q, x_norm = _df_start(mesh, x)
-    q_prev = [(torch.zeros_like(p[0]), torch.zeros_like(p[0])) for p in q]
+    work = workspaces(mesh)
+    q, x_norm = _df_start(mesh, x, work)
+    q_prev = _zero_vectors(q)
     zk = q[0][0].new_zeros((k,))
-    ah, al, bh, bl = zk, zk.clone(), zk.clone(), zk.clone()
-    b_prev = _zero_pairs(q)
+    alpha, beta = (zk, zk.clone()), (zk.clone(), zk.clone())
+    ss = None
     for j in range(k):
-        a, b, q_next = _body_core_sh(sg, mesh, q, q_prev, b_prev)
-        ah[j], al[j] = a[0]
-        bh[j], bl[j] = b[0]
-        q_prev, q, b_prev = q, q_next, b
-    return (ah, al), (bh, bl), x_norm[0]
+        q_next, ss = _step_df(sg, mesh, q, q_prev, ss, work, j, alpha, beta)
+        q_prev, q = q, q_next
+    return alpha, beta, x_norm[0]
 
 
 def lanczos_recombine_df_sharded(sg: ShardedCPG, mesh: Mesh, x: list,
@@ -203,22 +221,20 @@ def lanczos_recombine_df_sharded(sg: ShardedCPG, mesh: Mesh, x: list,
                                  coeff_lo: torch.Tensor, k: int) -> list:
     """Pass 2 on the mesh: ans = sum_j coeff[j] * q_j in df64, q_j
     regenerated by the identical recurrence (k-1 steps: q_{k-1} needs no
-    further SpMV).  Returns the per-shard (hi, lo) pairs."""
-    q, _ = _df_start(mesh, x)
-    q_prev = [(torch.zeros_like(p[0]), torch.zeros_like(p[0])) for p in q]
-    ans = [(torch.zeros_like(p[0]), torch.zeros_like(p[0])) for p in q]
-    ch, cl = mesh.replicate(coeff_hi), mesh.replicate(coeff_lo)
-    b = _zero_pairs(q)
-
-    def accum(ans, j, q):
-        return [df.df_add(a, df.df_scale((h[j], l_[j]), qs))
-                for a, h, l_, qs in zip(ans, ch, cl, q)]
-
+    further SpMV), each step's normalize pass folding in coeff[j + 1]
+    q_{j+1}.  Returns the per-shard (hi, lo) pairs."""
+    work = workspaces(mesh)
+    q, _ = _df_start(mesh, x, work)
+    q_prev = _zero_vectors(q)
+    coeff = list(zip(mesh.replicate(coeff_hi), mesh.replicate(coeff_lo)))
+    ans = [df.df_add(z, df.df_scale((c[0][0], c[1][0]), qs))
+           for z, c, qs in zip(_zero_vectors(q), coeff, q)]
+    ss = None
     for j in range(k - 1):
-        ans = accum(ans, j, q)
-        _, b, q_next = _body_core_sh(sg, mesh, q, q_prev, b)
+        q_next, ss = _step_df(sg, mesh, q, q_prev, ss, work, j, ans=ans,
+                              coeff=coeff)
         q_prev, q = q, q_next
-    return accum(ans, k - 1, q)
+    return ans
 
 
 def expm_action_df_sharded(graph, x: np.ndarray | None = None,

@@ -33,19 +33,27 @@ in-process mesh and the distributed one run the same code and draw the
 same per-shard probes.  A replicated value (alpha_j, a psum) comes back
 as one tensor per held shard; shards on one device share one tensor.
 
-No step syncs the host: the recurrence scalars are 0-d device tensors,
-breakdown is a ``torch.where``, and the k-step loops are Python loops of
-eager ops, as the reference's one ``fori_loop`` holds no host read
-(dist/lanczos.py:14-17).  The reference's ``pcast``/``vma`` annotations
-have no counterpart: there is no varying-axes checker to satisfy.
+The k-step loops are Python loops whose step after the SpMV runs on the
+row 5d pass kernels (kernels/lanczos_step.py): a dot pass on every held
+shard, the ``psum`` of the partials, an update pass, the ``psum`` of the
+norms, a normalize pass.  The reference's one ``fori_loop`` fuses those
+ops around its psums (mesh.py:82-107, :189-220); the split at the psums
+is the one the mesh needs.  On the CPU the passes are the eager ops they
+replaced.  No step syncs the host: the recurrence scalars are 0-d device
+tensors and breakdown is decided on the device (dist/lanczos.py:14-17).
+The reference's ``pcast``/``vma`` annotations have no counterpart: there
+is no varying-axes checker to satisfy.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import torch
 import torch.distributed as dist
+
+from tpu_lanczos_torch.kernels import lanczos_step as ls
 
 ROWS = "rows"
 
@@ -185,9 +193,72 @@ def pdot(mesh: Mesh, a: list, b: list) -> list:
     return mesh.psum([torch.dot(x, y) for x, y in zip(a, b)])
 
 
-def _next_q(v: list, b: list) -> list:
-    return [torch.where(bs > 0, vs / torch.where(bs > 0, bs, 1),
-                        torch.zeros_like(vs)) for vs, bs in zip(v, b)]
+@dataclasses.dataclass(frozen=True)
+class LocalSpmv:
+    """A backend's exchange and local SpMV on per-shard lists (``fn``),
+    and ``mask``: the per-shard float32 0/1 vectors its output is still to
+    be multiplied by, which the step's passes fold in (None: ``fn``'s
+    output is final)."""
+
+    fn: Callable
+    mask: list | None = None
+
+    def __call__(self, q: list) -> list:
+        return self.fn(q)
+
+
+def workspaces(mesh: Mesh) -> list:
+    """One pass workspace a held shard (``lanczos_step.workspace``),
+    shared by the shards on one device (their passes run in order on its
+    stream)."""
+    by_dev = {d: ls.workspace(d) for d in set(mesh.devices)}
+    return [by_dev[d] for d in mesh.devices]
+
+
+def _step_passes(mesh: Mesh, local_spmv, q, q_prev, ss_prev, alpha, beta,
+                 j: int, work, q_basis=None, reorthogonalize: bool = False):
+    """One step of the recurrence on the mesh: v = A q by ``local_spmv``,
+    then row 5d's passes on every held shard around the two psums.
+    Writes alpha[j], beta[j] (the first held shard's passes) and, with
+    ``q_basis``, row j+1 of each shard's basis.  Returns (q_{j+1}, the
+    psum'd ||v'||^2) as per-shard lists."""
+    k = alpha.shape[0]
+    mask = getattr(local_spmv, "mask", None) or [None] * len(q)
+    first = [s == 0 for s in range(len(q))]
+    v = local_spmv(q)
+    a = mesh.psum([ls.shard_step_dot(vs, qs, mask=ms, work=w)
+                   for vs, qs, ms, w in zip(v, q, mask, work)])
+    sp = ss_prev or [None] * len(q)
+    upd = [ls.shard_step_update(vs, qs, qp, av, sv, mask=ms,
+                                alpha=alpha if f else None, j=j,
+                                norm=not reorthogonalize, work=w)
+           for vs, qs, qp, av, sv, ms, f, w in zip(v, q, q_prev, a, sp, mask,
+                                                   first, work)]
+    if reorthogonalize:
+        v = [u[0] for u in upd]
+        proj = mesh.psum([qb @ vs for qb, vs in zip(q_basis, v)])
+        rows = torch.arange(k, device=proj[0].device)
+        keep = per_replica(proj, lambda p: torch.where(
+            rows.to(p.device) <= j, p, p.new_zeros(())))
+        upd = [ls.shard_step_sub_norm(vs, (p @ qb).contiguous(), work=w)
+               for vs, p, qb, w in zip(v, keep, q_basis, work)]
+    ss = mesh.psum([u[1] for u in upd])
+    store = ([qb[j + 1] for qb in q_basis] if q_basis is not None
+             and j + 1 < k else [None] * len(q))
+    q_next = [ls.shard_step_normalize(u[0], sv, beta=beta if f else None,
+                                      j=j, store=st)
+              for u, sv, f, st in zip(upd, ss, first, store)]
+    return q_next, ss
+
+
+def _start(mesh: Mesh, x: list, k: int):
+    """q_0 = x / ||x|| (the psum'd norm, replicated as x_norm) and the
+    zeroed q_prev, alpha and beta."""
+    x_norm = [torch.sqrt(s) for s in pdot(mesh, x, x)]
+    q = [xs / xn for xs, xn in zip(x, x_norm)]
+    q_prev = [torch.zeros_like(t) for t in q]
+    return (q, q_prev, x[0].new_zeros((k,)), x[0].new_zeros((k,)),
+            x_norm[0])
 
 
 def sharded_lanczos_body(mesh: Mesh, local_spmv, x: list, k: int,
@@ -195,39 +266,26 @@ def sharded_lanczos_body(mesh: Mesh, local_spmv, x: list, k: int,
     """The per-shard Lanczos recurrence shared by every sharded backend
     (the ELL/COO formats in dist/lanczos.py, the CPG kernel in
     dist/cpg_sharded.py).  ``local_spmv(q) -> v`` maps per-shard lists: it
-    does the backend's exchange and local SpMV.  The three-term
-    recurrence, the psum'd dots and norms, the masked reorthogonalization
-    and the breakdown guard live here once, in the order of the
-    single-device step (kernels/lanczos_step.py ``lanczos_step_ref``).
+    does the backend's exchange and local SpMV (a :class:`LocalSpmv`
+    whose ``mask`` the passes fold in, or any callable whose output is
+    final).  The three-term recurrence, the psum'd dots and norms, the
+    masked reorthogonalization and the breakdown guard live here once, in
+    the order of the single-device step (kernels/lanczos_step.py
+    ``lanczos_step_ref``), on row 5d's passes.
 
     Returns (alpha (k,), beta (k,), q_basis, x_norm): alpha, beta (slot
     k-1 the residual norm) and x_norm replicated, as tensors on the first
     held shard's device, and q_basis a per-shard list of (k, n_loc)."""
-    x_norm = [torch.sqrt(s) for s in pdot(mesh, x, x)]
-    q = [xs / xn for xs, xn in zip(x, x_norm)]
-    q_prev = [torch.zeros_like(t) for t in q]
+    q, q_prev, alpha, beta, x_norm = _start(mesh, x, k)
     q_basis = [t.new_zeros((k, t.shape[0])) for t in q]
-    alpha = x[0].new_zeros((k,))
-    beta = x[0].new_zeros((k,))
-    b_prev = [t.new_zeros(()) for t in q]
+    for qb, t in zip(q_basis, q):
+        qb[0] = t
+    work, ss = workspaces(mesh), None
     for j in range(k):
-        for qb, t in zip(q_basis, q):
-            qb[j] = t
-        v = local_spmv(q)
-        a = pdot(mesh, v, q)
-        v = [vs - av * qs - bp * qp
-             for vs, av, qs, bp, qp in zip(v, a, q, b_prev, q_prev)]
-        if reorthogonalize:
-            proj = mesh.psum([qb @ vs for qb, vs in zip(q_basis, v)])
-            rows = torch.arange(k, device=proj[0].device)
-            keep = per_replica(proj, lambda p: torch.where(
-                rows.to(p.device) <= j, p, p.new_zeros(())))
-            v = [vs - p @ qb for vs, p, qb in zip(v, keep, q_basis)]
-        b = [torch.sqrt(s) for s in pdot(mesh, v, v)]
-        alpha[j] = a[0]
-        beta[j] = b[0]
-        q_prev, q, b_prev = q, _next_q(v, b), b
-    return alpha, beta, q_basis, x_norm[0]
+        q_next, ss = _step_passes(mesh, local_spmv, q, q_prev, ss, alpha,
+                                  beta, j, work, q_basis, reorthogonalize)
+        q_prev, q = q, q_next
+    return alpha, beta, q_basis, x_norm
 
 
 def sharded_alphabeta_body(mesh: Mesh, local_spmv, x: list, k: int):
@@ -236,22 +294,13 @@ def sharded_alphabeta_body(mesh: Mesh, local_spmv, x: list, k: int):
     core/lanczos.py ``lanczos_alphabeta``.  Returns (alpha, beta, x_norm)
     replicated; beta is FULL length k (slot k-1 the residual norm, which
     the deflation convergence filter needs)."""
-    x_norm = [torch.sqrt(s) for s in pdot(mesh, x, x)]
-    q = [xs / xn for xs, xn in zip(x, x_norm)]
-    q_prev = [torch.zeros_like(t) for t in q]
-    alpha = x[0].new_zeros((k,))
-    beta = x[0].new_zeros((k,))
-    b_prev = [t.new_zeros(()) for t in q]
+    q, q_prev, alpha, beta, x_norm = _start(mesh, x, k)
+    work, ss = workspaces(mesh), None
     for j in range(k):
-        v = local_spmv(q)
-        a = pdot(mesh, v, q)
-        v = [vs - av * qs - bp * qp
-             for vs, av, qs, bp, qp in zip(v, a, q, b_prev, q_prev)]
-        b = [torch.sqrt(s) for s in pdot(mesh, v, v)]
-        alpha[j] = a[0]
-        beta[j] = b[0]
-        q_prev, q, b_prev = q, _next_q(v, b), b
-    return alpha, beta, x_norm[0]
+        q_next, ss = _step_passes(mesh, local_spmv, q, q_prev, ss, alpha,
+                                  beta, j, work)
+        q_prev, q = q, q_next
+    return alpha, beta, x_norm
 
 
 def shard_probes(mesh: Mesh, mask: list, seed: int, stream: int,

@@ -13,7 +13,11 @@ warm run; the df64 query ``expm_action_df`` (median of 3); and the
 Lanczos step alone (rows 5 and 5c, device microseconds a step queued
 behind a sleeping kernel) at bn1M's n_pad, at 2^23 (stencil_2600's) and,
 for df64, at Europe's size, with and without the pack's realmask
-multiply.  The turns run other, this, this, other, so drift on the card
+multiply; and the row-sharded path on 4 shards of the card
+(``make_mesh(devices=[cuda:0] * 4)``, the shards in turn):
+``lanczos_cpg_sharded`` at k=50 (CUDA events, median of 3) and the df64
+query ``expm_action_df_sharded`` (host wall, median of 3).  The turns
+run other, this, this, other, so drift on the card
 or its host shows in the other checkout's two rows.  One JSON line per
 turn; the first line is the card's name and power limit.  Needs a CUDA
 GPU.
@@ -85,6 +89,22 @@ row["query_device_eig_s"], row["query_device_eig_samples"] = wall_s(
     lambda: expm_action_summary(g, k=50, topk=20, dg=dg, eig_impl="device"))
 row["df64_query_s"], row["df64_query_samples"] = wall_s(
     lambda: expm_action_df(g, k=50, dg=dg, log_scale=True), reps=3)
+
+# the row-sharded path, 4 shards in turn on the card
+from tpu_lanczos_torch.dist import make_mesh
+from tpu_lanczos_torch.dist.cpg_sharded import (lanczos_cpg_sharded,
+                                                pack_cpg_sharded)
+from tpu_lanczos_torch.dist.lanczos_df import expm_action_df_sharded
+mesh4 = make_mesh(devices=["cuda:0"] * 4)
+sg4 = pack_cpg_sharded(g, 4, mesh=mesh4, sub=512)
+x4 = [r.clone() for r in sg4.realmask]
+row["lanczos_4_shard_k50_ms"], row["lanczos_4_shard_samples"] = cuda_ms(
+    lambda: lanczos_cpg_sharded(sg4, x4, 50, mesh4), reps=3)
+row["df64_query_4_shard_s"], row["df64_query_4_shard_samples"] = wall_s(
+    lambda: expm_action_df_sharded(g, k=50, mesh=mesh4, sg=sg4,
+                                   log_scale=True), reps=3)
+del sg4, x4
+torch.cuda.empty_cache()
 
 # the Lanczos step alone, device microseconds a step (queued behind a
 # sleeping kernel, so the host's enqueue is not timed), on seeded vectors:

@@ -1,6 +1,7 @@
 """Time the one-launch Lanczos step at each of its residency tiers.
 
     python -m tpu_lanczos_torch.eval.step_tiers [--sizes N,...] [--df-sizes N,...]
+    python -m tpu_lanczos_torch.eval.step_tiers --sharded [--shard-sizes N,...]
 
 Row 5 (``kernels/lanczos_step.py::lanczos_step``, float32 and float64):
 at each size, every candidate plan ``step_plan`` considers that fits the
@@ -15,7 +16,14 @@ bytes over 3.35 TB/s (the H100 SXM's HBM rate).  Device microseconds a
 step: ``calls`` steps queued behind a sleeping kernel, so the host's
 enqueue is not timed, between two CUDA events; the median of 5 samples.
 One JSON line a case, the first the card's name and power limit, so the
-tiers' crossovers can be read off.  Needs a CUDA GPU.
+tiers' crossovers can be read off.
+
+With ``--sharded``, rows 5d and 5cd instead (the row-sharded loops'
+per-shard passes, ``shard_step_*`` and ``shard_df_*``): one shard's step
+after the SpMV (dot, update with the last norm, normalize; the mask
+folded in) at each size, through the pass kernels beside the eager
+passes and the bound (v, the mask, q_j, q_{j-1} read, q_{j+1} written,
+and v read again).  Needs a CUDA GPU.
 """
 
 from __future__ import annotations
@@ -33,6 +41,8 @@ SIZES = (1 << 18, 1 << 19, 1 << 20, 3 << 20, 1 << 22, 1 << 23, 1 << 24)
 # bn1M's n_pad, stencil_2600's, and Europe's (7134^2 nodes in 512-row
 # chunks of 128 lanes)
 DF_SIZES = (1 << 20, 1 << 21, 1 << 23, 777 * 65536)
+# a shard's n_loc at bn1M over 4 shards, and 8 times that
+SHARD_SIZES = (1 << 18, 1 << 21)
 SMEM_CANDIDATES = (0, 1, 2, 4, 8, 16)
 
 
@@ -149,6 +159,72 @@ def run_row5c(sizes, dev, calls: int, emit) -> None:
         torch.cuda.empty_cache()
 
 
+def shard_step(v, q, qp, mask, df: bool, kernel: bool):
+    """One shard's step after the SpMV (rows 5d / 5cd: dot, update,
+    normalize; q_{j-1} with beta_{j-1} = 0) through the pass kernels on a
+    private copy of v, or without ``kernel`` through the eager passes (the
+    plain versions)."""
+    from tpu_lanczos_torch.kernels import lanczos_step as ls
+
+    if not kernel:
+        if df:
+            def eager():
+                a = ls.shard_df_dot_ref(v, q, mask)
+                w, p = ls.shard_df_update_ref(v, q, qp, (a[0], a[1]), None,
+                                              mask)
+                ls.shard_df_normalize_ref(w, (p[0], p[1]))
+        else:
+            def eager():
+                a = ls.shard_step_dot_ref(v, q, mask)
+                w, p = ls.shard_step_update_ref(v, q, qp, a, None, mask)
+                ls.shard_step_normalize_ref(w, p)
+        return eager
+    work = ls.workspace(mask.device)
+    if df:
+        vk = (v[0].clone(), v[1].clone())
+
+        def step():
+            a = ls.shard_df_dot(vk, q, mask=mask, work=work)
+            _, p = ls.shard_df_update(vk, q, qp, (a[0], a[1]), None,
+                                      mask=mask, work=work)
+            ls.shard_df_normalize(vk, (p[0], p[1]))
+    else:
+        vk = v.clone()
+
+        def step():
+            a = ls.shard_step_dot(vk, q, mask=mask, work=work)
+            _, p = ls.shard_step_update(vk, q, qp, a, None, mask=mask,
+                                        work=work)
+            ls.shard_step_normalize(vk, p)
+    return step
+
+
+def run_sharded(sizes, dev, calls: int, emit) -> None:
+    """Rows 5d and 5cd: the pass kernels and the eager passes."""
+    for kind in ("float32", "float64", "df64"):
+        df = kind == "df64"
+        for n in sizes:
+            vecs, mask = _vectors(n, torch.float64 if df else
+                                  getattr(torch, kind), dev)
+            if df:
+                vecs = [(x.float(), (x - x.float().double()).float())
+                        for x in vecs]
+            v, q, qp = vecs
+            vb = 8 if df else torch.finfo(getattr(torch, kind)).bits // 8
+            bound_us = n * (5 * vb + 4) / HBM_BYTES_PER_S * 1e6
+            row = {"row": "5cd" if df else "5d", "dtype": kind, "n": n,
+                   "bound_us": bound_us}
+            for kernel in (True, False):
+                us, samples = queued_us(
+                    shard_step(v, q, qp, mask, df, kernel),
+                    calls if kernel else max(calls // 10, 2))
+                row["kernel" if kernel else "eager"] = {
+                    "device_us": us, "samples": samples}
+            emit(row)
+            del v, q, qp, mask, vecs
+            torch.cuda.empty_cache()
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sizes", default=",".join(map(str, SIZES)),
@@ -157,6 +233,11 @@ def main(argv=None) -> None:
                     help="row 5c's vector lengths, comma-separated")
     ap.add_argument("--calls", type=int, default=50,
                     help="steps queued a sample")
+    ap.add_argument("--sharded", action="store_true",
+                    help="time rows 5d and 5cd (the per-shard passes)")
+    ap.add_argument("--shard-sizes",
+                    default=",".join(map(str, SHARD_SIZES)),
+                    help="rows 5d/5cd's shard lengths, comma-separated")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("step_tiers needs a CUDA GPU")
@@ -170,6 +251,9 @@ def main(argv=None) -> None:
          "--format=csv,noheader"], capture_output=True, text=True).stdout
     emit({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi.strip()})
     parse = (lambda s: [int(x) for x in s.split(",") if x])
+    if args.sharded:
+        run_sharded(parse(args.shard_sizes), dev, args.calls, emit)
+        return
     run_row5(parse(args.sizes), dev, args.calls, emit)
     run_row5c(parse(args.df_sizes), dev, args.calls, emit)
 

@@ -38,7 +38,23 @@
 // With reorthogonalization (row 5 only) the caller runs its two GEMVs
 // between passes, so that path keeps separate pass kernels: head (dot,
 // update without the norm), tail (sub+norm, normalize).  The df64 start
-// norm (tlt_df_norm) keeps its one-launch dot kernel.
+// norm (tlt_df_norm) is one launch of the df dot kernel.
+//
+// Rows 5d and 5cd are the same steps for one shard of the row-sharded
+// loops, which replace tpu_lanczos/dist/mesh.py:82-107 and :189-220 (the
+// step inside the sharded fori_loops) and dist/lanczos_df.py:171-188
+// (_body_core_sh).  There the dot and the norm are sums over every shard
+// (the reference's psum, and for df64 its _df_allsum), which the mesh
+// takes between launches, so the step splits into passes at those two
+// points: a dot pass (the shard's partial), an update pass (v' over v,
+// and the shard's partial norm), a normalize pass.  A pass must re-read
+// what the one-launch step held on chip (v once more), and three
+// launches a shard a step cost more than their bytes at a shard's size;
+// each reduction ends in the last block to arrive folding the block
+// partials in index order (a cooperative launch whose block 0 folds after
+// a grid barrier was slower at 2^18 and 2^21 elements: PERF.md).  The df64 dot and norm keep the plain tree's element map
+// on the shard's n elements (df_geometry below), so the hi word of each
+// shard's partial is the plain tree's on its slice.
 //
 // Reductions are deterministic: no floating-point atomics.  Each block
 // reduces its part in a fixed order and writes one partial; after the
@@ -870,10 +886,11 @@ __device__ void smem_tree(float (*sm)[kThreads], int width, int count,
 // The tree after the rows: the thread's 8 nodes in x, its error sum in
 // err.  Reduces over the block's threads, writes the block's 8 partials
 // and its error sum, and lets the last block fold every block's partials
-// in index order and write the df_sqrt of the sum to (out_h[0],
-// out_l[0]).
+// in index order and write the sum, or with `root_sqrt` its df_sqrt, to
+// (out_h[0], out_l[0]).
 __device__ void df_grid_tree(float (&x)[kDfVec], float err, float* out_h,
-                             float* out_l, unsigned char* work) {
+                             float* out_l, bool root_sqrt,
+                             unsigned char* work) {
   __shared__ float sm[kDfVec][kThreads];
   __shared__ float sm_err[kThreads];
   unsigned int* counter = reinterpret_cast<unsigned int*>(work);
@@ -917,33 +934,55 @@ __device__ void df_grid_tree(float (&x)[kDfVec], float err, float* out_h,
   }
   const float total_err = block_sum(e2, sm_err);
   if (threadIdx.x == 0) {
-    const Df b = df_sqrt(fast_two_sum(sm[0][0], total_err));
+    const Df sum = fast_two_sum(sm[0][0], total_err);
+    const Df b = root_sqrt ? df_sqrt(sum) : sum;
     out_h[0] = b.h;
     out_l[0] = b.l;
     *counter = 0u;
   }
 }
 
-// The df64 start vector's norm, df_norm(x): the df_dot tree of x with
-// itself in one launch, its last block folding the partials.
+// load8 of v's 8 elements at i0 times the mask's (exact: 0 or 1)
+__device__ __forceinline__ void load8_masked(const float* p, const float* mask,
+                                             int64_t i0, int64_t n,
+                                             float (&e)[kDfVec]) {
+  load8(p, i0, n, e);
+  if (mask != nullptr) {
+    float m[kDfVec];
+    load8(mask, i0, n, m);
+#pragma unroll
+    for (int r = 0; r < kDfVec; ++r) {
+      e[r] = __fmul_rn(e[r], m[r]);
+    }
+  }
+}
+
+// df_dot(x * mask, y) (mask may be null) on df64.py's pairwise tree, in
+// one launch, the last block writing the pair, or with `root_sqrt`
+// its df_sqrt (df_norm(x) when y is x), to (out_h[0], out_l[0]).  The
+// df64 start vector's norm (single device) and row 5cd's dot pass.
 template <int Depth>
 __global__ void __launch_bounds__(kThreads)
-df_norm_kernel(const float* __restrict__ xh, const float* __restrict__ xl,
-               int64_t n, int rows_log, float* out_h, float* out_l,
-               unsigned char* work) {
+df_dot_kernel(const float* __restrict__ xh, const float* __restrict__ xl,
+              const float* __restrict__ mask, const float* __restrict__ yh,
+              const float* __restrict__ yl, int64_t n, int rows_log,
+              float* out_h, float* out_l, int root_sqrt,
+              unsigned char* work) {
   TreeStack<kDfVec, Depth> stack;
   float x[kDfVec];
   float err = 0.0f;
   for (int m = 0; m < (1 << rows_log); ++m) {
     const int64_t i0 = df_base(bit_reverse(m, rows_log));
     if (i0 < n) {
-      float a[kDfVec], b[kDfVec];
-      load8(xh, i0, n, a);
-      load8(xl, i0, n, b);
+      float a[kDfVec], b[kDfVec], c[kDfVec], d[kDfVec];
+      load8_masked(xh, mask, i0, n, a);
+      load8_masked(xl, mask, i0, n, b);
+      load8(yh, i0, n, c);
+      load8(yl, i0, n, d);
 #pragma unroll
       for (int r = 0; r < kDfVec; ++r) {
         float e;
-        x[r] = dot_term(Df{a[r], b[r]}, Df{a[r], b[r]}, e);
+        x[r] = dot_term(Df{a[r], b[r]}, Df{c[r], d[r]}, e);
         if (i0 + r < n) {
           err = __fadd_rn(err, e);
         } else {
@@ -958,7 +997,7 @@ df_norm_kernel(const float* __restrict__ xh, const float* __restrict__ xl,
     }
     stack.push(m, x, err);
   }
-  df_grid_tree(x, err, out_h, out_l, work);
+  df_grid_tree(x, err, out_h, out_l, root_sqrt != 0, work);
 }
 
 // ---- the one-launch row 5c step
@@ -1381,6 +1420,313 @@ lanczos_step_df_kernel(DfStepArgs a) {
   }
 }
 
+// ------------------------------------------------------------- row 5d
+// The per-shard passes of the row-sharded loops (dist/mesh.py): the step
+// split at the mesh's two psums.  Each pass is one plain launch a shard
+// and ends, where it reduces, in the
+// shard's partial in a 0-d buffer, which the mesh sums across shards
+// before the next pass reads it.  V values a thread an iteration: 16-byte
+// vectors (V = 16 / sizeof(T)) when every vector is 16-byte aligned, else
+// one value (V = 1; the ELL/COO shards' rows are any length).
+
+template <typename T, int V>
+__device__ __forceinline__ void ldv(const T* p, int64_t c, T (&e)[V]) {
+  if constexpr (V == 1) {
+    e[0] = p[c];
+  } else {
+    load(p, c, e);
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void stv(T* p, int64_t c, const T (&e)[V]) {
+  if constexpr (V == 1) {
+    p[c] = e[0];
+  } else {
+    store(p, c, e);
+  }
+}
+
+// chunk c of v (V values) times the float 0/1 mask's (exact), when mask
+// is not null
+template <typename T, int V>
+__device__ __forceinline__ void ldv_masked(const T* v, const float* mask,
+                                           int64_t c, T (&e)[V]) {
+  ldv<T, V>(v, c, e);
+  if (mask != nullptr) {
+    float m[V];
+    if constexpr (V == 4) {
+      load(mask, c, m);
+    } else if constexpr (V == 2) {
+      const float2 t = reinterpret_cast<const float2*>(mask)[c];
+      m[0] = t.x;
+      m[1] = t.y;
+    } else {
+      m[0] = mask[c];
+    }
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      e[i] = mul_rn(e[i], static_cast<T>(m[i]));
+    }
+  }
+}
+
+// This thread's V-chunks, grid-stride (chunk(c)), and past the last
+// whole chunk its one tail element, if it has one (tail(i)).
+template <int V, typename Chunk, typename Tail>
+__device__ __forceinline__ void shard_loop(int64_t n, Chunk chunk,
+                                           Tail tail) {
+  const int64_t nv = n / V;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  for (int64_t c = g; c < nv; c += stride) {
+    chunk(c);
+  }
+  if (V > 1 && g < n - nv * V) {
+    tail(nv * V + g);
+  }
+}
+
+// dot pass: *out = the shard's <v * mask, q>
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+shard_dot_kernel(const T* __restrict__ v, const float* __restrict__ mask,
+                 const T* __restrict__ q, int64_t n, T* out, T* part,
+                 unsigned int* counter) {
+  T acc = T(0);
+  shard_loop<V>(n, [&](int64_t c) {
+    T x[V], y[V];
+    ldv_masked<T, V>(v, mask, c, x);
+    ldv<T, V>(q, c, y);
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      acc = fma_rn(x[e], y[e], acc);
+    }
+  }, [&](int64_t i) {
+    T x[1];
+    ldv_masked<T, 1>(v, mask, i, x);
+    acc = fma_rn(x[0], q[i], acc);
+  });
+  T total;
+  if (grid_sum(acc, part, counter, total) && threadIdx.x == 0) {
+    *out = total;
+  }
+}
+
+// update pass: v' = (v * mask) - a q - b_prev q_prev over v, a the psum'd
+// dot and b_prev = sqrt(*ss_prev) the last step's norm (0 when ss_prev is
+// null); alpha[j] = a when alpha is not null; with out, *out = the
+// shard's ||v'||^2.
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+shard_update_kernel(T* v, const float* __restrict__ mask,
+                    const T* __restrict__ q, const T* __restrict__ qp,
+                    int64_t n, const T* a_p, const T* ss_prev, T* alpha,
+                    int j, T* out, T* part, unsigned int* counter) {
+  const T a = *a_p;
+  const T bp = ss_prev != nullptr ? sqrt_rn(*ss_prev) : T(0);
+  T acc = T(0);
+  shard_loop<V>(n, [&](int64_t c) {
+    T x[V], y[V], z[V];
+    ldv_masked<T, V>(v, mask, c, x);
+    ldv<T, V>(q, c, y);
+    ldv<T, V>(qp, c, z);
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      x[e] = update(x[e], y[e], z[e], a, bp);
+      acc = fma_rn(x[e], x[e], acc);
+    }
+    stv<T, V>(v, c, x);
+  }, [&](int64_t i) {
+    T x[1];
+    ldv_masked<T, 1>(v, mask, i, x);
+    const T w = update(x[0], q[i], qp[i], a, bp);
+    v[i] = w;
+    acc = fma_rn(w, w, acc);
+  });
+  if (alpha != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    alpha[j] = a;
+  }
+  T total;
+  if (out != nullptr && grid_sum(acc, part, counter, total) &&
+      threadIdx.x == 0) {
+    *out = total;
+  }
+}
+
+// reorthogonalization's pass: v -= w (the GEMVs' result), *out = the
+// shard's ||v||^2
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+shard_sub_norm_kernel(T* v, const T* __restrict__ w, int64_t n, T* out,
+                      T* part, unsigned int* counter) {
+  T acc = T(0);
+  shard_loop<V>(n, [&](int64_t c) {
+    T x[V], y[V];
+    ldv<T, V>(v, c, x);
+    ldv<T, V>(w, c, y);
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      x[e] = sub_rn(x[e], y[e]);
+      acc = fma_rn(x[e], x[e], acc);
+    }
+    stv<T, V>(v, c, x);
+  }, [&](int64_t i) {
+    const T x = sub_rn(v[i], w[i]);
+    v[i] = x;
+    acc = fma_rn(x, x, acc);
+  });
+  T total;
+  if (grid_sum(acc, part, counter, total) && threadIdx.x == 0) {
+    *out = total;
+  }
+}
+
+// normalize pass: b = sqrt(*ss) (the psum'd norm), q = b > 0 ? v / b : 0
+// over v and into `row` (if not null); beta[j] = b when beta is not null
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+shard_normalize_kernel(T* v, int64_t n, const T* ss, T* beta, int j,
+                       T* row) {
+  const T b = sqrt_rn(*ss);
+  const bool ok = b > T(0);
+  shard_loop<V>(n, [&](int64_t c) {
+    T x[V];
+    ldv<T, V>(v, c, x);
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      x[e] = ok ? div_rn(x[e], b) : T(0);
+    }
+    stv<T, V>(v, c, x);
+    if (row != nullptr) {
+      stv<T, V>(row, c, x);
+    }
+  }, [&](int64_t i) {
+    const T x = ok ? div_rn(v[i], b) : T(0);
+    v[i] = x;
+    if (row != nullptr) {
+      row[i] = x;
+    }
+  });
+  if (beta != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    beta[j] = b;
+  }
+}
+
+// ------------------------------------------------------------- row 5cd
+// Row 5c's step per shard, split likewise.  The dot pass is df_dot_kernel
+// on the shard's n_loc elements (df_geometry's map, so its hi word is the
+// plain tree's on the shard's slice); the update pass computes v' in the
+// same map and reduces ||v'||^2 on the same tree; the normalize pass needs
+// no reduction and walks contiguous memory.
+
+// update pass: v' = df_sub(v * mask, df_add(df_mul(a, q), df_mul(b_prev,
+// q_prev))) over v, a the allsum'd df dot and b_prev = df_sqrt(ss_prev)
+// (0 when ss_prev is null); (ah, al)[j] = a when ah is not null; the
+// shard's df dot of v' with itself to (out_h[0], out_l[0]).
+template <int Depth>
+__global__ void __launch_bounds__(kThreads)
+df_update_kernel(float* vh, float* vl, const float* __restrict__ mask,
+                 const float* __restrict__ qh, const float* __restrict__ ql,
+                 const float* __restrict__ ph, const float* __restrict__ pl,
+                 int64_t n, int rows_log, const float* a_h, const float* a_l,
+                 const float* ssp_h, const float* ssp_l, float* ah,
+                 float* al, int j, float* out_h, float* out_l,
+                 unsigned char* work) {
+  const Df a{*a_h, *a_l};
+  const Df bp = ssp_h != nullptr ? df_sqrt(Df{*ssp_h, *ssp_l})
+                                 : Df{0.0f, 0.0f};
+  TreeStack<kDfVec, Depth> stack;
+  float x[kDfVec];
+  float err = 0.0f;
+  for (int m = 0; m < (1 << rows_log); ++m) {
+    const int64_t i0 = df_base(bit_reverse(m, rows_log));
+    if (i0 < n) {
+      float v0[8], v1[8], q0[8], q1[8], p0[8], p1[8];
+      load8_masked(vh, mask, i0, n, v0);
+      load8_masked(vl, mask, i0, n, v1);
+      load8(qh, i0, n, q0);
+      load8(ql, i0, n, q1);
+      load8(ph, i0, n, p0);
+      load8(pl, i0, n, p1);
+#pragma unroll
+      for (int r = 0; r < kDfVec; ++r) {
+        const Df w = df_update(Df{v0[r], v1[r]}, Df{q0[r], q1[r]},
+                               Df{p0[r], p1[r]}, a, bp);
+        v0[r] = w.h;
+        v1[r] = w.l;
+        float e;
+        x[r] = dot_term(w, w, e);
+        if (i0 + r < n) {
+          err = __fadd_rn(err, e);
+        } else {
+          x[r] = 0.0f;
+        }
+      }
+      storek<8>(vh, i0, n, v0);
+      storek<8>(vl, i0, n, v1);
+    } else {
+#pragma unroll
+      for (int r = 0; r < kDfVec; ++r) {
+        x[r] = 0.0f;
+      }
+    }
+    stack.push(m, x, err);
+  }
+  if (ah != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    ah[j] = a.h;
+    al[j] = a.l;
+  }
+  df_grid_tree(x, err, out_h, out_l, false, work);
+}
+
+// normalize pass: b = df_sqrt(ss) (the allsum'd norm), q =
+// where(b > 0, df_mul(df_div(1, b), v'), 0) over v; (bh, bl)[j] = b when
+// bh is not null; with ans, ans = df_add(ans, df_mul(coeff[jc], q)).
+__global__ void __launch_bounds__(kThreads)
+df_normalize_kernel(float* vh, float* vl, int64_t n, const float* ss_h,
+                    const float* ss_l, float* bh, float* bl, int j,
+                    float* ans_h, float* ans_l, const float* ch,
+                    const float* cl, int jc) {
+  const Df b = df_sqrt(Df{*ss_h, *ss_l});
+  const bool ok = b.h > 0.0f;
+  const Df inv = df_div(Df{1.0f, 0.0f}, ok ? b : Df{1.0f, 0.0f});
+  const Df c = ans_h != nullptr ? Df{ch[jc], cl[jc]} : Df{0.0f, 0.0f};
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kThreads * 4;
+  for (int64_t i0 = (static_cast<int64_t>(blockIdx.x) * kThreads +
+                     threadIdx.x) * 4;
+       i0 < n; i0 += step) {
+    float w0[4], w1[4];
+    loadk<4>(vh, i0, n, w0);
+    loadk<4>(vl, i0, n, w1);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const Df q = df_mul(inv, Df{w0[k], w1[k]});
+      w0[k] = ok ? q.h : 0.0f;
+      w1[k] = ok ? q.l : 0.0f;
+    }
+    storek<4>(vh, i0, n, w0);
+    storek<4>(vl, i0, n, w1);
+    if (ans_h != nullptr) {
+      float s0[4], s1[4];
+      loadk<4>(ans_h, i0, n, s0);
+      loadk<4>(ans_l, i0, n, s1);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const Df sum = df_add(Df{s0[k], s1[k]}, df_mul(c, Df{w0[k], w1[k]}));
+        s0[k] = sum.h;
+        s1[k] = sum.l;
+      }
+      storek<4>(ans_h, i0, n, s0);
+      storek<4>(ans_l, i0, n, s1);
+    }
+  }
+  if (bh != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    bh[j] = b.h;
+    bl[j] = b.l;
+  }
+}
+
 // ------------------------------------------------------------- launches
 
 int grid_for(int64_t n, int vec) {
@@ -1454,25 +1800,143 @@ bool df_geometry(int64_t n, int& blocks, int& rows_log) {
   return rows_log <= kDfMaxDepth;
 }
 
-int launch_df_norm(const float* xh, const float* xl, int64_t n,
-                   float* out_h, float* out_l, unsigned char* work,
-                   cudaStream_t s) {
+template <typename T>
+struct Id {
+  using type = T;
+};
+
+// One launch of a pass kernel on `s`, `grid` blocks (the error cleared
+// if refused).
+template <typename... P>
+int launch_pass(void (*fn)(P...), int grid, cudaStream_t s,
+                typename Id<P>::type... args) {
+  void* ptrs[] = {static_cast<void*>(&args)...};
+  const cudaError_t err =
+      cudaLaunchKernel(reinterpret_cast<const void*>(fn), dim3(grid),
+                       dim3(kThreads), ptrs, 0, s);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+  }
+  return static_cast<int>(err);
+}
+
+// the workspace's counter and first partials region, as a pass uses them
+template <typename T>
+T* part_of(void* work) {
+  return reinterpret_cast<T*>(static_cast<unsigned char*>(work) + kPartOff);
+}
+unsigned int* counter_of(void* work) {
+  return static_cast<unsigned int*>(work);
+}
+
+// df_dot_kernel on df_geometry's map, its node stack sized to the rows
+// (registers only where rows need them)
+int launch_df_dot(const float* xh, const float* xl, const float* mask,
+                  const float* yh, const float* yl, int64_t n, float* out_h,
+                  float* out_l, int root_sqrt, void* work,
+                  cudaStream_t s) {
   int blocks, rows_log;
   if (!df_geometry(n, blocks, rows_log)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // the node stack sized to the rows: registers only where rows need them
+  unsigned char* w = static_cast<unsigned char*>(work);
+  auto go = [&](auto fn) {
+    return launch_pass(fn, blocks, s, xh, xl, mask, yh, yl, n,
+                       rows_log, out_h, out_l, root_sqrt, w);
+  };
   if (rows_log == 0) {
-    df_norm_kernel<0><<<blocks, kThreads, 0, s>>>(xh, xl, n, 0, out_h, out_l,
-                                                  work);
-  } else if (rows_log <= 3) {
-    df_norm_kernel<3><<<blocks, kThreads, 0, s>>>(xh, xl, n, rows_log, out_h,
-                                                  out_l, work);
-  } else {
-    df_norm_kernel<kDfMaxDepth><<<blocks, kThreads, 0, s>>>(
-        xh, xl, n, rows_log, out_h, out_l, work);
+    return go(df_dot_kernel<0>);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (rows_log <= 3) {
+    return go(df_dot_kernel<3>);
+  }
+  return go(df_dot_kernel<kDfMaxDepth>);
+}
+
+int launch_df_update(float* vh, float* vl, const float* mask,
+                     const float* qh, const float* ql, const float* ph,
+                     const float* pl, int64_t n, const float* a_h,
+                     const float* a_l, const float* ssp_h,
+                     const float* ssp_l, float* ah, float* al, int j,
+                     float* out_h, float* out_l, void* work,
+                     cudaStream_t s) {
+  int blocks, rows_log;
+  if (!df_geometry(n, blocks, rows_log)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  unsigned char* w = static_cast<unsigned char*>(work);
+  auto go = [&](auto fn) {
+    return launch_pass(fn, blocks, s, vh, vl, mask, qh, ql, ph, pl, n,
+                       rows_log, a_h, a_l, ssp_h, ssp_l, ah, al, j, out_h,
+                       out_l, w);
+  };
+  if (rows_log == 0) {
+    return go(df_update_kernel<0>);
+  }
+  if (rows_log <= 3) {
+    return go(df_update_kernel<3>);
+  }
+  return go(df_update_kernel<kDfMaxDepth>);
+}
+
+// Row 5d's launches: V = Vec<T>::n with `vec`, else 1
+template <typename T>
+int launch_shard_dot(const void* v, const void* mask, const void* q,
+                     void* out, int64_t n, bool vec, void* work,
+                     cudaStream_t s) {
+  constexpr int W = Vec<T>::n;
+  auto go = [&](auto fn) {
+    return launch_pass(fn, grid_for(n, vec ? W : 1), s,
+                       static_cast<const T*>(v),
+                       static_cast<const float*>(mask),
+                       static_cast<const T*>(q), n, static_cast<T*>(out),
+                       part_of<T>(work), counter_of(work));
+  };
+  return vec ? go(shard_dot_kernel<T, W>) : go(shard_dot_kernel<T, 1>);
+}
+
+template <typename T>
+int launch_shard_update(void* v, const void* mask, const void* q,
+                        const void* qp, const void* a, const void* ss_prev,
+                        void* alpha, int j, void* out, int64_t n, bool vec,
+                        void* work, cudaStream_t s) {
+  constexpr int W = Vec<T>::n;
+  auto go = [&](auto fn) {
+    return launch_pass(fn, grid_for(n, vec ? W : 1), s,
+                       static_cast<T*>(v), static_cast<const float*>(mask),
+                       static_cast<const T*>(q), static_cast<const T*>(qp),
+                       n, static_cast<const T*>(a),
+                       static_cast<const T*>(ss_prev), static_cast<T*>(alpha),
+                       j, static_cast<T*>(out), part_of<T>(work),
+                       counter_of(work));
+  };
+  return vec ? go(shard_update_kernel<T, W>) : go(shard_update_kernel<T, 1>);
+}
+
+template <typename T>
+int launch_shard_sub_norm(void* v, const void* w, void* out, int64_t n,
+                          bool vec, void* work, cudaStream_t s) {
+  constexpr int W = Vec<T>::n;
+  auto go = [&](auto fn) {
+    return launch_pass(fn, grid_for(n, vec ? W : 1), s,
+                       static_cast<T*>(v), static_cast<const T*>(w), n,
+                       static_cast<T*>(out), part_of<T>(work),
+                       counter_of(work));
+  };
+  return vec ? go(shard_sub_norm_kernel<T, W>) : go(shard_sub_norm_kernel<T, 1>);
+}
+
+template <typename T>
+int launch_shard_normalize(void* v, const void* ss, void* beta, int j,
+                           void* row, int64_t n, bool vec, cudaStream_t s) {
+  constexpr int W = Vec<T>::n;
+  auto go = [&](auto fn) {
+    return launch_pass(fn, grid_for(n, vec ? W : 1), s,
+                       static_cast<T*>(v), n, static_cast<const T*>(ss),
+                       static_cast<T*>(beta), j, static_cast<T*>(row));
+  };
+  return vec ? go(shard_normalize_kernel<T, W>)
+             : go(shard_normalize_kernel<T, 1>);
 }
 
 // the one-launch row 5 kernel for value_bytes 4 or 8
@@ -1683,9 +2147,147 @@ extern "C" int tlt_df_norm(const void* xh, const void* xl, void* out_h,
   if (n < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_df_norm(static_cast<const float*>(xh),
-                        static_cast<const float*>(xl), n,
-                        static_cast<float*>(out_h), static_cast<float*>(out_l),
-                        static_cast<unsigned char*>(work),
-                        static_cast<cudaStream_t>(stream));
+  const float* h = static_cast<const float*>(xh);
+  const float* l = static_cast<const float*>(xl);
+  return launch_df_dot(h, l, nullptr, h, l, n, static_cast<float*>(out_h),
+                       static_cast<float*>(out_l), 1, work,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// ---- row 5d: one pass of one shard on `stream`, value_bytes 4 (float)
+// or 8 (double); `vec` 1 when every vector is 16-byte aligned (16-byte
+// accesses), else 0.  `out` a 0-d buffer of the vectors' type.  Each returns the launch's CUDA
+// error (0 = launched).
+
+namespace {
+bool pass_args_ok(long long n, int value_bytes) {
+  return n >= 1 && (value_bytes == 4 || value_bytes == 8);
+}
+}  // namespace
+
+// *out = <v * mask, q> (mask: float 0/1, or null)
+extern "C" int tlt_shard_step_dot(const void* v, const void* mask,
+                                  const void* q, void* out, long long n,
+                                  int value_bytes, int vec, void* work,
+                                  void* stream) {
+  if (!pass_args_ok(n, value_bytes)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return value_bytes == 4
+      ? launch_shard_dot<float>(v, mask, q, out, n, vec, work, s)
+      : launch_shard_dot<double>(v, mask, q, out, n, vec, work, s);
+}
+
+// v = v * mask - *a q - sqrt(*ss_prev) q_prev (ss_prev null: 0); alpha[j]
+// = *a when alpha is not null; *out = ||v||^2 when out is not null
+extern "C" int tlt_shard_step_update(void* v, const void* mask,
+                                     const void* q, const void* q_prev,
+                                     const void* a, const void* ss_prev,
+                                     void* alpha, int j, void* out,
+                                     long long n, int value_bytes, int vec,
+                                     void* work, void* stream) {
+  if (!pass_args_ok(n, value_bytes) || j < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return value_bytes == 4
+      ? launch_shard_update<float>(v, mask, q, q_prev, a, ss_prev, alpha, j,
+                                   out, n, vec, work, s)
+      : launch_shard_update<double>(v, mask, q, q_prev, a, ss_prev, alpha, j,
+                                    out, n, vec, work, s);
+}
+
+// v -= w; *out = ||v||^2 (reorthogonalization)
+extern "C" int tlt_shard_step_sub_norm(void* v, const void* w, void* out,
+                                       long long n, int value_bytes, int vec,
+                                       void* work, void* stream) {
+  if (!pass_args_ok(n, value_bytes)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return value_bytes == 4
+      ? launch_shard_sub_norm<float>(v, w, out, n, vec, work, s)
+      : launch_shard_sub_norm<double>(v, w, out, n, vec, work, s);
+}
+
+// b = sqrt(*ss); v = b > 0 ? v / b : 0, also into row (if not null);
+// beta[j] = b when beta is not null
+extern "C" int tlt_shard_step_normalize(void* v, const void* ss, void* beta,
+                                        int j, void* row, long long n,
+                                        int value_bytes, int vec,
+                                        void* stream) {
+  if (!pass_args_ok(n, value_bytes) || j < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return value_bytes == 4
+      ? launch_shard_normalize<float>(v, ss, beta, j, row, n, vec, s)
+      : launch_shard_normalize<double>(v, ss, beta, j, row, n, vec, s);
+}
+
+// ---- row 5cd: one df64 pass of one shard on `stream`; every vector
+// 16-byte aligned.
+
+// (out_h[0], out_l[0]) = df_dot((xh, xl) * mask, (yh, yl)) on df64.py's
+// tree over the n elements
+extern "C" int tlt_shard_df_dot(const void* xh, const void* xl,
+                                const void* mask, const void* yh,
+                                const void* yl, void* out_h, void* out_l,
+                                long long n, void* work, void* stream) {
+  if (n < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_df_dot(static_cast<const float*>(xh),
+                       static_cast<const float*>(xl),
+                       static_cast<const float*>(mask),
+                       static_cast<const float*>(yh),
+                       static_cast<const float*>(yl), n,
+                       static_cast<float*>(out_h), static_cast<float*>(out_l),
+                       0, work, static_cast<cudaStream_t>(stream));
+}
+
+// v = df_sub(v * mask, df_add(df_mul(a, q), df_mul(df_sqrt(ss_prev),
+// q_prev))) (ss_prev null: 0); (ah, al)[j] = a when ah is not null; (out_h,
+// out_l) = the df dot of v with itself
+extern "C" int tlt_shard_df_update(
+    void* vh, void* vl, const void* mask, const void* qh, const void* ql,
+    const void* ph, const void* pl, const void* a_h, const void* a_l,
+    const void* ssp_h, const void* ssp_l, void* ah, void* al, int j,
+    void* out_h, void* out_l, long long n, void* work, void* stream) {
+  if (n < 1 || j < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_df_update(
+      static_cast<float*>(vh), static_cast<float*>(vl),
+      static_cast<const float*>(mask), static_cast<const float*>(qh),
+      static_cast<const float*>(ql), static_cast<const float*>(ph),
+      static_cast<const float*>(pl), n, static_cast<const float*>(a_h),
+      static_cast<const float*>(a_l), static_cast<const float*>(ssp_h),
+      static_cast<const float*>(ssp_l), static_cast<float*>(ah),
+      static_cast<float*>(al), j, static_cast<float*>(out_h),
+      static_cast<float*>(out_l), work,
+      static_cast<cudaStream_t>(stream));
+}
+
+// b = df_sqrt(ss); v = where(b > 0, df_mul(df_div(1, b), v), 0); (bh,
+// bl)[j] = b when bh is not null; with ans_h, ans = df_add(ans,
+// df_mul((ch, cl)[jc], v))
+extern "C" int tlt_shard_df_normalize(void* vh, void* vl, const void* ss_h,
+                                      const void* ss_l, void* bh, void* bl,
+                                      int j, void* ans_h, void* ans_l,
+                                      const void* ch, const void* cl, int jc,
+                                      long long n, void* stream) {
+  if (n < 1 || j < 0 || jc < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_pass(df_normalize_kernel, grid_for(n, 4),
+                     static_cast<cudaStream_t>(stream),
+                     static_cast<float*>(vh), static_cast<float*>(vl), n,
+                     static_cast<const float*>(ss_h),
+                     static_cast<const float*>(ss_l), static_cast<float*>(bh),
+                     static_cast<float*>(bl), j, static_cast<float*>(ans_h),
+                     static_cast<float*>(ans_l),
+                     static_cast<const float*>(ch),
+                     static_cast<const float*>(cl), jc);
 }

@@ -35,6 +35,26 @@ them):
   ``lanczos_step_df_ref``, which are the eager ops of the first port; any
   other device raises.
 
+The row-sharded loops (dist/mesh.py, dist/lanczos_df.py) cannot run a
+step in one launch: the reference psums the dot and the norm across
+shards between its phases.  Rows 5d and 5cd are the step split at those
+psums, one launch a pass a shard, each reduction ending in the shard's
+partial in a small device buffer that the mesh sums before the next pass
+reads it:
+
+- ``shard_step_dot`` (<v * mask, q>), ``shard_step_update`` (v' over v,
+  b_prev = sqrt of the last step's psum'd norm, alpha[j], the partial
+  ||v'||^2), ``shard_step_normalize`` (beta[j] = sqrt of the psum'd
+  norm, q_{j+1} over v, the stored basis row) and, after
+  reorthogonalization's GEMVs, ``shard_step_sub_norm``;
+- ``shard_df_dot``, ``shard_df_update`` and ``shard_df_normalize``
+  likewise on (hi, lo) pairs, the dot and the norm on core/df64.py's
+  pairwise tree over the shard's elements, the normalize folding the
+  recombine pass's ``ans``; ``shard_df_dot(x, x)`` is the start norm.
+
+Their plain versions (``*_ref``) are the eager ops of the sharded bodies
+before the split, so on the CPU the loops give the bits they gave.
+
 The kernels' reductions are fixed-order (no floating-point atomics), so
 their alpha and beta differ from the plain version's torch.dot in
 rounding only, and two runs agree bit for bit; given the same scalars,
@@ -55,6 +75,10 @@ from tpu_lanczos_torch.core import df64 as df
 # step (one kernel launch; four with reorthogonalization)
 launches_step = 0
 launches_step_df = 0
+# row 5d's and row 5cd's pass launches, once a pass (a shard's dot, update,
+# sub_norm or normalize), counted by their wrappers only
+launches_step_sharded = 0
+launches_step_df_sharded = 0
 
 # the kernels' shapes (csrc/lanczos_step.cu): blocks of THREADS threads,
 # at most MAX_GRID of them; row 5 holds 16-byte chunks of v and of q a
@@ -533,3 +557,329 @@ def lanczos_step_df(v, q, q_prev, alpha, beta, j: int, *, ans=None,
         "lanczos_step_df")
     launches_step_df += 1
     return vh, vl
+
+
+# ------------------------------------------------------------- rows 5d, 5cd
+# the per-shard passes of the row-sharded loops
+
+
+def shard_step_dot_ref(v, q, mask=None):
+    """<v * mask, q>, a 0-d tensor (the plain torch.dot)."""
+    if mask is not None:
+        v = v * mask.to(v.dtype)
+    return torch.dot(v, q)
+
+
+def shard_step_update_ref(v, q, q_prev, a, ss_prev, mask=None, alpha=None,
+                          j: int = 0, norm: bool = True):
+    """(v', ||v'||^2 or None): v' = v * mask - a q - b_prev q_prev with
+    b_prev = sqrt(ss_prev) (0 when ss_prev is None); alpha[j] = a."""
+    if mask is not None:
+        v = v * mask.to(v.dtype)
+    b_prev = v.new_zeros(()) if ss_prev is None else torch.sqrt(ss_prev)
+    v = update_ref(v, q, q_prev, a, b_prev)
+    if alpha is not None:
+        alpha[j] = a
+    return v, (torch.dot(v, v) if norm else None)
+
+
+def shard_step_sub_norm_ref(v, w):
+    """(v - w, ||v - w||^2)."""
+    v = v - w
+    return v, torch.dot(v, v)
+
+
+def shard_step_normalize_ref(v, ss, beta=None, j: int = 0, store=None):
+    """q_{j+1} = v / b (zero on breakdown), b = sqrt(ss); beta[j] = b;
+    ``store`` receives q_{j+1}."""
+    b = torch.sqrt(ss)
+    q_next = normalize_ref(v, b)
+    if beta is not None:
+        beta[j] = b
+    if store is not None:
+        store.copy_(q_next)
+    return q_next
+
+
+def shard_df_dot_ref(x, y, mask=None):
+    """df_dot(x * mask, y) as a (2,) tensor (hi, lo)."""
+    if mask is not None:
+        x = (x[0] * mask, x[1] * mask)
+    return torch.stack(df.df_dot(x, y))
+
+
+def shard_df_update_ref(v, q, q_prev, a, ss_prev, mask=None, alpha=None,
+                        j: int = 0):
+    """(v', df_dot(v', v') as a (2,) tensor): v' = update_df_ref(v * mask,
+    q, q_prev, a, df_sqrt(ss_prev)) (b_prev 0 when ss_prev is None);
+    alpha[0][j], alpha[1][j] = a."""
+    if mask is not None:
+        v = (v[0] * mask, v[1] * mask)
+    zero = v[0].new_zeros(())
+    b_prev = (zero, zero) if ss_prev is None else df.df_sqrt(ss_prev)
+    v = update_df_ref(v, q, q_prev, a, b_prev)
+    if alpha is not None:
+        alpha[0][j], alpha[1][j] = a
+    return v, torch.stack(df.df_dot(v, v))
+
+
+def shard_df_normalize_ref(v, ss, beta=None, j: int = 0, ans=None,
+                           coeff=None):
+    """q_{j+1} = normalize_df_ref(v, df_sqrt(ss)); beta[0][j], beta[1][j]
+    = that df_sqrt; with ``ans`` (a (hi, lo) pair of (n,)), ans =
+    df_add(ans, df_scale(coeff[j + 1], q_{j+1})) in place."""
+    b = df.df_sqrt(ss)
+    q_next = normalize_df_ref(v, b)
+    if beta is not None:
+        beta[0][j], beta[1][j] = b
+    if ans is not None:
+        accum_df_ref(ans, coeff, j + 1, q_next)
+    return q_next
+
+
+def _pass_setup(what: str, dtype, v, *ts, scalars=()):
+    """The checks of a pass on CUDA tensors: ``v`` and ``ts`` (None
+    skipped) contiguous (n,) of ``dtype`` on one device, the 0-d scalars
+    and (k,) buffers in ``scalars`` of ``dtype`` on that device.  Returns
+    (the library, n, whether every vector is 16-byte aligned, the
+    stream)."""
+    if v.dim() != 1:
+        raise ValueError(f"{what}: v must be (n,), got {tuple(v.shape)}")
+    n = v.shape[0]
+    for t in (v, *ts):
+        if t is None:
+            continue
+        if t.device != v.device:
+            raise ValueError(f"{what}: tensors on {v.device} and {t.device}")
+        if not t.is_contiguous() or t.shape != (n,):
+            raise ValueError(f"{what}: expected contiguous ({n},), got "
+                             f"{tuple(t.shape)}")
+    for t in scalars:
+        if t is not None and (t.dtype != dtype or t.device != v.device
+                              or not t.is_contiguous()):
+            raise ValueError(f"{what}: scalars and coefficient buffers must "
+                             f"be contiguous {dtype} on {v.device}")
+    from tpu_lanczos_torch.kernels import _build
+
+    aligned = all(t.data_ptr() % 16 == 0 for t in (v, *ts) if t is not None)
+    return (_build.library(), n, aligned,
+            torch.cuda.current_stream(v.device).cuda_stream)
+
+
+def _check_pass_types(what: str, v, mask, *ts):
+    if v.device.type != "cuda":
+        raise ValueError(f"no {what} for device {v.device}")
+    if v.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{what} takes float32 or float64, got {v.dtype}")
+    for t in ts:
+        if t is not None and t.dtype != v.dtype:
+            raise TypeError(f"{what}: expected {v.dtype}, got {t.dtype}")
+    if mask is not None and mask.dtype != torch.float32:
+        raise TypeError(f"{what}: mask must be float32, got {mask.dtype}")
+
+
+def _check_slot(what: str, buf, j: int):
+    if buf is not None and (buf.dim() != 1 or not 0 <= j < buf.shape[0]):
+        raise ValueError(f"{what}: step {j} outside a (k,) buffer of "
+                         f"{tuple(buf.shape)}")
+
+
+def shard_step_dot(v, q, *, mask=None, work=None):
+    """Row 5d's dot pass on one shard: the shard's <v * mask, q> as a 0-d
+    tensor.  ``work`` is the loop's ``workspace`` on v's device (made here
+    if None).  The CUDA kernel on a CUDA tensor, the plain version on a
+    CPU one."""
+    global launches_step_sharded
+    if v.device.type == "cpu":
+        return shard_step_dot_ref(v, q, mask)
+    _check_pass_types("shard_step_dot", v, mask, q)
+    lib, n, vec, stream = _pass_setup("shard_step_dot", v.dtype, v, q, mask)
+    work = workspace(v.device) if work is None else work
+    out = v.new_empty(())
+    _raise_on(lib.tlt_shard_step_dot(
+        v.data_ptr(), _ptr(mask), q.data_ptr(), out.data_ptr(), n,
+        v.element_size(), int(vec), work.data_ptr(), stream),
+        "shard_step_dot")
+    launches_step_sharded += 1
+    return out
+
+
+def shard_step_update(v, q, q_prev, a, ss_prev, *, mask=None, alpha=None,
+                      j: int = 0, norm: bool = True, work=None):
+    """Row 5d's update pass on one shard: v' = v * mask - a q - b_prev
+    q_prev, b_prev = sqrt(ss_prev) (the last step's psum'd ||v'||^2; 0
+    when None), ``a`` the psum'd dot (0-d tensors on v's device); alpha[j]
+    = a when ``alpha`` is given.  Returns (v', the shard's ||v'||^2 as a
+    0-d tensor, or None without ``norm``).  On a CUDA tensor v' is
+    written over v.  ``work`` as in ``shard_step_dot``."""
+    global launches_step_sharded
+    if v.device.type == "cpu":
+        return shard_step_update_ref(v, q, q_prev, a, ss_prev, mask, alpha,
+                                     j, norm)
+    what = "shard_step_update"
+    _check_pass_types(what, v, mask, q, q_prev)
+    _check_slot(what, alpha, j)
+    lib, n, vec, stream = _pass_setup(what, v.dtype, v, q, q_prev, mask,
+                                      scalars=(a, ss_prev, alpha))
+    _check_distinct(what, v, q, q_prev, mask)
+    work = workspace(v.device) if work is None else work
+    out = v.new_empty(()) if norm else None
+    _raise_on(lib.tlt_shard_step_update(
+        v.data_ptr(), _ptr(mask), q.data_ptr(), q_prev.data_ptr(),
+        a.data_ptr(), _ptr(ss_prev), _ptr(alpha), j, _ptr(out), n,
+        v.element_size(), int(vec), work.data_ptr(), stream),
+        what)
+    launches_step_sharded += 1
+    return v, out
+
+
+def shard_step_sub_norm(v, w, *, work=None):
+    """Reorthogonalization's pass on one shard, after the GEMVs: (v - w,
+    the shard's ||v - w||^2); on a CUDA tensor v - w is written over v."""
+    global launches_step_sharded
+    if v.device.type == "cpu":
+        return shard_step_sub_norm_ref(v, w)
+    what = "shard_step_sub_norm"
+    _check_pass_types(what, v, None, w)
+    lib, n, vec, stream = _pass_setup(what, v.dtype, v, w)
+    _check_distinct(what, v, w)
+    work = workspace(v.device) if work is None else work
+    out = v.new_empty(())
+    _raise_on(lib.tlt_shard_step_sub_norm(
+        v.data_ptr(), w.data_ptr(), out.data_ptr(), n, v.element_size(),
+        int(vec), work.data_ptr(), stream), what)
+    launches_step_sharded += 1
+    return v, out
+
+
+def shard_step_normalize(v, ss, *, beta=None, j: int = 0, store=None):
+    """Row 5d's normalize pass on one shard: b = sqrt(ss) (the psum'd
+    ||v'||^2, a 0-d tensor on v's device), q_{j+1} = v / b (zero on
+    breakdown); beta[j] = b when ``beta`` is given; ``store`` (a (n,)
+    view, such as a row of the stored basis) receives q_{j+1}.  On a CUDA
+    tensor q_{j+1} is written over v and returned."""
+    global launches_step_sharded
+    if v.device.type == "cpu":
+        return shard_step_normalize_ref(v, ss, beta, j, store)
+    what = "shard_step_normalize"
+    _check_pass_types(what, v, None, store)
+    _check_slot(what, beta, j)
+    lib, n, vec, stream = _pass_setup(what, v.dtype, v, store,
+                                      scalars=(ss, beta))
+    _check_distinct(what, v, store)
+    _raise_on(lib.tlt_shard_step_normalize(
+        v.data_ptr(), ss.data_ptr(), _ptr(beta), j, _ptr(store), n,
+        v.element_size(), int(vec), stream), what)
+    launches_step_sharded += 1
+    return v
+
+
+def _df_pass_setup(what: str, v, *pairs, mask=None, scalars=()):
+    """Row 5cd's checks: every vector of the pairs float32, (n,), 16-byte
+    aligned, on v's CUDA device; the scalars float32 there."""
+    vh = v[0]
+    if vh.device.type != "cuda":
+        raise ValueError(f"no {what} for device {vh.device}")
+    if vh.dim() != 1:
+        raise ValueError(f"{what}: v must be (n,) pairs, got "
+                         f"{tuple(vh.shape)}")
+    n = vh.shape[0]
+    vecs = [t for p in (v, *pairs) if p is not None for t in p]
+    _check_vectors(what, torch.float32, n, *vecs, mask)
+    for t in scalars:
+        if t is not None and (t.dtype != torch.float32
+                              or t.device != vh.device
+                              or not t.is_contiguous()):
+            raise ValueError(f"{what}: scalars and coefficient buffers must "
+                             f"be contiguous float32 on {vh.device}")
+    from tpu_lanczos_torch.kernels import _build
+
+    return (_build.library(), n,
+            torch.cuda.current_stream(vh.device).cuda_stream)
+
+
+def shard_df_dot(x, y, *, mask=None, work=None):
+    """Row 5cd's dot pass on one shard: df_dot(x * mask, y) of (hi, lo)
+    pairs on core/df64.py's pairwise tree over the shard's elements, as a
+    (2,) float32 tensor (hi, lo).  ``shard_df_dot(x, x)`` is the start
+    norm's partial.  ``work`` as in ``shard_step_dot``.  The
+    CUDA kernel on CUDA tensors, the plain version on CPU ones."""
+    global launches_step_df_sharded
+    if x[0].device.type == "cpu":
+        return shard_df_dot_ref(x, y, mask)
+    lib, n, stream = _df_pass_setup("shard_df_dot", x, y, mask=mask)
+    work = workspace(x[0].device) if work is None else work
+    out = x[0].new_empty(2)
+    _raise_on(lib.tlt_shard_df_dot(
+        x[0].data_ptr(), x[1].data_ptr(), _ptr(mask), y[0].data_ptr(),
+        y[1].data_ptr(), out[0:1].data_ptr(), out[1:2].data_ptr(), n,
+        work.data_ptr(), stream), "shard_df_dot")
+    launches_step_df_sharded += 1
+    return out
+
+
+def shard_df_update(v, q, q_prev, a, ss_prev, *, mask=None, alpha=None,
+                    j: int = 0, work=None):
+    """Row 5cd's update pass on one shard: v' = df_sub(v * mask,
+    df_add(df_scale(a, q), df_scale(b_prev, q_prev))), b_prev =
+    df_sqrt(ss_prev) (the last step's allsum'd norm pair; 0 when None),
+    ``a`` the allsum'd dot pair (0-d tensors on v's device); (alpha[0],
+    alpha[1])[j] = a when ``alpha`` is given.  Returns (v', the shard's
+    df_dot(v', v') as a (2,) tensor); on CUDA tensors v' is written over
+    v."""
+    global launches_step_df_sharded
+    if v[0].device.type == "cpu":
+        return shard_df_update_ref(v, q, q_prev, a, ss_prev, mask, alpha, j)
+    what = "shard_df_update"
+    ssp = (None, None) if ss_prev is None else ss_prev
+    al = (None, None) if alpha is None else alpha
+    for buf in al:
+        _check_slot(what, buf, j)
+    lib, n, stream = _df_pass_setup(what, v, q, q_prev, mask=mask,
+                                    scalars=(*a, *ssp, *al))
+    for t in v:
+        _check_distinct(what, t, *q, *q_prev, mask)
+    _check_distinct(what, v[0], v[1])
+    work = workspace(v[0].device) if work is None else work
+    out = v[0].new_empty(2)
+    _raise_on(lib.tlt_shard_df_update(
+        v[0].data_ptr(), v[1].data_ptr(), _ptr(mask), q[0].data_ptr(),
+        q[1].data_ptr(), q_prev[0].data_ptr(), q_prev[1].data_ptr(),
+        a[0].data_ptr(), a[1].data_ptr(), *map(_ptr, ssp), *map(_ptr, al),
+        j, out[0:1].data_ptr(), out[1:2].data_ptr(), n, work.data_ptr(),
+        stream), what)
+    launches_step_df_sharded += 1
+    return v, out
+
+
+def shard_df_normalize(v, ss, *, beta=None, j: int = 0, ans=None,
+                       coeff=None):
+    """Row 5cd's normalize pass on one shard: b = df_sqrt(ss) (the
+    allsum'd norm pair, 0-d tensors on v's device), q_{j+1} =
+    df_scale(df_div(1, b), v) (zero on breakdown); (beta[0], beta[1])[j]
+    = b when ``beta`` is given; with ``ans`` (a (hi, lo) pair of (n,)) and
+    ``coeff`` ((k,) pairs), ans = df_add(ans, df_scale(coeff[j + 1],
+    q_{j+1})) in place.  On CUDA tensors q_{j+1} is written over v and
+    returned."""
+    global launches_step_df_sharded
+    if v[0].device.type == "cpu":
+        return shard_df_normalize_ref(v, ss, beta, j, ans, coeff)
+    what = "shard_df_normalize"
+    bt = (None, None) if beta is None else beta
+    for buf in bt:
+        _check_slot(what, buf, j)
+    ans_p, coeff_p = (None, None), (None, None)
+    if ans is not None:
+        for c in coeff:
+            _check_slot(what, c, j + 1)
+        ans_p, coeff_p = tuple(ans), tuple(coeff)
+    lib, n, stream = _df_pass_setup(what, v, ans, mask=None,
+                                    scalars=(*ss, *bt, *coeff_p))
+    for t in v:
+        _check_distinct(what, t, *(x for x in ans_p if x is not None))
+    _raise_on(lib.tlt_shard_df_normalize(
+        v[0].data_ptr(), v[1].data_ptr(), ss[0].data_ptr(), ss[1].data_ptr(),
+        *map(_ptr, bt), j, *map(_ptr, ans_p), *map(_ptr, coeff_p), j + 1, n,
+        stream), what)
+    launches_step_df_sharded += 1
+    return v
