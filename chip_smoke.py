@@ -81,11 +81,14 @@ jax or of the JAX package.  Each phase prints one JSON line:
      phase 10, one NCCL rank, the CLI's ``--shards``, and CUDA-event
      times (the shards run in turn on one card: kernel work and
      launches, no collective over a link); and rows 5d and 5cd, the
-     step's per-shard passes: each pass kernel against its plain version
-     at a shard's n_loc and at an odd chunk count, the exact pass counts
-     of every sharded loop, the per-shard step's device time beside the
-     eager passes' and its bound, and the 4-shard Lanczos and df64 query
-     through the kernels and through the eager passes in turns;
+     step's per-shard passes: each pass kernel with its slots against its
+     plain version at a shard's n_loc and at an odd chunk count, the
+     exact pass counts of every sharded loop, the device time of one
+     shard's step and of the whole 4-shard step after the SpMV beside the
+     eager passes' and their bounds, the 4-shard Lanczos and df64 query
+     through the kernels and through the eager passes in turns, and
+     (after phase 9, in a child process) a traced 4-shard Lanczos with no
+     kernel between a step's passes;
  12  the eval harness (``tpu_lanczos_torch.eval``) on phase 3's graph,
      pack and phase 4's oracle answer: the stage breakdown (kernel 1's
      launches per Lanczos, the staged answer against ``expm_action``'s;
@@ -101,8 +104,8 @@ jax or of the JAX package.  Each phase prints one JSON line:
      1000 with a bit-identical resume).
 
 Phases 10, 11 and 12 run after phase 7, while the CST pack child that
-phase 8 waits for is still packing; then phases 8 and 9, and phase 12's
-traced Lanczos.  Then the card's name
+phase 8 waits for is still packing; then phases 8 and 9, and the traced
+Lanczos runs of phases 12 and 11.  Then the card's name
 and power limit (nvidia-smi), one JSON line of
 per-kernel results (with each kernel's bound: the larger of its bytes
 over the HBM rate and its operations over their peak rate; the step
@@ -1016,16 +1019,19 @@ def shard_passes(sg) -> list:
 
 
 def shard_pass_case(torch, v_raw, q, qp, mask):
-    """Row 5d on one shard's inputs (v before its realmask multiply):
-    the dot within 1e-6 (f32) or 1e-13 (f64) relative of torch.dot and
-    equal in two runs; v' from the update pass given that dot, then
-    reorthogonalization's pass on v' with w the two GEMVs' result
-    against the basis (q_{j-1}, q_j), and q_{j+1} and the stored row
-    from the normalize pass given the kernel's norm, equal to the plain
-    versions bit for bit; each norm within the same bar.  The vectors
-    the passes write keep v_raw's alignment, so inputs sliced off a
-    16-byte boundary run the one-value (V = 1) builds.  Returns (largest
-    |kernel - plain|, largest relative dot or norm difference)."""
+    """Row 5d on one shard's inputs (v before its realmask multiply), as
+    shard 1 of 3 with slots: the dot (written to slot 1) within 1e-6
+    (f32) or 1e-13 (f64) relative of torch.dot and equal in two runs;
+    v' from the update pass given 3 dot slots and 3 last-step norm slots
+    (the kernel's fold), then reorthogonalization's pass on v' with w the
+    two GEMVs' result against the basis (q_{j-1}, q_j), and q_{j+1} and
+    the stored row from the normalize pass given 3 norm slots, equal to
+    the plain versions bit for bit, alpha[j] and beta[j] the plain folds'
+    bits; each norm within the same bar; the update and the dot once
+    more with their early loads, the same bits.  The vectors the passes
+    write keep v_raw's alignment, so inputs sliced off a 16-byte boundary
+    run the one-value (V = 1) builds.  Returns (largest |kernel -
+    plain|, largest relative dot or norm difference)."""
     from tpu_lanczos_torch.kernels import lanczos_step as ls
 
     off = v_raw.data_ptr() % 16 // v_raw.element_size()
@@ -1035,76 +1041,110 @@ def shard_pass_case(torch, v_raw, q, qp, mask):
 
     dt = v_raw.dtype
     tol = 1e-6 if dt == torch.float32 else 1e-13
-    a = ls.shard_step_dot(v_raw, q, mask=mask)
-    check(torch.equal(a, ls.shard_step_dot(v_raw, q, mask=mask)),
+    what = f"row 5d ({dt}, offset {off})"
+    dots = torch.tensor([0.75, 0.0, -0.125], dtype=dt, device=q.device)
+    ls.shard_step_dot(v_raw, q, mask=mask, slots=dots, shard=1)
+    a = dots[1].clone()
+    check(torch.equal(a, ls.shard_step_dot(v_raw, q, mask=mask)[0]),
           "row 5d: two runs of the dot pass bit-identical")
-    a_ref = ls.shard_step_dot_ref(v_raw, q, mask)
-    ss_prev = torch.tensor(0.5625, dtype=dt, device=v_raw.device)
-    v_k, part = ls.shard_step_update(fresh(v_raw), q, qp, a, ss_prev,
-                                     mask=mask)
-    v_r, part_r = ls.shard_step_update_ref(v_raw, q, qp, a, ss_prev, mask)
-    check(torch.equal(v_k, v_r), f"row 5d ({dt}, offset {off}): v' == "
-          f"plain given the kernel's dot")
+    a_ref = ls.shard_step_dot_ref(v_raw, q, mask)[0]
+    ss_prev = torch.tensor([0.5625, 0.25, 1e-3], dtype=dt, device=q.device)
+    ab = [torch.zeros(4, dtype=dt, device=q.device) for _ in "ab"]
+    v_k, part = ls.shard_step_update(fresh(v_raw), q, qp, dots, ss_prev,
+                                     mask=mask, alpha=ab[0], j=2)
+    v_r, part_r = ls.shard_step_update_ref(v_raw, q, qp, dots, ss_prev, mask)
+    check(torch.equal(v_k, v_r) and torch.equal(
+        ab[0][2], ls.fold_slots_ref(dots)), f"{what}: v' and alpha == plain "
+        f"given the kernel's dot slots")
+    v_e = fresh(v_raw)
+    torch.cuda.synchronize()  # nothing the early loads read is in flight
+    v_e, part_e = ls.shard_step_update(v_e, q, qp, dots, ss_prev, mask=mask,
+                                       early=True)
+    e_dot = ls.shard_step_dot(v_raw, q, mask=mask, early=True)
+    check(torch.equal(v_e, v_k) and torch.equal(part_e, part)
+          and torch.equal(e_dot[0], a), f"{what}: early loads, same bits")
     basis = torch.stack((qp, q))
     w = torch.matmul(basis.T, torch.matmul(basis, v_k))
     v_s, sub = ls.shard_step_sub_norm(v_k, fresh(w))
     v_sr, sub_r = ls.shard_step_sub_norm_ref(v_r, w)
-    check(torch.equal(v_s, v_sr), f"row 5d ({dt}, offset {off}): v' - w "
-          f"of the sub-norm pass == plain")
+    check(torch.equal(v_s, v_sr), f"{what}: v' - w of the sub-norm pass == "
+          f"plain")
+    norms = torch.cat([sub, ss_prev[1:]])
     store = fresh(torch.zeros_like(q))
-    q_k = ls.shard_step_normalize(fresh(v_s), sub, store=store)
-    q_r = ls.shard_step_normalize_ref(v_sr, sub)
-    check(torch.equal(q_k, q_r) and torch.equal(store, q_r),
-          f"row 5d ({dt}, offset {off}): q_(j+1) and the stored row == "
-          f"plain given the kernel's norm")
-    diffs = [(a, a_ref), (part, part_r), (sub, sub_r)]
+    q_k = ls.shard_step_normalize(fresh(v_s), norms, beta=ab[1], j=2,
+                                  store=store)
+    q_r = ls.shard_step_normalize_ref(v_sr, norms)
+    check(torch.equal(q_k, q_r) and torch.equal(store, q_r)
+          and torch.equal(ab[1][2], torch.sqrt(ls.fold_slots_ref(norms))),
+          f"{what}: q_(j+1), the stored row and beta == plain given the "
+          f"kernel's norm slots")
+    diffs = [(a, a_ref), (part[0], part_r[0]), (sub[0], sub_r[0])]
     rel = max(float(abs(x - y) / abs(y)) for x, y in diffs)
-    check(rel < tol, f"row 5d ({dt}, offset {off}): dot and norms within "
-          f"{tol} ({rel})")
+    check(rel < tol, f"{what}: dot and norms within {tol} ({rel})")
     return max(float(abs(x - y)) for x, y in diffs), rel
 
 
 def shard_df_pass_case(torch, v_raw, q, qp, mask):
-    """Row 5cd as ``shard_pass_case`` on (hi, lo) pairs: the df dot's
-    and the norm's hi words equal to the plain tree's, both within 5e-11
-    of its df value, two runs equal; v', q_{j+1} and the recombine fold
-    bit-identical to the plain versions given the kernel's scalars."""
+    """Row 5cd as ``shard_pass_case`` on (hi, lo) pairs, shard 1 of 3:
+    the df dot's and the norm's hi words equal to the plain tree's, both
+    within 5e-11 of its df value, two runs equal; v', q_{j+1}, alpha,
+    beta and the recombine fold bit-identical to the plain versions given
+    the kernel's slots (the df folds); the early loads the same bits."""
     from tpu_lanczos_torch.core import df64 as df
     from tpu_lanczos_torch.kernels import lanczos_step as ls
 
     def f64(p):
         return float(df.df_to_f64((p[0], p[1])))
 
-    a = ls.shard_df_dot(v_raw, q, mask=mask)
-    check(torch.equal(a, ls.shard_df_dot(v_raw, q, mask=mask)),
-          "row 5cd: two runs of the df dot pass bit-identical")
-    a_ref = ls.shard_df_dot_ref(v_raw, q, mask)
-    a = (a[0], a[1])
     dev = q[0].device
-    ssp = (torch.tensor(0.5625, device=dev), torch.tensor(1e-9, device=dev))
+    dots = torch.tensor([[0.75, 1e-9], [0.0, 0.0], [-0.125, -3e-10]],
+                        device=dev)
+    ls.shard_df_dot(v_raw, q, mask=mask, slots=dots, shard=1)
+    a = dots[1].clone()
+    check(torch.equal(a, ls.shard_df_dot(v_raw, q, mask=mask)[0]),
+          "row 5cd: two runs of the df dot pass bit-identical")
+    a_ref = ls.shard_df_dot_ref(v_raw, q, mask)[0]
+    ssp = torch.tensor([[0.5625, 1e-9], [0.25, 0.0], [1e-3, 2e-12]],
+                       device=dev)
+    ab = [torch.zeros(4, device=dev) for _ in range(4)]
     v_k, part = ls.shard_df_update((v_raw[0].clone(), v_raw[1].clone()), q,
-                                   qp, a, ssp, mask=mask)
-    v_r, part_r = ls.shard_df_update_ref(v_raw, q, qp, a, ssp, mask)
-    check(torch.equal(v_k[0], v_r[0]) and torch.equal(v_k[1], v_r[1]),
-          "row 5cd: v' == plain given the kernel's dot")
+                                   qp, dots, ssp, mask=mask, alpha=ab[:2],
+                                   j=2)
+    v_r, part_r = ls.shard_df_update_ref(v_raw, q, qp, dots, ssp, mask)
+    fa = ls.fold_df_slots_ref(dots)
+    check(torch.equal(v_k[0], v_r[0]) and torch.equal(v_k[1], v_r[1])
+          and torch.equal(ab[0][2], fa[0]) and torch.equal(ab[1][2], fa[1]),
+          "row 5cd: v' and alpha == plain given the kernel's dot slots")
+    v_e = (v_raw[0].clone(), v_raw[1].clone())
+    torch.cuda.synchronize()  # nothing the early loads read is in flight
+    v_e, part_e = ls.shard_df_update(v_e, q, qp, dots, ssp, mask=mask,
+                                     early=True)
+    e_dot = ls.shard_df_dot(v_raw, q, mask=mask, early=True)
+    check(torch.equal(v_e[0], v_k[0]) and torch.equal(v_e[1], v_k[1])
+          and torch.equal(part_e, part) and torch.equal(e_dot[0], a),
+          "row 5cd: early loads, same bits")
+    part, part_r = part[0], part_r[0]
     check(float(a[0]) == float(a_ref[0])
           and float(part[0]) == float(part_r[0]),
           "row 5cd: the dot's and the norm's hi words == the plain tree's")
     rel = max(abs(f64(a) - f64(a_ref)) / abs(f64(a_ref)),
               abs(f64(part) - f64(part_r)) / abs(f64(part_r)))
     check(rel < 5e-11, f"row 5cd: dot and norm within 5e-11 ({rel})")
-    ss = (part[0], part[1])
+    norms = torch.stack([part, ssp[1], ssp[2]])
     k = 4
     coeff = (torch.linspace(0.5, 1.5, k, device=dev),
              torch.full((k,), 1e-9, device=dev))
     ans = (3.0 * qp[0], 3.0 * qp[1])
     acc = (ans[0].clone(), ans[1].clone())
-    q_k = ls.shard_df_normalize((v_k[0].clone(), v_k[1].clone()), ss,
-                                j=2, ans=ans, coeff=coeff)
-    q_r = ls.shard_df_normalize_ref(v_r, ss, j=2, ans=acc, coeff=coeff)
-    check(all(torch.equal(x, y) for x, y in zip((*q_k, *ans),
-                                                 (*q_r, *acc))),
-          "row 5cd: q_(j+1) and the fold == plain given the kernel's norm")
+    q_k = ls.shard_df_normalize((v_k[0].clone(), v_k[1].clone()), norms,
+                                beta=ab[2:], j=2, ans=ans, coeff=coeff)
+    q_r = ls.shard_df_normalize_ref(v_r, norms, j=2, ans=acc, coeff=coeff)
+    b = df.df_sqrt(ls.fold_df_slots_ref(norms))
+    check(all(torch.equal(x, y) for x, y in zip((*q_k, *ans, ab[2][2],
+                                                 ab[3][2]),
+                                                (*q_r, *acc, *b))),
+          "row 5cd: q_(j+1), beta and the fold == plain given the kernel's "
+          "norm slots")
     err = max(abs(f64(a) - f64(a_ref)), abs(f64(part) - f64(part_r)))
     return err, rel
 
@@ -1118,40 +1158,24 @@ def shard_step_bound(n_loc: int, df: bool):
     return bound(n_loc * (5 * vb + 4), n_loc * (209 if df else 9))
 
 
-@contextlib.contextmanager
-def eager_shard_passes():
-    """Every sharded loop runs the plain versions of rows 5d and 5cd in
-    the block: the eager step of the first port, to time beside the
-    kernels in one run."""
-    from tpu_lanczos_torch.kernels import lanczos_step as ls
-
-    names = ("shard_step_dot", "shard_step_update", "shard_step_sub_norm",
-             "shard_step_normalize", "shard_df_dot", "shard_df_update",
-             "shard_df_normalize")
-    real = {n: getattr(ls, n) for n in names}
-    for n in names:
-        ref = getattr(ls, n + "_ref")
-        setattr(ls, n, lambda *a, ref=ref, work=None, **kw: ref(*a, **kw))
-    try:
-        yield
-    finally:
-        for n, fn in real.items():
-            setattr(ls, n, fn)
-
-
 def shard_step_phase(torch, g, sg4, mesh4, xr, rng) -> dict:
     """Rows 5d and 5cd at bn1M on 4 shards: ``shard_pass_case`` and
     ``shard_df_pass_case`` on every shard's inputs of one step (the
     unmasked SpMV of x / ||x||, q_{j-1} the normalized ones), on
     random inputs of 3 chunks and (row 5d) on those sliced one value off
-    16 bytes; then one shard's step (shard 1) through the
-    pass kernels and the eager passes (``eval/step_tiers.py``
-    ``shard_step``), queued behind a sleep, in turns, beside its bound.
-    Returns the part's numbers."""
+    16 bytes; then one shard's step (shard 1) and the whole step of the 4
+    shards after the SpMV (12 passes, nothing between them:
+    ``eval/step_tiers.py`` ``mesh_step``, each call behind the one-value
+    kernel that stands in for the SpMV's last level, timed alone too)
+    through the pass kernels and the eager passes
+    (``eager_shard_passes``), queued behind a sleep, in turns, beside
+    their bounds (the mesh's 4 times a shard's), the mesh's kernels also
+    without their early loads.  Returns the part's numbers."""
     from tpu_lanczos_torch.core.lanczos_df import split_f64
     from tpu_lanczos_torch.dist.cpg_sharded import _local_spmv
     from tpu_lanczos_torch.dist.lanczos_df import _local_spmv_df
-    from tpu_lanczos_torch.eval.step_tiers import shard_step
+    from tpu_lanczos_torch.eval.step_tiers import (eager_shard_passes,
+                                                   mesh_step, spmv_stand_in)
     from tpu_lanczos_torch.kernels.spmv_cpg import run_level, run_level_comp
 
     n_loc = sg4.n_loc
@@ -1172,7 +1196,7 @@ def shard_step_phase(torch, g, sg4, mesh4, xr, rng) -> dict:
         for s in range(SHARDS):
             note("5d", shard_pass_case(torch, v[s], q[s], qp[s],
                                        sg4.realmask[s]))
-        inputs[dt] = (v[1], q[1], qp[1])
+        inputs[dt] = (v, q, qp)
     pairs = [list(zip(*(mesh4.split(t, n_loc) for t in split_f64(a))))
              for a in (xq, xp)]
     v_df = _local_spmv_df(sg4, mesh4, pairs[0], run_level, run_level_comp,
@@ -1198,27 +1222,46 @@ def shard_step_phase(torch, g, sg4, mesh4, xr, rng) -> dict:
     out = {"n_loc": n_loc, "odd_chunks_n": n3,
            "max_abs_err_5d": err["5d"], "max_rel_5d": rel["5d"],
            "max_abs_err_5cd": err["5cd"], "max_rel_5cd": rel["5cd"]}
-    # one shard's step, kernel and eager passes in turns
-    mask1 = sg4.realmask[1]
-    cases = {"f32": (*inputs[torch.float32], False, 100, 20),
-             "df64": (v_df[1], pairs[0][1], pairs[1][1], True, 50, 5)}
-    for name, (v, q, qp, df, k_calls, e_calls) in cases.items():
-        kernel = shard_step(v, q, qp, mask1, df, True)
-        eager = shard_step(v, q, qp, mask1, df, False)
-        turns = {}
-        for tag in ("eager_1", "kernel_1", "kernel_2", "eager_2"):
-            fn, calls = ((kernel, k_calls) if tag.startswith("kernel")
-                         else (eager, e_calls))
-            ms, samples, host_ms = queued_ms(torch, fn, calls)
-            turns[tag] = {"device_ms": ms, "samples": samples,
-                          "host_enqueue_ms": host_ms, "calls": calls}
-        b_ms, b_by = shard_step_bound(n_loc, df)
-        k_ms = float(np.median([turns[t]["device_ms"]
-                                for t in ("kernel_1", "kernel_2")]))
-        out[name] = {"device_ms": k_ms, "eager_device_ms": float(np.median(
-            [turns[t]["device_ms"] for t in ("eager_1", "eager_2")])),
-            "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / k_ms,
-            "turns": turns}
+    # one shard's step and the 4-shard step, kernels and eager in turns
+    out["spmv_stand_in_ms"] = queued_ms(torch, spmv_stand_in(dev), 100)[0]
+    masks = list(sg4.realmask)
+    # calls a sample (shard kernel, shard eager, mesh kernel, mesh
+    # eager): a sample queues at most ~650 launches, since at 1,300 the
+    # host's enqueue blocked and the samples' tail ran at its pace
+    cases = {"f32": (*inputs[torch.float32], False, (100, 20, 50, 5)),
+             "df64": (v_df, pairs[0], pairs[1], True, (50, 5, 50, 2))}
+    for name, (v, q, qp, df, calls_of) in cases.items():
+        for part, sl, scale in (("", slice(1, 2), 1),
+                                ("mesh_", slice(0, SHARDS), SHARDS)):
+            k_calls, e_calls = calls_of[2:] if part else calls_of[:2]
+            args = (v[sl], q[sl], qp[sl], masks[sl], df)
+            fns = {"kernel": (mesh_step(*args), k_calls),
+                   "eager": (mesh_step(*args), e_calls)}
+            tags = ["eager_1", "kernel_1", "kernel_2", "eager_2"]
+            if part:
+                fns["no_early"] = (mesh_step(*args, early=False), k_calls)
+                tags[2:2] = ["no_early_1", "no_early_2"]
+            turns = {}
+            for tag in tags:
+                fn, calls = fns[tag.rsplit("_", 1)[0]]
+                with (eager_shard_passes() if tag.startswith("eager")
+                      else contextlib.nullcontext()):
+                    ms, samples, host_ms = queued_ms(torch, fn, calls)
+                turns[tag] = {"device_ms": ms, "samples": samples,
+                              "host_enqueue_ms": host_ms, "calls": calls}
+            b_ms, b_by = shard_step_bound(n_loc, df)
+
+            def med(kind):
+                return float(np.median([turns[f"{kind}_{i}"]["device_ms"]
+                                        for i in (1, 2)]))
+            k_ms = med("kernel")
+            out[part + name] = {
+                "shards": scale, "device_ms": k_ms,
+                "eager_device_ms": med("eager"), "bound_ms": scale * b_ms,
+                "bound_by": b_by, "bound_share": scale * b_ms / k_ms,
+                "turns": turns}
+            if part:
+                out[part + name]["no_early_device_ms"] = med("no_early")
     del inputs, v_df, pairs
     return out
 
@@ -1436,6 +1479,8 @@ def sharded_phase(torch, g, dev, ref, ref_shift, top_ref, p10,
           "lanczos_k50_event_ms": ms_l, "shift": shift,
           "oracle_shift": ref_shift})
     del st, sga
+
+    from tpu_lanczos_torch.eval.step_tiers import eager_shard_passes
 
     # ---- rows 5d and 5cd: every pass kernel against its plain version,
     # on each shard's inputs of one bn1M step (n_loc = 2^18) and on an odd
@@ -1745,8 +1790,9 @@ def sharded_phase(torch, g, dev, ref, ref_shift, top_ref, p10,
         "bound_ms": df_bound[0], "bound_by": df_bound[1],
         "library_ms": None})
     # rows 5d and 5cd: ms and plain_ms are one shard's step (three pass
-    # launches) and the eager passes' at bn1M's n_loc; launches count
-    # pass launches
+    # launches) and the eager passes' at bn1M's n_loc, each behind the
+    # SpMV's one-value stand-in kernel (phase 11's spmv_stand_in_ms);
+    # launches count pass launches
     for name, key, row, launches, replaces in (
             ("lanczos_step_sharded", "f32", "5d", expm_step_launches,
              SHARD_STEP_REPLACES),
@@ -1808,31 +1854,33 @@ def suite_row(torch, name: str, cache_dir: str, dev) -> dict:
     return dict(row, launches=counts)
 
 
-def traced_lanczos(torch, dg) -> dict:
-    """One ``profiling.trace`` of ``lanczos(dg, realmask, k)`` after a warm
-    run: the kernel launches and device milliseconds by kernel (the level
-    kernel, each step kernel, the rest by name), the union of the kernel
-    intervals (busy) over the span from the first kernel's start to the
-    last one's end, and the idle share 1 - busy/span."""
-    from tpu_lanczos_torch.core.lanczos import lanczos
+def traced_kernels(torch, fn) -> tuple:
+    """The kernel events of one ``profiling.trace`` of ``fn()`` after a
+    warm run, by start time, and the trace's event categories."""
     from tpu_lanczos_torch.eval import profiling
     from tpu_lanczos_torch.utils import BUILD_DIR
 
-    x1 = dg.realmask.reshape(-1).clone()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        lanczos(dg, x1, K)
+        fn()
         torch.cuda.synchronize()
         with profiling.trace(tmp):
-            lanczos(dg, x1, K)
+            fn()
         with open(os.path.join(tmp, profiling.TRACE_FILE)) as f:
             events = json.load(f)["traceEvents"]
     kernels = sorted((e for e in events if e.get("cat") == "kernel"),
                      key=lambda e: e["ts"])
+    return kernels, sorted({str(e.get("cat")) for e in events})
+
+
+def kernel_stats(kernels: list, keys) -> dict:
+    """Launches and device milliseconds by kernel (each of ``keys`` that
+    a name holds, the rest by name), the union of the kernel intervals
+    (busy) over the span from the first kernel's start to the last one's
+    end, and the idle share 1 - busy/span."""
     by_name = {}
     for e in kernels:
         name = str(e.get("name", ""))
-        key = next((k for k in ("cpg_level_kernel", *STEP_KERNELS)
-                    if k in name), name[:70])
+        key = next((k for k in keys if k in name), name[:70])
         row = by_name.setdefault(key, {"launches": 0, "ms": 0.0})
         row["launches"] += 1
         row["ms"] += e.get("dur", 0) / 1e3
@@ -1846,11 +1894,60 @@ def traced_lanczos(torch, dg) -> dict:
             busy += t1 - end
             end = t1
     span = (end - kernels[0]["ts"]) if kernels else 0.0
-    return {"categories": sorted({str(e.get("cat")) for e in events}),
-            "kernel_events": len(kernels), "by_name": by_name,
+    return {"kernel_events": len(kernels), "by_name": by_name,
             "kernel_ms": sum(r["ms"] for r in by_name.values()),
             "busy_ms": busy / 1e3, "span_ms": span / 1e3,
             "idle_share": 1 - busy / span if span else None}
+
+
+def traced_lanczos(torch, dg) -> dict:
+    """One traced ``lanczos(dg, realmask, k)`` (``traced_kernels``): the
+    level kernel, each step kernel and the rest by name
+    (``kernel_stats``)."""
+    from tpu_lanczos_torch.core.lanczos import lanczos
+
+    x1 = dg.realmask.reshape(-1).clone()
+    kernels, cats = traced_kernels(torch, lambda: lanczos(dg, x1, K))
+    return dict(kernel_stats(kernels, ("cpg_level_kernel", *STEP_KERNELS)),
+                categories=cats)
+
+
+# row 5d's pass kernels, three a shard a step
+SHARD_PASS_KERNELS = ("shard_dot_kernel", "shard_update_kernel",
+                      "shard_normalize_kernel")
+
+
+def traced_sharded_lanczos(torch) -> dict:
+    """One traced ``lanczos_cpg_sharded`` of bn1M on 4 shards of the card
+    (as phase 11 packs it): the kernels by name, the kernels a step, and
+    the kernels that run between the first and the last of a step's
+    3 * shards passes that are not passes (with the fold in the passes,
+    none)."""
+    from tpu_lanczos_torch import generators
+    from tpu_lanczos_torch.dist import make_mesh
+    from tpu_lanczos_torch.dist.cpg_sharded import (lanczos_cpg_sharded,
+                                                    pack_cpg_sharded)
+
+    g = generators.barabasi_albert(N, M, seed=SEED, use_native=True)
+    mesh = make_mesh(devices=["cuda:0"] * SHARDS)
+    sg = pack_cpg_sharded(g, SHARDS, mesh=mesh, sub=SUB)
+    del g
+    x1 = [r.clone() for r in sg.realmask]
+    kernels, cats = traced_kernels(
+        torch, lambda: lanczos_cpg_sharded(sg, x1, K, mesh))
+    is_pass = [any(k in str(e.get("name", "")) for k in SHARD_PASS_KERNELS)
+               for e in kernels]
+    at = [i for i, p in enumerate(is_pass) if p]
+    per_step = len(SHARD_PASS_KERNELS) * SHARDS
+    between = ([at[i + per_step - 1] - at[i] + 1 - per_step
+                for i in range(0, len(at), per_step)]
+               if at and len(at) % per_step == 0 else [-1])
+    stats = kernel_stats(kernels, ("cpg_level_kernel", *SHARD_PASS_KERNELS))
+    return dict(stats, categories=cats, n_pad=sg.n_pad,
+                levels=len(sg.levels), pass_kernels=len(at),
+                kernels_per_step=stats["kernel_events"] / K,
+                kernels_between_passes=sum(between),
+                kernels_between_passes_max_step=max(between))
 
 
 TRACE_CHILD = r"""
@@ -1864,13 +1961,16 @@ print(json.dumps(chip_smoke.trace_child(sys.argv[2], sys.argv[3])))
 def trace_child(name: str, suite_cache: str) -> dict:
     """Run in a child process of its own: pack ``name`` (bench.py's
     graph, phase 3's seed, or a suite config from phase 12's cache) and
-    trace one Lanczos of it (``traced_lanczos``)."""
+    trace one Lanczos of it (``traced_lanczos``); "bn1M_4_shards": the
+    4-shard one (``traced_sharded_lanczos``)."""
     import torch
 
     from tpu_lanczos_torch import generators
     from tpu_lanczos_torch.eval import bench_suite
     from tpu_lanczos_torch.kernels.cpg import pack_cpg
 
+    if name == "bn1M_4_shards":
+        return traced_sharded_lanczos(torch)
     if name == "bn1M":
         g = generators.barabasi_albert(N, M, seed=SEED, use_native=True)
         pack = pack_cpg(g, sub=SUB, device="cuda")
@@ -1885,24 +1985,30 @@ def trace_child(name: str, suite_cache: str) -> dict:
 
 
 def trace_part(suite_cache: str, t_all: float) -> None:
-    """Phase 12's traced Lanczos runs: bench.py's graph (the trace must
-    name ``cpg_level_kernel`` k * levels times and the step kernel k
+    """The traced Lanczos runs: phase 12's of bench.py's graph (the trace
+    must name ``cpg_level_kernel`` k * levels times and the step kernel k
     times, one launch a step, and fewer than k other kernels: no
-    per-step realmask multiply) and the suite's stencil_2600, a mesh's
-    profile (its graph and pack from phase 12's suite cache).  Each runs
-    in a child process with a profiler of its own: in this process, after
-    the profiled probe calls of phase 9, a trace once lost one kernel's
-    record (and a profiler session before phase 9 once left the probe's
-    profiled calls with no CUDA events)."""
+    per-step realmask multiply) and of the suite's stencil_2600, a mesh's
+    profile (its graph and pack from phase 12's suite cache); and phase
+    11's of bn1M on 4 shards of the card (k * shards launches of each of
+    row 5d's three passes, and no kernel between a step's passes).  Each
+    runs in a child process with a profiler of its own: in this process,
+    after the profiled probe calls of phase 9, a trace once lost one
+    kernel's record (and a profiler session before phase 9 once left the
+    probe's profiled calls with no CUDA events)."""
     root = os.path.dirname(os.path.abspath(__file__))
-    for name in ("bn1M", "stencil_2600"):
+
+    def child(name):
         proc = subprocess.run(
             [sys.executable, "-c", TRACE_CHILD, root, name, suite_cache],
             capture_output=True, text=True, timeout=600,
             preexec_fn=_die_with_parent)
         check(proc.returncode == 0,
               f"trace child for {name} failed: {proc.stderr[-3000:]}")
-        t = json.loads(proc.stdout.strip().splitlines()[-1])
+        return json.loads(proc.stdout.strip().splitlines()[-1])
+
+    for name in ("bn1M", "stencil_2600"):
+        t = child(name)
         L = t["levels"]
         got = {k: t["by_name"].get(k, {}).get("launches", 0)
                for k in ("cpg_level_kernel", *STEP_KERNELS)}
@@ -1922,6 +2028,20 @@ def trace_part(suite_cache: str, t_all: float) -> None:
               "ms_by_kernel": {k: r["ms"] for k, r in t["by_name"].items()},
               "launches_per_step": sum(got[k] for k in STEP_KERNELS) / K,
               "total_s": time.time() - t_all})
+    t = child("bn1M_4_shards")
+    got = {k: t["by_name"].get(k, {}).get("launches", 0)
+           for k in SHARD_PASS_KERNELS}
+    check(got == {k: K * SHARDS for k in SHARD_PASS_KERNELS},
+          f"4-shard trace: pass launches {got}, want {K * SHARDS} each "
+          f"(categories {t['categories']})")
+    check(t["kernels_between_passes"] == 0,
+          f"4-shard trace: {t['kernels_between_passes']} kernels between a "
+          f"step's passes, want 0")
+    emit({"phase": 11, "part": "trace_4_shards", **t,
+          "pass_kernels_ms": sum(t["by_name"][k]["ms"]
+                                 for k in SHARD_PASS_KERNELS),
+          "ms_by_kernel": {k: r["ms"] for k, r in t["by_name"].items()},
+          "total_s": time.time() - t_all})
 
 
 def eval_phase(torch, g, dg, ref, ref_shift, t_all: float, suite_cache: str,

@@ -1008,50 +1008,58 @@ def _pass_inputs(dev, n, dtype, seed, offset=0):
 def test_shard_step_passes_equal_plain_versions(dev, dtype, n, offset):
     """Row 5d at a shard's n_loc of bn1M over 4 shards (2^18), an odd
     chunk count (3 chunks of 128 x 128), a tail past the 16-byte chunks
-    and unaligned vectors (the one-value path): the dot and the partial
-    norm within 1e-6 (f32) or 1e-13 (f64) relative of torch.dot, equal
-    in two runs; given the same scalars v',
-    q_{j+1}, the stored row and v - w equal the plain versions bit for
-    bit; alpha[j] and beta[j] written; one count a pass launch."""
+    and unaligned vectors (the one-value path; V = 4, 2 and 1): the dot
+    written to its slot (shard 1 of 3) and the partial norm within 1e-6
+    (f32) or 1e-13 (f64) relative of torch.dot, equal in two runs; given
+    the same 3 dot slots and 3 norm slots, v', alpha[j] (the fold),
+    q_{j+1}, beta[j], the stored row and v - w equal the plain versions
+    bit for bit; the early loads give the same bits; one count a pass
+    launch."""
     from tpu_lanczos_torch.kernels import lanczos_step as ls
 
     (v, q, qp), mask = _pass_inputs(dev, n, dtype, n, offset)
     tol = 1e-6 if dtype == torch.float32 else 1e-13
     before = ls.launches_step_sharded
-    a = ls.shard_step_dot(v, q, mask=mask)
-    assert torch.equal(a, ls.shard_step_dot(v, q, mask=mask))
-    assert _rel(a, ls.shard_step_dot_ref(v, q, mask)) < tol
-    ss_prev = torch.tensor(0.5625, dtype=dtype, device=dev)
+    dots = torch.tensor([0.75, 0.0, -0.125], dtype=dtype, device=dev)
+    ls.shard_step_dot(v, q, mask=mask, slots=dots, shard=1)
+    assert torch.equal(dots[1:2], ls.shard_step_dot(v, q, mask=mask))
+    assert _rel(dots[1], ls.shard_step_dot_ref(v, q, mask)[0]) < tol
+    ss_prev = torch.tensor([0.5625, 0.25, 1e-3], dtype=dtype, device=dev)
     alpha, beta = (torch.zeros(4, dtype=dtype, device=dev) for _ in "ab")
-    vr, part_r = ls.shard_step_update_ref(v, q, qp, a, ss_prev, mask)
+    vr, part_r = ls.shard_step_update_ref(v, q, qp, dots, ss_prev, mask)
     parts = []
-    for _ in range(2):
-        vk, part = ls.shard_step_update(_at(v.clone(), offset), q, qp, a,
-                                        ss_prev, mask=mask, alpha=alpha, j=2)
-        assert torch.equal(vk, vr) and _rel(part, part_r) < tol
+    for early in (False, True):
+        vk = _at(v.clone(), offset)
+        torch.cuda.synchronize()  # nothing the early loads read in flight
+        vk, part = ls.shard_step_update(vk, q, qp, dots, ss_prev, mask=mask,
+                                        alpha=alpha, j=2, early=early)
+        assert torch.equal(vk, vr) and _rel(part[0], part_r[0]) < tol
         parts.append(part)
-    assert torch.equal(*parts) and torch.equal(alpha[2], a)
+    assert torch.equal(*parts)
+    assert torch.equal(alpha[2], ls.fold_slots_ref(dots))
+    norms = torch.cat([parts[0], ss_prev[1:]])
     store = _at(torch.zeros_like(v), offset)
-    qk = ls.shard_step_normalize(_at(vr.clone(), offset), part, beta=beta,
+    qk = ls.shard_step_normalize(_at(vr.clone(), offset), norms, beta=beta,
                                  j=2, store=store)
-    qr = ls.shard_step_normalize_ref(vr, part)
+    qr = ls.shard_step_normalize_ref(vr, norms)
     assert torch.equal(qk, qr) and torch.equal(store, qr)
-    assert torch.equal(beta[2], torch.sqrt(part))
+    assert torch.equal(beta[2], torch.sqrt(ls.fold_slots_ref(norms)))
     w = _at(torch.roll(q, 1) * 1e-3, offset)
     vs, part_s = ls.shard_step_sub_norm(_at(vr.clone(), offset), w)
     assert torch.equal(vs, vr - w)
-    assert _rel(part_s, torch.dot(vr - w, vr - w)) < tol
+    assert _rel(part_s[0], torch.dot(vr - w, vr - w)) < tol
     torch.cuda.synchronize()
     assert ls.launches_step_sharded - before == 2 + 2 + 1 + 1
 
 
 @pytest.mark.parametrize("n", [1 << 18, 3 * 128 * 128, 5000])
 def test_shard_df_passes_equal_plain_versions(dev, n):
-    """Row 5cd: the df dot and the update's norm pair with the hi word of
-    the plain tree's and within 5e-11 of its df value, equal in two
-    runs; given the same scalars v', q_{j+1} and
-    the recombine fold equal the plain versions bit for bit; the slots
-    written; one count a pass launch."""
+    """Row 5cd: the df dot (slot 1 of 3) and the update's norm pair with
+    the hi word of the plain tree's and within 5e-11 of its df value,
+    equal in two runs and with the early loads; given the same 3 dot and
+    3 norm slots, v', alpha (the df fold), q_{j+1}, beta and the
+    recombine fold equal the plain versions bit for bit; one count a pass
+    launch."""
     from tpu_lanczos_torch.core import df64 as df
     from tpu_lanczos_torch.kernels import lanczos_step as ls
 
@@ -1064,36 +1072,42 @@ def test_shard_df_passes_equal_plain_versions(dev, n):
                                                              want[1]))
         return float(abs(g - w) / abs(w))
 
-    a = ls.shard_df_dot(vd, qd, mask=mask)
-    a_ref = ls.shard_df_dot_ref(vd, qd, mask)
-    assert torch.equal(a, ls.shard_df_dot(vd, qd, mask=mask))
-    assert float(a[0]) == float(a_ref[0]) and df_rel(a, a_ref) < 5e-11
-    a = (a[0], a[1])
-    ssp = (torch.tensor(0.5625, device=dev), torch.tensor(1e-9, device=dev))
+    dots = torch.tensor([[0.75, 1e-9], [0.0, 0.0], [-0.125, -3e-10]],
+                        device=dev)
+    ls.shard_df_dot(vd, qd, mask=mask, slots=dots, shard=1)
+    a_ref = ls.shard_df_dot_ref(vd, qd, mask)[0]
+    assert torch.equal(dots[1:2], ls.shard_df_dot(vd, qd, mask=mask))
+    assert float(dots[1, 0]) == float(a_ref[0])
+    assert df_rel(dots[1], a_ref) < 5e-11
+    ssp = torch.tensor([[0.5625, 1e-9], [0.25, 0.0], [1e-3, 2e-12]],
+                       device=dev)
     ab = [torch.zeros(6, device=dev) for _ in range(4)]
-    vr, part_r = ls.shard_df_update_ref(vd, qd, pd, a, ssp, mask)
+    vr, part_r = ls.shard_df_update_ref(vd, qd, pd, dots, ssp, mask)
     parts = []
-    for _ in range(2):
-        vk, part = ls.shard_df_update((vd[0].clone(), vd[1].clone()), qd, pd,
-                                      a, ssp, mask=mask, alpha=ab[:2], j=2)
+    for early in (False, True):
+        vk = (vd[0].clone(), vd[1].clone())
+        torch.cuda.synchronize()  # nothing the early loads read in flight
+        vk, part = ls.shard_df_update(vk, qd, pd, dots, ssp, mask=mask,
+                                      alpha=ab[:2], j=2, early=early)
         assert torch.equal(vk[0], vr[0]) and torch.equal(vk[1], vr[1])
-        assert float(part[0]) == float(part_r[0])
-        assert df_rel(part, part_r) < 5e-11
+        assert float(part[0, 0]) == float(part_r[0, 0])
+        assert df_rel(part[0], part_r[0]) < 5e-11
         parts.append(part)
     assert torch.equal(*parts)
-    assert float(ab[0][2]) == float(a[0]) and float(ab[1][2]) == float(a[1])
-    ss = (parts[0][0], parts[0][1])
+    a = ls.fold_df_slots_ref(dots)
+    assert torch.equal(ab[0][2], a[0]) and torch.equal(ab[1][2], a[1])
+    norms = torch.cat([parts[0], ssp[1:]])
     coeff = (torch.linspace(0.5, 1.5, 6, device=dev),
              torch.full((6,), 1e-9, device=dev))
     ans = (3.0 * pd[0], 3.0 * pd[1])
     acc = (ans[0].clone(), ans[1].clone())
-    qk = ls.shard_df_normalize((vr[0].clone(), vr[1].clone()), ss,
+    qk = ls.shard_df_normalize((vr[0].clone(), vr[1].clone()), norms,
                                beta=ab[2:], j=2, ans=ans, coeff=coeff)
-    qr = ls.shard_df_normalize_ref(vr, ss, ans=acc, coeff=coeff, j=2)
+    qr = ls.shard_df_normalize_ref(vr, norms, ans=acc, coeff=coeff, j=2)
     for got, want in zip((*qk, *ans), (*qr, *acc)):
         assert torch.equal(got, want)
-    b = df.df_sqrt(ss)
-    assert float(ab[2][2]) == float(b[0]) and float(ab[3][2]) == float(b[1])
+    b = df.df_sqrt(ls.fold_df_slots_ref(norms))
+    assert torch.equal(ab[2][2], b[0]) and torch.equal(ab[3][2], b[1])
     torch.cuda.synchronize()
     assert ls.launches_step_df_sharded - before == 2 + 2 + 1
 
@@ -1104,16 +1118,16 @@ def test_shard_passes_on_an_all_zero_shard(dev):
     from tpu_lanczos_torch.kernels import lanczos_step as ls
 
     z = torch.zeros(1 << 14, device=dev)
-    zero = torch.zeros((), device=dev)
+    zero = torch.zeros(1, device=dev)
     assert torch.equal(ls.shard_step_dot(z, z, mask=z), zero)
     v, part = ls.shard_step_update(z.clone(), z, z, zero, zero, mask=z)
     assert torch.equal(part, zero)
     q = ls.shard_step_normalize(v, part)
     zp = (z, z.clone())
     d = ls.shard_df_dot(zp, zp, mask=z)
-    v2, part2 = ls.shard_df_update((z.clone(), z.clone()), zp, zp,
-                                   (d[0], d[1]), None, mask=z)
-    q2 = ls.shard_df_normalize(v2, (part2[0], part2[1]))
+    v2, part2 = ls.shard_df_update((z.clone(), z.clone()), zp, zp, d, None,
+                                   mask=z)
+    q2 = ls.shard_df_normalize(v2, part2)
     torch.cuda.synchronize()
     assert not (q.any() or q2[0].any() or q2[1].any() or d.any()
                 or part2.any())
@@ -1128,8 +1142,65 @@ def _eager_passes(monkeypatch):
                  "shard_step_normalize", "shard_df_dot", "shard_df_update",
                  "shard_df_normalize"):
         ref = getattr(ls, name + "_ref")
-        monkeypatch.setattr(ls, name, lambda *a, ref=ref, work=None, **kw:
-                            ref(*a, **kw))
+        monkeypatch.setattr(ls, name, lambda *a, ref=ref, work=None,
+                            early=False, **kw: ref(*a, **kw))
+
+
+def test_sharded_loop_folds_equal_plain_folds(dev, monkeypatch):
+    """On 4 shards of the card (f32 ``lanczos_cpg_sharded`` and the df64
+    pass 1): every alpha[j] and beta[j] the kernels wrote equals, bit for
+    bit, the plain passes' fold (``fold_slots_ref`` / its df twin, then
+    sqrt or df_sqrt for beta) of the slots the kernels read, recorded
+    from the stream as each consuming pass was queued.  The recording
+    copies break the dependent-launch chain where a producer pass hands
+    off to a consumer, so the run with them must first equal, bit for
+    bit, the unbroken chain that the loops run."""
+    from tpu_lanczos_torch.core import df64 as df
+    from tpu_lanczos_torch.dist import cpg_sharded as cs
+    from tpu_lanczos_torch.dist import lanczos_df as ldf
+    from tpu_lanczos_torch.kernels import lanczos_step as ls
+
+    g, mesh, sg = _sharded(dev, 4)
+    k = 12
+    x = sg.permute_in(np.random.default_rng(3).standard_normal(g.n),
+                      np.float64)
+    xd = list(zip(*(mesh.split(t, sg.n_loc) for t in (
+        x.astype(np.float32), (x - x.astype(np.float32)).astype(
+            np.float32)))))
+    # the unbroken chain, with nothing queued between its passes
+    chained = cs.lanczos_cpg_sharded(sg, x.astype(np.float32), k, mesh)
+    chained_df = ldf.lanczos_alphabeta_df_sharded(sg, mesh, xd, k)[:2]
+    seen = {"a": [], "ss": []}
+    for name, key in (("shard_step_update", "a"), ("shard_df_update", "a"),
+                      ("shard_step_normalize", "ss"),
+                      ("shard_df_normalize", "ss")):
+        real = getattr(ls, name)
+
+        def spy(v, *a, real=real, key=key, **kw):
+            slots = a[2] if key == "a" else a[0]
+            if kw.get("alpha", kw.get("beta", "x")) is not None:
+                seen[key].append(slots.clone())
+            return real(v, *a, **kw)
+        monkeypatch.setattr(ls, name, spy)
+    st = cs.lanczos_cpg_sharded(sg, x.astype(np.float32), k, mesh)
+    assert torch.equal(st.alpha, chained.alpha)
+    assert torch.equal(st.beta, chained.beta)
+    for j in range(k):
+        assert torch.equal(st.alpha[j], ls.fold_slots_ref(seen["a"][j]))
+    for j in range(k - 1):
+        assert torch.equal(st.beta[j],
+                           torch.sqrt(ls.fold_slots_ref(seen["ss"][j])))
+    seen["a"].clear()
+    seen["ss"].clear()
+    (ah, al), (bh, bl), _ = ldf.lanczos_alphabeta_df_sharded(sg, mesh, xd, k)
+    for got, want in zip((ah, al, bh, bl),
+                         (t for pair in chained_df for t in pair)):
+        assert torch.equal(got, want)
+    for j in range(k):
+        a = ls.fold_df_slots_ref(seen["a"][j])
+        b = df.df_sqrt(ls.fold_df_slots_ref(seen["ss"][j]))
+        assert torch.equal(ah[j], a[0]) and torch.equal(al[j], a[1])
+        assert torch.equal(bh[j], b[0]) and torch.equal(bl[j], b[1])
 
 
 def test_sharded_loops_through_the_step_passes(dev, monkeypatch):

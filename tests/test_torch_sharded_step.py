@@ -27,6 +27,15 @@ Bars and why:
 - the mask-folded loops (the SpMV without its realmask multiply, the
   mask passed to the passes) equal the loops over the masked SpMV bit for
   bit: float32, float64 and df64, with reorthogonalization too;
+- the slots: the reducing passes write each shard's partial into its
+  slot of one buffer that the shards of a device share (gathering them
+  runs nothing), and the consuming passes fold them in shard order, so
+  1e16, 1.0 and -1e16 on three shards sum to 0.0 as ``Mesh.psum``'s left
+  fold does; the df fold equals the JAX package's ``_df_allsum`` bit for
+  bit at 3 and 5 shards; a two-step 3-shard loop on one norm buffer
+  differs from the loop on fresh buffers every step (the hazard the
+  parity buffers remove) and the loop as it runs equals the fresh one,
+  float64 and df64;
 - an all-zero shard gives exact zero partials, and the dispatch runs the
   plain versions on a CPU tensor with no launch counted and raises on a
   ``meta`` one.
@@ -41,12 +50,14 @@ import torch
 from tpu_lanczos.core import df64 as ref_df
 from tpu_lanczos.dist import cpg_sharded as ref_cs
 from tpu_lanczos.dist import make_mesh as ref_make_mesh
+from tpu_lanczos.dist import lanczos_df as ref_ldf
 from tpu_lanczos.dist.lanczos_df import expm_action_df_sharded as ref_df_sh
 from tpu_lanczos.dist.mesh import ROWS
 from tpu_lanczos.graphs import generators
 from tpu_lanczos_torch.core import df64 as df
 from tpu_lanczos_torch.dist import cpg_sharded as cs
 from tpu_lanczos_torch.dist import lanczos_df as ldf
+from tpu_lanczos_torch.dist import mesh as dmesh
 from tpu_lanczos_torch.dist.mesh import LocalSpmv, make_mesh
 from tpu_lanczos_torch.kernels import lanczos_step as ls
 
@@ -118,7 +129,7 @@ def test_row5d_sub_norm_is_the_reorthogonalized_norm(dtype):
             for _ in range(2))
     got, part = ls.shard_step_sub_norm(v, w)
     assert torch.equal(got, v - w)
-    assert torch.equal(part, torch.dot(v - w, v - w))
+    assert torch.equal(part, torch.dot(v - w, v - w).reshape(1))
 
 
 # ---- row 5cd: the df passes composed are the df step
@@ -150,11 +161,9 @@ def test_row5cd_passes_compose_to_the_df_step(with_ans, masked):
             v = _df_pair(a_mat @ df.df_to_f64(q))
             kw = dict(ans=ans, coeff=coeff if with_ans else None)
             if passes:
-                part = ls.shard_df_dot(v, q, mask=mask)
-                a = (part[0], part[1])
-                v, part = ls.shard_df_update(v, q, qp, a, ss, mask=mask,
-                                             alpha=ab[:2], j=j)
-                ss = (part[0], part[1])
+                a = ls.shard_df_dot(v, q, mask=mask)
+                v, ss = ls.shard_df_update(v, q, qp, a, ss, mask=mask,
+                                           alpha=ab[:2], j=j)
                 q_next = ls.shard_df_normalize(v, ss, beta=ab[2:], j=j, **kw)
             else:
                 q_next = ls.lanczos_step_df_ref(v, q, qp, ab[:2], ab[2:], j,
@@ -203,7 +212,7 @@ def test_shard_df_dot_is_the_plain_tree_on_each_slice(graph):
         ys = list(zip(*(mesh.split(t.numpy(), sg.n_loc)
                         for t in _df_pair(yv))))
         for xp, yp, m in zip(xs, ys, mask):
-            got = ls.shard_df_dot(xp, yp, mask=m)
+            (got,) = ls.shard_df_dot(xp, yp, mask=m)
             xm = (xp[0] * m, xp[1] * m)
             assert torch.equal(got, torch.stack(df.df_dot(xm, yp)))
             want = ref_df.df_dot(tuple(jnp.asarray(t.numpy()) for t in xm),
@@ -302,6 +311,150 @@ def test_mask_folded_loops_equal_masked_spmv_loops(graph, n_shards,
         assert torch.equal(got, want)
 
 
+# ---- the slots: shard order, the df fold, the norm-slot hazard
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_slot_fold_keeps_shard_order(dtype):
+    """Three shards whose partials are 1e16, 1.0 and -1e16: the dot
+    passes write them into one shared buffer, the update folds them to
+    (1e16 + 1) - 1e16 = 0.0 (the 1.0 lost, as Mesh.psum's left fold
+    loses it; another order would give 1.0), and the normalize folds the
+    norm slots the same way."""
+    mesh = make_mesh(3, device="cpu")
+    one = torch.ones(1, dtype=dtype)
+    vals = [torch.tensor([x], dtype=dtype) for x in (1e16, 1.0, -1e16)]
+    dots = mesh.slots(dtype)
+    assert all(d is dots[0] for d in dots)
+    for s, x in enumerate(vals):
+        ls.shard_step_dot(x, one, slots=dots[s], shard=s)
+    assert mesh.gather_slots(dots) is dots
+    assert torch.equal(dots[0], torch.cat(vals))
+    want = mesh.psum([x[0] for x in vals])[0]
+    assert float(want) == 0.0
+    alpha = torch.zeros(2, dtype=dtype)
+    norms = mesh.slots(dtype)
+    for s, x in enumerate(vals):
+        v, _ = ls.shard_step_update(x.clone(), torch.zeros_like(x),
+                                    torch.zeros_like(x), dots[s], None,
+                                    alpha=alpha if s == 0 else None, j=1,
+                                    slots=norms[s], shard=s)
+    assert torch.equal(alpha[1], want)
+    norms[0].copy_(torch.tensor([1e16, 1.0, -1e16], dtype=dtype))
+    beta = torch.zeros(2, dtype=dtype)
+    ls.shard_step_normalize(one.clone(), norms[0], beta=beta, j=1)
+    assert float(beta[1]) == 0.0
+
+
+@pytest.mark.parametrize("n_shards", [3, 5])
+def test_df_slot_fold_equals_reference_allsum(n_shards):
+    """The df fold of an (n_shards, 2) slot buffer (the consuming passes'
+    plain fold, and through the update and normalize passes) equals the
+    JAX package's ``_df_allsum`` over the same pairs in shard_map, bit
+    for bit, on pairs with cancellation between shards."""
+    rng = np.random.default_rng(20 + n_shards)
+    x = rng.standard_normal(n_shards) * 10.0 ** rng.integers(-3, 9,
+                                                              n_shards)
+    x[-1] = -x[0] * (1 + 2.0 ** -30)
+    hi, lo = _df_pair(x)
+    slots = torch.stack([hi, lo], dim=1)
+
+    def body(h, l_):
+        return ref_ldf._df_allsum((h[0], l_[0]), n_shards)
+
+    ref_mesh = ref_make_mesh(n_shards)
+    spec = jax.sharding.PartitionSpec(ROWS)
+    want = jax.shard_map(body, mesh=ref_mesh, in_specs=(spec, spec),
+                         out_specs=(jax.sharding.PartitionSpec(),) * 2,
+                         check_vma=False)(jnp.asarray(hi.numpy()),
+                                          jnp.asarray(lo.numpy()))
+    got = ls.fold_df_slots_ref(slots)
+    for g, w in zip(got, want):
+        assert g.numpy().tobytes() == np.asarray(w).tobytes()
+    # the update's alpha is the fold; the normalize's beta its df_sqrt
+    z = torch.zeros(4)
+    ab = [torch.zeros(2) for _ in range(4)]
+    ls.shard_df_update((z.clone(), z.clone()), (z, z), (z, z), slots, None,
+                       alpha=ab[:2], j=1)
+    assert torch.equal(ab[0][1], got[0]) and torch.equal(ab[1][1], got[1])
+    pos = torch.stack([hi.abs(), lo * hi.sign()], dim=1)
+    ls.shard_df_normalize((z.clone(), z.clone()), pos, beta=ab[2:], j=1)
+    b = df.df_sqrt(ls.fold_df_slots_ref(pos))
+    assert torch.equal(ab[2][1], b[0]) and torch.equal(ab[3][1], b[1])
+
+
+class _FreshNorms:
+    """Norm slots never reused: a new buffer every step, so no step can
+    overwrite a slot that another shard has still to read."""
+
+    def __init__(self, mesh, dtype, width):
+        self.args = (mesh, dtype, width)
+
+    def __getitem__(self, parity):
+        mesh, dtype, width = self.args
+        return mesh.slots(dtype, width)
+
+
+def _norm_buffers(monkeypatch, mod, kind: str):
+    """The loops' StepBuffers with the norm slots ``kind``: "fresh" (a new
+    buffer each step) or "single" (one buffer for both parities)."""
+    real = dmesh.step_buffers
+
+    def patched(mesh, dtype, width=()):
+        bufs = real(mesh, dtype, width)
+        norm = (_FreshNorms(mesh, dtype, width) if kind == "fresh"
+                else (bufs.norm[0], bufs.norm[0]))
+        return dmesh.StepBuffers(bufs.work, bufs.dot, norm)
+
+    monkeypatch.setattr(mod, "step_buffers", patched)
+
+
+@pytest.mark.parametrize("kind", ["float64", "df64"])
+def test_norm_slots_by_parity(kind, monkeypatch):
+    """A two-step loop on 3 shards of a dense symmetric operator: step
+    1's update of shard 0 writes its norm slot before shard 1's reads the
+    step-0 norms as b_prev.  One norm buffer for both steps gives other
+    bits (beta[1], q_2) than fresh buffers each step; the parity buffers
+    give the fresh buffers' bits."""
+    mesh = make_mesh(3, device="cpu")
+    n_loc, k = 40, 2
+    a_mat = _sym(3 * n_loc, 12)
+    rows = [slice(s * n_loc, (s + 1) * n_loc) for s in range(3)]
+    x = np.random.default_rng(13).standard_normal(3 * n_loc)
+    if kind == "float64":
+        blocks = [torch.from_numpy(a_mat[r]) for r in rows]
+        spmv = LocalSpmv(lambda q: [b @ torch.cat(q) for b in blocks])
+        xs = mesh.split(x, n_loc)
+
+        def run():
+            alpha, beta, q_basis, _ = dmesh.sharded_lanczos_body(
+                mesh, spmv, xs, k)
+            return [alpha, beta, *q_basis]
+        mod = dmesh
+    else:
+        # a df "SpMV": the f64 product of the pairs, split again
+        monkeypatch.setattr(ldf, "_local_spmv_df", lambda sg, mesh, q, *a,
+                            masked=True: [_df_pair(a_mat[r] @ np.concatenate(
+                                [df.df_to_f64(p) for p in q])) for r in rows])
+        sg = type("Shards", (), {"realmask": [torch.ones(n_loc)] * 3})
+        xd = list(zip(*(mesh.split(t.numpy(), n_loc) for t in _df_pair(x))))
+
+        def run():
+            (ah, al), (bh, bl), _ = ldf.lanczos_alphabeta_df_sharded(
+                sg, mesh, xd, k)
+            return [ah, al, bh, bl]
+        mod = ldf
+    got = run()
+    with monkeypatch.context() as m:
+        _norm_buffers(m, mod, "fresh")
+        fresh = run()
+    with monkeypatch.context() as m:
+        _norm_buffers(m, mod, "single")
+        single = run()
+    assert all(torch.equal(g, f) for g, f in zip(got, fresh, strict=True))
+    assert not all(torch.equal(s_, f) for s_, f in zip(single, fresh))
+
+
 # ---- zeros and the dispatch
 
 
@@ -309,14 +462,14 @@ def test_zero_shard_partials_and_dispatch():
     z = torch.zeros(4096)
     zp = (z, z.clone())
     before = (ls.launches_step_sharded, ls.launches_step_df_sharded)
-    assert torch.equal(ls.shard_step_dot(z, z), torch.zeros(()))
-    v, part = ls.shard_step_update(z.clone(), z, z, torch.zeros(()), None)
-    assert torch.equal(part, torch.zeros(())) and not v.any()
-    assert torch.equal(ls.shard_df_dot(zp, zp), torch.zeros(2))
+    assert torch.equal(ls.shard_step_dot(z, z), torch.zeros(1))
+    v, part = ls.shard_step_update(z.clone(), z, z, torch.zeros(1), None)
+    assert torch.equal(part, torch.zeros(1)) and not v.any()
+    assert torch.equal(ls.shard_df_dot(zp, zp), torch.zeros(1, 2))
     v, part = ls.shard_df_update((z.clone(), z.clone()), zp, zp,
-                                 (z[0], z[0]), None)
-    assert torch.equal(part, torch.zeros(2))
-    q = ls.shard_df_normalize(v, (part[0], part[1]))
+                                 torch.zeros(1, 2), None)
+    assert torch.equal(part, torch.zeros(1, 2))
+    q = ls.shard_df_normalize(v, part)
     assert not q[0].any() and not q[1].any()
     assert (ls.launches_step_sharded, ls.launches_step_df_sharded) == before
     m = torch.zeros(8, device="meta")

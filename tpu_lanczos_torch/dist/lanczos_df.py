@@ -10,16 +10,18 @@ scheme of core/lanczos_df.py on the row mesh, with
   between levels: the single-device ``spmv_cpg_df`` structure per
   shard, with the exchanges carrying BOTH streams;
 - cross-shard dots done exactly in df arithmetic: each shard's df dot
-  (hi, lo) pair is gathered (2 floats a shard) and folded with
-  ``df_add`` in shard order.  A plain psum of hi and lo separately
-  would round the hi partials and lose the compensation;
+  (hi, lo) pair goes to its slot (``Mesh.slots``, 2 floats a shard) and
+  the pass that needs the sum folds the slots with ``df_add`` in shard
+  order, the reference's ``_df_allsum``.  A plain psum of hi and lo
+  separately would round the hi partials and lose the compensation;
 - the main level's own/cross-source overlap split of the sharded pack;
 - the step after the SpMV (the reference's ``_body_core_sh``,
   lanczos_df.py:171-188) on row 5cd's pass kernels
   (kernels/lanczos_step.py): a df dot pass on every held shard (the SpMV's
-  realmask multiply folded in), the allsum, an update pass with the
-  shard's df norm, the allsum, a normalize pass (in pass 2 folding the
-  recombine's ``ans``); the start norm is the df dot pass too.
+  realmask multiply folded in), an update pass that folds the dot slots
+  and writes the shard's df norm, a normalize pass that folds the norm
+  slots (in pass 2 folding the recombine's ``ans``), nothing between them
+  when the shards share a device; the start norm is the df dot pass too.
 
 Every operation keeps the reference's order, and every df op outside
 the kernels is a chain of separate eager torch ops (core/df64.py), so no
@@ -40,27 +42,13 @@ from tpu_lanczos_torch.core.lanczos_df import split_f64
 from tpu_lanczos_torch.core.pipeline import LanczosResult
 from tpu_lanczos_torch.dist.cpg_sharded import (ShardedCPG, _exchange,
                                                 pack_cpg_sharded)
-from tpu_lanczos_torch.dist.mesh import (Mesh, make_mesh, per_replica,
-                                         workspaces)
+from tpu_lanczos_torch.dist.mesh import (Mesh, StepBuffers, make_mesh,
+                                         one_stream, per_replica,
+                                         step_buffers)
 from tpu_lanczos_torch.kernels import lanczos_step as ls
 from tpu_lanczos_torch.kernels.cpg import LANE
 from tpu_lanczos_torch.kernels.spmv_cpg import (
     run_level, run_level_comp, run_level_comp_ref, run_level_ref)
-
-
-def _df_allsum(mesh: Mesh, parts: list) -> list:
-    """Exact cross-shard sum of a df scalar: gather each shard's (2,)
-    (hi, lo) partial and fold them with df_adds in shard order, on every
-    held shard."""
-    gathered = mesh.all_gather(parts)
-
-    def fold(g):
-        acc = (g[0], g[1])
-        for i in range(1, mesh.n_shards):
-            acc = df.df_add(acc, (g[2 * i], g[2 * i + 1]))
-        return acc
-
-    return per_replica(gathered, fold)
 
 
 def _local_spmv_df(sg: ShardedCPG, mesh: Mesh, q: list, level_fn,
@@ -155,40 +143,48 @@ def spmv_cpg_df_sharded_ref(sg: ShardedCPG, mesh: Mesh, q_hi: list,
 
 
 def _step_df(sg: ShardedCPG, mesh: Mesh, q: list, q_prev: list, ss_prev,
-             work: list, j: int, alpha=None, beta=None, ans=None,
+             bufs: StepBuffers, j: int, alpha=None, beta=None, ans=None,
              coeff=None):
     """One df64 recurrence step on the mesh, the sharded twin of
     kernels/lanczos_step.py ``lanczos_step_df_ref`` with exact-fold dots:
     the df SpMV without its realmask multiply, then row 5cd's passes on
-    every held shard around the two allsums.  The first held shard's
-    passes write (alpha)[j] and (beta)[j] (pairs of (k,) buffers) when
-    given; with ``ans`` (per-shard pairs) and ``coeff`` (per-shard pairs
-    of (k,)), ans += coeff[j + 1] q_{j+1}.  Returns (q_{j+1}, the
-    allsum'd norm pair) as per-shard lists; ``ss_prev`` is the last
-    step's (None at j = 0)."""
+    every held shard, each consuming pass folding the slots the passes
+    before it wrote.  The first held shard's passes write (alpha)[j] and
+    (beta)[j] (pairs of (k,) buffers) when given; with ``ans`` (per-shard
+    pairs) and ``coeff`` (per-shard pairs of (k,)), ans += coeff[j + 1]
+    q_{j+1}.  Returns (q_{j+1}, the norm slots) as per-shard lists;
+    ``ss_prev`` is the last step's (None at j = 0)."""
     n = len(q)
     v = _local_spmv_df(sg, mesh, q, run_level, run_level_comp, masked=False)
-    a = _df_allsum(mesh, [ls.shard_df_dot(vs, qs, mask=r, work=w)
-                          for vs, qs, r, w in zip(v, q, sg.realmask, work)])
+    for vs, qs, r, w, d, s in zip(v, q, sg.realmask, bufs.work, bufs.dot,
+                                  mesh.shards):
+        ls.shard_df_dot(vs, qs, mask=r, work=w, slots=d, shard=s,
+                        early=True)
+    a = mesh.gather_slots(bufs.dot)
+    norm = bufs.norm[j % 2]
     first = [s == 0 for s in range(n)]
     upd = [ls.shard_df_update(vs, qs, qp, av, sv, mask=r,
-                              alpha=alpha if f else None, j=j, work=w)
-           for vs, qs, qp, av, sv, r, f, w in zip(
+                              alpha=alpha if f else None, j=j, work=w,
+                              slots=nb, shard=s, early=True)
+           for vs, qs, qp, av, sv, r, f, w, nb, s in zip(
                v, q, q_prev, a, ss_prev or [None] * n, sg.realmask, first,
-               work)]
-    ss = _df_allsum(mesh, [u[1] for u in upd])
+               bufs.work, norm, mesh.shards)]
+    ss = mesh.gather_slots(norm)
     q_next = [ls.shard_df_normalize(u[0], sv, beta=beta if f else None, j=j,
-                                    ans=an, coeff=cf)
+                                    ans=an, coeff=cf, early=one_stream(mesh))
               for u, sv, f, an, cf in zip(upd, ss, first, ans or [None] * n,
                                           coeff or [None] * n)]
     return q_next, ss
 
 
-def _df_start(mesh: Mesh, x: list, work: list):
+def _df_start(mesh: Mesh, x: list, bufs: StepBuffers):
     """The normalised df start state: per-shard q0 pairs and the df
-    x_norm (replicated); the shards' df dots on row 5cd's dot pass."""
-    x_norm = [df.df_sqrt(p) for p in _df_allsum(
-        mesh, [ls.shard_df_dot(xs, xs, work=w) for xs, w in zip(x, work)])]
+    x_norm (replicated); the shards' df dots on row 5cd's dot pass into
+    the dot slots, folded as the reference's ``_df_allsum``."""
+    for xs, w, d, s in zip(x, bufs.work, bufs.dot, mesh.shards):
+        ls.shard_df_dot(xs, xs, work=w, slots=d, shard=s)
+    x_norm = per_replica(mesh.gather_slots(bufs.dot), lambda g: df.df_sqrt(
+        ls.fold_df_slots_ref(g)))
     q0 = [df.df_scale(df.df_div(df.df_from(1.0, device=xn[0].device), xn),
                       xs) for xn, xs in zip(x_norm, x)]
     return q0, x_norm
@@ -204,14 +200,14 @@ def lanczos_alphabeta_df_sharded(sg: ShardedCPG, mesh: Mesh, x: list,
     (k,) tensors on the first held shard's device (beta's slot k-1
     written but unused), and the df x_norm.  ``x`` is the per-shard list
     of (hi, lo) pairs."""
-    work = workspaces(mesh)
-    q, x_norm = _df_start(mesh, x, work)
+    bufs = step_buffers(mesh, torch.float32, (2,))
+    q, x_norm = _df_start(mesh, x, bufs)
     q_prev = _zero_vectors(q)
     zk = q[0][0].new_zeros((k,))
     alpha, beta = (zk, zk.clone()), (zk.clone(), zk.clone())
     ss = None
     for j in range(k):
-        q_next, ss = _step_df(sg, mesh, q, q_prev, ss, work, j, alpha, beta)
+        q_next, ss = _step_df(sg, mesh, q, q_prev, ss, bufs, j, alpha, beta)
         q_prev, q = q, q_next
     return alpha, beta, x_norm[0]
 
@@ -223,15 +219,15 @@ def lanczos_recombine_df_sharded(sg: ShardedCPG, mesh: Mesh, x: list,
     regenerated by the identical recurrence (k-1 steps: q_{k-1} needs no
     further SpMV), each step's normalize pass folding in coeff[j + 1]
     q_{j+1}.  Returns the per-shard (hi, lo) pairs."""
-    work = workspaces(mesh)
-    q, _ = _df_start(mesh, x, work)
+    bufs = step_buffers(mesh, torch.float32, (2,))
+    q, _ = _df_start(mesh, x, bufs)
     q_prev = _zero_vectors(q)
     coeff = list(zip(mesh.replicate(coeff_hi), mesh.replicate(coeff_lo)))
     ans = [df.df_add(z, df.df_scale((c[0][0], c[1][0]), qs))
            for z, c, qs in zip(_zero_vectors(q), coeff, q)]
     ss = None
     for j in range(k - 1):
-        q_next, ss = _step_df(sg, mesh, q, q_prev, ss, work, j, ans=ans,
+        q_next, ss = _step_df(sg, mesh, q, q_prev, ss, bufs, j, ans=ans,
                               coeff=coeff)
         q_prev, q = q, q_next
     return ans

@@ -35,12 +35,17 @@ as one tensor per held shard; shards on one device share one tensor.
 
 The k-step loops are Python loops whose step after the SpMV runs on the
 row 5d pass kernels (kernels/lanczos_step.py): a dot pass on every held
-shard, the ``psum`` of the partials, an update pass, the ``psum`` of the
-norms, a normalize pass.  The reference's one ``fori_loop`` fuses those
-ops around its psums (mesh.py:82-107, :189-220); the split at the psums
-is the one the mesh needs.  On the CPU the passes are the eager ops they
-replaced.  No step syncs the host: the recurrence scalars are 0-d device
-tensors and breakdown is decided on the device (dist/lanczos.py:14-17).
+shard, an update pass, a normalize pass.  Each pass that reduces writes
+the shard's partial into its slot of a small buffer (``Mesh.slots``), and
+the pass that needs the sum folds every slot itself, in shard order, with
+the psum's adds; ``Mesh.gather_slots`` delivers the slots to every
+device, which on shards that share one device is nothing at all.  So no
+op runs between a step's passes there.  The reference's one
+``fori_loop`` fuses those ops around its psums (mesh.py:82-107,
+:189-220); the split at the psums is the one the mesh needs.  On the CPU
+the passes are the eager ops they replaced.  No step syncs the host: the
+recurrence scalars stay on the device and breakdown is decided there
+(dist/lanczos.py:14-17).
 The reference's ``pcast``/``vma`` annotations have no counterpart: there
 is no varying-axes checker to satisfy.
 """
@@ -101,6 +106,36 @@ class Mesh:
         out = x.clone()
         dist.all_reduce(out, group=self.group)
         return [out]
+
+    def slots(self, dtype, width: tuple = ()) -> list:
+        """The buffer the step passes write their partials into: one
+        zeroed (n_shards, *width) buffer a held shard, shard s writing
+        row s.  Shards on one device share one buffer."""
+        by_dev: dict = {}
+        for d in self.devices:
+            if d not in by_dev:
+                by_dev[d] = torch.zeros((self.n_shards, *width),
+                                        dtype=dtype, device=d)
+        return [by_dev[d] for d in self.devices]
+
+    def gather_slots(self, bufs: list) -> list:
+        """Every shard's slot in each held shard's buffer, for the pass
+        that folds them: nothing when the held shards share one buffer
+        (one device); in process over several devices, the slots gathered
+        into the first device's buffer and copied once to each other
+        device's; in a distributed mesh, the ranks' slots all-gathered
+        in shard order into a new buffer."""
+        if self.group is None:
+            home = bufs[0]
+            for s, b in zip(self.shards, bufs):
+                if b is not home:
+                    home[s].copy_(b[s])
+            for b in {id(b): b for b in bufs if b is not home}.values():
+                b.copy_(home)
+            return bufs
+        (b,) = bufs
+        s = self.shards[0]
+        return self.all_gather([b[s:s + 1]])
 
     def split(self, x, n_loc: int, dtype=None) -> list:
         """The held shards' slices of a full (n_shards * n_loc,) vector
@@ -215,38 +250,79 @@ def workspaces(mesh: Mesh) -> list:
     return [by_dev[d] for d in mesh.devices]
 
 
+@dataclasses.dataclass(frozen=True)
+class StepBuffers:
+    """What a loop's step passes share from step to step, each a
+    per-shard list: ``work`` the pass workspaces, ``dot`` the slots of
+    the dot partials, ``norm`` two slot buffers of the norm partials,
+    taken by step parity: step j's updates write norm[j % 2] while later
+    shards' updates of that step still read step j-1's norm[(j - 1) % 2]
+    as b_prev, and a single buffer would be overwritten under them."""
+
+    work: list
+    dot: list
+    norm: tuple
+
+
+def step_buffers(mesh: Mesh, dtype, width: tuple = ()) -> StepBuffers:
+    """The StepBuffers of one loop: slots of ``dtype``, each slot of
+    ``width`` ((2,) for df64's (hi, lo) pairs)."""
+    return StepBuffers(workspaces(mesh), mesh.slots(dtype, width),
+                       (mesh.slots(dtype, width), mesh.slots(dtype, width)))
+
+
+def one_stream(mesh: Mesh) -> bool:
+    """Whether the held shards' passes run in turn on one device's stream
+    (several shards in process on one device): then the kernel just
+    before a shard's normalize pass is another shard's pass, never its
+    own update, and the normalize may load v before it waits."""
+    return (mesh.group is None and len(mesh.devices) > 1
+            and len(set(mesh.devices)) == 1)
+
+
 def _step_passes(mesh: Mesh, local_spmv, q, q_prev, ss_prev, alpha, beta,
-                 j: int, work, q_basis=None, reorthogonalize: bool = False):
+                 j: int, bufs: StepBuffers, q_basis=None,
+                 reorthogonalize: bool = False):
     """One step of the recurrence on the mesh: v = A q by ``local_spmv``,
-    then row 5d's passes on every held shard around the two psums.
-    Writes alpha[j], beta[j] (the first held shard's passes) and, with
-    ``q_basis``, row j+1 of each shard's basis.  Returns (q_{j+1}, the
-    psum'd ||v'||^2) as per-shard lists."""
+    then row 5d's passes on every held shard, each consuming pass folding
+    the slots the passes before it wrote.  Writes alpha[j], beta[j] (the
+    first held shard's passes) and, with ``q_basis``, row j+1 of each
+    shard's basis.  Returns (q_{j+1}, the norm slots) as per-shard
+    lists; ``ss_prev`` is the last step's (None at j = 0)."""
     k = alpha.shape[0]
-    mask = getattr(local_spmv, "mask", None) or [None] * len(q)
-    first = [s == 0 for s in range(len(q))]
+    n = len(q)
+    mask = getattr(local_spmv, "mask", None) or [None] * n
+    first = [s == 0 for s in range(n)]
     v = local_spmv(q)
-    a = mesh.psum([ls.shard_step_dot(vs, qs, mask=ms, work=w)
-                   for vs, qs, ms, w in zip(v, q, mask, work)])
-    sp = ss_prev or [None] * len(q)
+    for vs, qs, ms, w, d, s in zip(v, q, mask, bufs.work, bufs.dot,
+                                   mesh.shards):
+        ls.shard_step_dot(vs, qs, mask=ms, work=w, slots=d, shard=s,
+                          early=True)
+    a = mesh.gather_slots(bufs.dot)
+    norm = bufs.norm[j % 2]
+    sp = ss_prev or [None] * n
     upd = [ls.shard_step_update(vs, qs, qp, av, sv, mask=ms,
                                 alpha=alpha if f else None, j=j,
-                                norm=not reorthogonalize, work=w)
-           for vs, qs, qp, av, sv, ms, f, w in zip(v, q, q_prev, a, sp, mask,
-                                                   first, work)]
+                                norm=not reorthogonalize, work=w, slots=nb,
+                                shard=s, early=True)
+           for vs, qs, qp, av, sv, ms, f, w, nb, s in zip(
+               v, q, q_prev, a, sp, mask, first, bufs.work, norm,
+               mesh.shards)]
     if reorthogonalize:
         v = [u[0] for u in upd]
         proj = mesh.psum([qb @ vs for qb, vs in zip(q_basis, v)])
         rows = torch.arange(k, device=proj[0].device)
         keep = per_replica(proj, lambda p: torch.where(
             rows.to(p.device) <= j, p, p.new_zeros(())))
-        upd = [ls.shard_step_sub_norm(vs, (p @ qb).contiguous(), work=w)
-               for vs, p, qb, w in zip(v, keep, q_basis, work)]
-    ss = mesh.psum([u[1] for u in upd])
+        upd = [ls.shard_step_sub_norm(vs, (p @ qb).contiguous(), work=w,
+                                      slots=nb, shard=s)
+               for vs, p, qb, w, nb, s in zip(v, keep, q_basis, bufs.work,
+                                              norm, mesh.shards)]
+    ss = mesh.gather_slots(norm)
     store = ([qb[j + 1] for qb in q_basis] if q_basis is not None
-             and j + 1 < k else [None] * len(q))
+             and j + 1 < k else [None] * n)
     q_next = [ls.shard_step_normalize(u[0], sv, beta=beta if f else None,
-                                      j=j, store=st)
+                                      j=j, store=st, early=one_stream(mesh))
               for u, sv, f, st in zip(upd, ss, first, store)]
     return q_next, ss
 
@@ -280,10 +356,10 @@ def sharded_lanczos_body(mesh: Mesh, local_spmv, x: list, k: int,
     q_basis = [t.new_zeros((k, t.shape[0])) for t in q]
     for qb, t in zip(q_basis, q):
         qb[0] = t
-    work, ss = workspaces(mesh), None
+    bufs, ss = step_buffers(mesh, alpha.dtype), None
     for j in range(k):
         q_next, ss = _step_passes(mesh, local_spmv, q, q_prev, ss, alpha,
-                                  beta, j, work, q_basis, reorthogonalize)
+                                  beta, j, bufs, q_basis, reorthogonalize)
         q_prev, q = q, q_next
     return alpha, beta, q_basis, x_norm
 
@@ -295,10 +371,10 @@ def sharded_alphabeta_body(mesh: Mesh, local_spmv, x: list, k: int):
     replicated; beta is FULL length k (slot k-1 the residual norm, which
     the deflation convergence filter needs)."""
     q, q_prev, alpha, beta, x_norm = _start(mesh, x, k)
-    work, ss = workspaces(mesh), None
+    bufs, ss = step_buffers(mesh, alpha.dtype), None
     for j in range(k):
         q_next, ss = _step_passes(mesh, local_spmv, q, q_prev, ss, alpha,
-                                  beta, j, work)
+                                  beta, j, bufs)
         q_prev, q = q, q_next
     return alpha, beta, x_norm
 

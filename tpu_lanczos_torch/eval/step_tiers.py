@@ -19,16 +19,21 @@ One JSON line a case, the first the card's name and power limit, so the
 tiers' crossovers can be read off.
 
 With ``--sharded``, rows 5d and 5cd instead (the row-sharded loops'
-per-shard passes, ``shard_step_*`` and ``shard_df_*``): one shard's step
-after the SpMV (dot, update with the last norm, normalize; the mask
-folded in) at each size, through the pass kernels beside the eager
-passes and the bound (v, the mask, q_j, q_{j-1} read, q_{j+1} written,
-and v read again).  Needs a CUDA GPU.
+per-shard passes, ``shard_step_*`` and ``shard_df_*``): at each size,
+one shard's step after the SpMV (dot, update with the last norm,
+normalize; the mask folded in) and the whole step of a 4-shard mesh on
+the card (12 passes, their slots shared, nothing else between them:
+``mesh_step``), each behind one ordinary one-value kernel that stands in
+for the SpMV's last level (timed alone beside them), through the pass
+kernels (with and without their early loads) beside the eager passes
+and the bound (v, the mask, q_j, q_{j-1} read, q_{j+1} written, and v
+read again; four times that for the mesh).  Needs a CUDA GPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import time
@@ -43,6 +48,11 @@ SIZES = (1 << 18, 1 << 19, 1 << 20, 3 << 20, 1 << 22, 1 << 23, 1 << 24)
 DF_SIZES = (1 << 20, 1 << 21, 1 << 23, 777 * 65536)
 # a shard's n_loc at bn1M over 4 shards, and 8 times that
 SHARD_SIZES = (1 << 18, 1 << 21)
+MESH_SHARDS = 4
+# rows 5d and 5cd's wrappers (kernels/lanczos_step.py)
+PASSES = ("shard_step_dot", "shard_step_update", "shard_step_sub_norm",
+          "shard_step_normalize", "shard_df_dot", "shard_df_update",
+          "shard_df_normalize")
 SMEM_CANDIDATES = (0, 1, 2, 4, 8, 16)
 
 
@@ -159,69 +169,116 @@ def run_row5c(sizes, dev, calls: int, emit) -> None:
         torch.cuda.empty_cache()
 
 
-def shard_step(v, q, qp, mask, df: bool, kernel: bool):
-    """One shard's step after the SpMV (rows 5d / 5cd: dot, update,
-    normalize; q_{j-1} with beta_{j-1} = 0) through the pass kernels on a
-    private copy of v, or without ``kernel`` through the eager passes (the
-    plain versions)."""
+@contextlib.contextmanager
+def eager_shard_passes():
+    """Every sharded loop (and ``mesh_step``) runs the plain versions of
+    rows 5d and 5cd in the block, under their wrappers' names (``work``
+    and ``early`` dropped): the eager step, to time beside the kernels in
+    one run."""
     from tpu_lanczos_torch.kernels import lanczos_step as ls
 
-    if not kernel:
-        if df:
-            def eager():
-                a = ls.shard_df_dot_ref(v, q, mask)
-                w, p = ls.shard_df_update_ref(v, q, qp, (a[0], a[1]), None,
-                                              mask)
-                ls.shard_df_normalize_ref(w, (p[0], p[1]))
-        else:
-            def eager():
-                a = ls.shard_step_dot_ref(v, q, mask)
-                w, p = ls.shard_step_update_ref(v, q, qp, a, None, mask)
-                ls.shard_step_normalize_ref(w, p)
-        return eager
-    work = ls.workspace(mask.device)
-    if df:
-        vk = (v[0].clone(), v[1].clone())
+    real = {n: getattr(ls, n) for n in PASSES}
+    for n in PASSES:
+        setattr(ls, n, lambda *a, ref=getattr(ls, n + "_ref"), work=None,
+                early=False, **kw: ref(*a, **kw))
+    try:
+        yield
+    finally:
+        for n, fn in real.items():
+            setattr(ls, n, fn)
 
-        def step():
-            a = ls.shard_df_dot(vk, q, mask=mask, work=work)
-            _, p = ls.shard_df_update(vk, q, qp, (a[0], a[1]), None,
-                                      mask=mask, work=work)
-            ls.shard_df_normalize(vk, (p[0], p[1]))
-    else:
-        vk = v.clone()
 
-        def step():
-            a = ls.shard_step_dot(vk, q, mask=mask, work=work)
-            _, p = ls.shard_step_update(vk, q, qp, a, None, mask=mask,
-                                        work=work)
-            ls.shard_step_normalize(vk, p)
+def spmv_stand_in(dev):
+    """One ordinary one-value kernel a call: it stands in for the SpMV's
+    last level kernel, which the loops queue before every step's first
+    pass."""
+    tick = torch.zeros(1, device=dev)
+    return lambda: tick.add_(1)
+
+
+def mesh_step(vs, qs, qps, masks, df: bool, early: bool = True):
+    """The step after the SpMV of a mesh whose shards share one device,
+    as the loops run it: the SpMV's stand-in (``spmv_stand_in``, so no
+    call's first pass overlaps the last call's normalize by dependent
+    launch, as none can in the loops), every shard's dot pass, every
+    shard's update
+    (folding the dot slots, and the last call's norm slots as b_prev,
+    the norm buffers taken by parity), every shard's normalize (folding
+    the norm slots).  Each shard's v is a private copy, overwritten call
+    after call (the plain versions' new vectors carried on).  The passes
+    are the wrappers looked up at each call (the kernels, or the plain
+    versions inside ``eager_shard_passes``); ``early`` their early loads,
+    which the loop's order allows."""
+    from tpu_lanczos_torch.kernels import lanczos_step as ls
+
+    n = len(qs)
+    dev = masks[0].device
+    width = (2,) if df else ()
+    dt = torch.float32 if df else qs[0].dtype
+    dots = torch.zeros((n, *width), dtype=dt, device=dev)
+    norms = [torch.zeros_like(dots) for _ in range(2)]
+    work = ls.workspace(dev)
+    spmv_end = spmv_stand_in(dev)
+    vk = [tuple(t.clone() for t in v) if df else v.clone() for v in vs]
+    parity = [0]
+    names = (("shard_df_dot", "shard_df_update", "shard_df_normalize")
+             if df else ("shard_step_dot", "shard_step_update",
+                         "shard_step_normalize"))
+
+    def step():
+        p = parity[0]
+        parity[0] ^= 1
+        dot, upd, nrm = (getattr(ls, name) for name in names)
+        spmv_end()
+        for s in range(n):
+            dot(vk[s], qs[s], mask=masks[s], work=work, slots=dots, shard=s,
+                early=early)
+        for s in range(n):
+            vk[s] = upd(vk[s], qs[s], qps[s], dots, norms[1 - p],
+                        mask=masks[s], work=work, slots=norms[p], shard=s,
+                        early=early)[0]
+        for s in range(n):
+            vk[s] = nrm(vk[s], norms[p], early=early and n > 1)
     return step
 
 
 def run_sharded(sizes, dev, calls: int, emit) -> None:
-    """Rows 5d and 5cd: the pass kernels and the eager passes."""
+    """Rows 5d and 5cd: one shard's step and the whole 4-shard step
+    through the pass kernels (early loads on and off) and the eager
+    passes."""
     for kind in ("float32", "float64", "df64"):
         df = kind == "df64"
         for n in sizes:
-            vecs, mask = _vectors(n, torch.float64 if df else
-                                  getattr(torch, kind), dev)
-            if df:
-                vecs = [(x.float(), (x - x.float().double()).float())
-                        for x in vecs]
-            v, q, qp = vecs
+            shards = []
+            for s in range(MESH_SHARDS):
+                vecs, mask = _vectors(n, torch.float64 if df else
+                                      getattr(torch, kind), dev, seed=s)
+                if df:
+                    vecs = [(x.float(), (x - x.float().double()).float())
+                            for x in vecs]
+                shards.append((*vecs, mask))
             vb = 8 if df else torch.finfo(getattr(torch, kind)).bits // 8
             bound_us = n * (5 * vb + 4) / HBM_BYTES_PER_S * 1e6
-            row = {"row": "5cd" if df else "5d", "dtype": kind, "n": n,
-                   "bound_us": bound_us}
-            for kernel in (True, False):
-                us, samples = queued_us(
-                    shard_step(v, q, qp, mask, df, kernel),
-                    calls if kernel else max(calls // 10, 2))
-                row["kernel" if kernel else "eager"] = {
-                    "device_us": us, "samples": samples}
-            emit(row)
-            del v, q, qp, mask, vecs
+            for tag, part in (("shard", shards[:1]), ("mesh", shards)):
+                stand_in = queued_us(spmv_stand_in(dev), calls)
+                row = {"row": "5cd" if df else "5d", "dtype": kind, "n": n,
+                       "step": tag, "shards": len(part),
+                       "bound_us": bound_us * len(part),
+                       "spmv_stand_in": {"device_us": stand_in[0],
+                                         "samples": stand_in[1]}}
+                for name, early in (("kernel", True),
+                                    ("kernel_no_early", False),
+                                    ("eager", True)):
+                    eager = name == "eager"
+                    with (eager_shard_passes() if eager
+                          else contextlib.nullcontext()):
+                        us, samples = queued_us(
+                            mesh_step(*(list(t) for t in zip(*part)), df,
+                                      early),
+                            max(calls // 10, 2) if eager else calls)
+                    row[name] = {"device_us": us, "samples": samples}
+                emit(row)
+            del shards
             torch.cuda.empty_cache()
 
 

@@ -96,15 +96,16 @@ def bind_step(lib):
     lib.tlt_df_norm.argtypes = [p, p, p, p, n, p, p]
     # rows 5d and 5cd, the per-shard passes
     for name, args in (
-            ("tlt_shard_step_dot", [p, p, p, p, n, i, i, p, p]),
-            ("tlt_shard_step_update", [p, p, p, p, p, p, p, i, p, n, i, i,
-                                       p, p]),
+            ("tlt_shard_step_dot", [p, p, p, p, n, i, i, i, p, p]),
+            ("tlt_shard_step_update", [p] * 6 + [i, p, i, p, n, i, i, i,
+                                                 p, p]),
             ("tlt_shard_step_sub_norm", [p, p, p, n, i, i, p, p]),
-            ("tlt_shard_step_normalize", [p, p, p, i, p, n, i, i, p]),
-            ("tlt_shard_df_dot", [p, p, p, p, p, p, p, n, p, p]),
-            ("tlt_shard_df_update", [p] * 13 + [i, p, p, n, p, p]),
-            ("tlt_shard_df_normalize", [p, p, p, p, p, p, i, p, p, p, p, i,
-                                        n, p])):
+            ("tlt_shard_step_normalize", [p, p, i, p, i, p, n, i, i, i, p]),
+            ("tlt_shard_df_dot", [p] * 7 + [n, i, p, p]),
+            ("tlt_shard_df_update", [p] * 9 + [i, p, p, i, p, p, n, i, p,
+                                               p]),
+            ("tlt_shard_df_normalize", [p, p, p, i, p, p, i, p, p, p, p, i,
+                                        n, i, p])):
         fn = getattr(lib, name)
         fn.restype = i
         fn.argtypes = args

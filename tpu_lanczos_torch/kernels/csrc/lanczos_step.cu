@@ -44,17 +44,23 @@
 // loops, which replace tpu_lanczos/dist/mesh.py:82-107 and :189-220 (the
 // step inside the sharded fori_loops) and dist/lanczos_df.py:171-188
 // (_body_core_sh).  There the dot and the norm are sums over every shard
-// (the reference's psum, and for df64 its _df_allsum), which the mesh
-// takes between launches, so the step splits into passes at those two
-// points: a dot pass (the shard's partial), an update pass (v' over v,
-// and the shard's partial norm), a normalize pass.  A pass must re-read
-// what the one-launch step held on chip (v once more), and three
-// launches a shard a step cost more than their bytes at a shard's size;
-// each reduction ends in the last block to arrive folding the block
-// partials in index order (a cooperative launch whose block 0 folds after
-// a grid barrier was slower at 2^18 and 2^21 elements: PERF.md).  The df64 dot and norm keep the plain tree's element map
-// on the shard's n elements (df_geometry below), so the hi word of each
-// shard's partial is the plain tree's on its slice.
+// (the reference's psum, and for df64 its _df_allsum), so the step splits
+// into passes at those two points: a dot pass, an update pass (v' over
+// v, and the shard's partial norm), a normalize pass, each one launch a
+// shard.  Each reduction ends in the last block to arrive folding the
+// block partials in index order and writing the shard's partial to its
+// slot of a small buffer; the pass that consumes the sum folds all the
+// slots in shard order itself (the psum's left fold, the allsum's df_add
+// chain), so when the shards share a device nothing runs between a step's
+// passes.  What bounds a pass at a shard's size (2^18 at bn1M over 4
+// shards, 1 MB vectors that sit in the 50 MB L2) is latency: launch,
+// load, the fold.  So each pass is a programmatic dependent launch
+// (Hopper): it starts while the pass before it drains, loads what that
+// pass cannot write before it waits, and lets the next one start as soon
+// as its own wait returns (section "dependent launch" below).  The df64
+// dot and norm keep the plain tree's element map on the shard's n
+// elements (df_geometry below), so the hi word of each shard's partial
+// is the plain tree's on its slice.
 //
 // Reductions are deterministic: no floating-point atomics.  Each block
 // reduces its part in a fixed order and writes one partial; after the
@@ -117,6 +123,9 @@ constexpr int kDfSpan = kThreads * kDfVec;
 constexpr int kDfMaxBlocks = 4096;
 constexpr int kDfMaxDepth = 8;
 constexpr int kFoldDepth = 7;
+// the fold's first partials a thread loads at once (4: every partial of
+// a grid of up to 128 blocks, a shard of up to 2^18 elements)
+constexpr int kFoldAhead = 4;
 // the one-launch step: at most kMaxGrid blocks; row 5c at most
 // kDfStepMaxGrid blocks (its fold stages their 8 * G partials in shared
 // memory) and 2^kDfMaxRowsLog rows (P <= 2^31 at G = 1)
@@ -169,6 +178,24 @@ __device__ __forceinline__ double fma_rn(double a, double b, double c) {
   return __fma_rn(a, b, c);
 }
 
+// ------------------------------------------------------------- dependent launch
+// Rows 5d and 5cd's passes are launched with programmatic stream
+// serialization (launch_pass below), so a pass may start while the kernel
+// before it on the stream still runs.  grid_dep_wait() returns once every
+// kernel before it has finished and its writes are visible; before it a
+// pass loads only what the kernel just before it does not write, writes
+// nothing, and touches neither the workspace nor the slots.
+// grid_dep_launch() lets the next pass start; a pass calls it only after
+// its own wait, so when pass N+1 starts, every kernel before pass N has
+// finished (the transitive completion the slot folds rely on).
+
+__device__ __forceinline__ void grid_dep_wait() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+__device__ __forceinline__ void grid_dep_launch() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
 // 16-byte vector loads and stores: 4 floats or 2 doubles
 template <typename T>
 struct Vec {
@@ -200,28 +227,46 @@ __device__ __forceinline__ void store(double* p, int64_t c,
 
 // ------------------------------------------------------------- reductions
 
-// The block's sum of x, in a fixed tree order; every thread gets it.
+// The block's sum of x in a fixed tree order, in thread 0: thread t adds
+// t + 128, 64, 32 in shared memory, then t + 16, ..., 1 by shuffles in
+// warp 0 (the same pairs and operand order as in shared memory, five
+// barriers fewer).
 template <typename T>
 __device__ T block_sum(T x, T* sm) {
-  __syncthreads();
+  __syncthreads();  // an earlier sum's readers of sm are done
   sm[threadIdx.x] = x;
   __syncthreads();
 #pragma unroll
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
+  for (int s = kThreads / 2; s >= 32; s >>= 1) {
     if (threadIdx.x < s) {
       sm[threadIdx.x] = add_rn(sm[threadIdx.x], sm[threadIdx.x + s]);
     }
     __syncthreads();
   }
-  return sm[0];
+  T y = T(0);
+  if (threadIdx.x < 32) {
+    y = sm[threadIdx.x];
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) {
+      const T z = __shfl_down_sync(0xffffffffu, y, s);
+      if (static_cast<int>(threadIdx.x) < s) {
+        y = add_rn(y, z);
+      }
+    }
+  }
+  return y;
 }
 
-// Every thread's writes are fenced, then the block arrives on the
-// counter.  True in every thread of the block that arrives last, which
-// then sees every other block's partials.
-__device__ bool arrive_last(unsigned int* counter) {
+// The threads that wrote the block's partials (`wrote`) fence them, then
+// the block arrives on the counter (no other thread waits on its own
+// stores: only the partials must be seen first).  True in every thread of
+// the block that arrives last, which then sees every other block's
+// partials.
+__device__ bool arrive_last(unsigned int* counter, bool wrote) {
   __shared__ bool last;
-  __threadfence();
+  if (wrote) {
+    __threadfence();
+  }
   __syncthreads();
   if (threadIdx.x == 0) {
     last = atomicAdd(counter, 1u) == gridDim.x - 1;
@@ -243,7 +288,7 @@ __device__ bool grid_sum(T x, T* part, unsigned int* counter, T& total) {
   if (threadIdx.x == 0) {
     part[blockIdx.x] = b;
   }
-  if (!arrive_last(counter)) {
+  if (!arrive_last(counter, threadIdx.x == 0)) {
     return false;
   }
   T s = T(0);
@@ -825,6 +870,16 @@ __device__ __forceinline__ void load8(const float* p, int64_t i0, int64_t n,
   }
 }
 
+// the mask's multiply (exact: 0 or 1) of a thread's 8 hi and lo values
+__device__ __forceinline__ void mask8(float (&h)[kDfVec], float (&l)[kDfVec],
+                                      const float (&m)[kDfVec]) {
+#pragma unroll
+  for (int r = 0; r < kDfVec; ++r) {
+    h[r] = __fmul_rn(h[r], m[r]);
+    l[r] = __fmul_rn(l[r], m[r]);
+  }
+}
+
 __device__ __forceinline__ int bit_reverse(int m, int bits) {
   return bits == 0 ? 0
                    : static_cast<int>(__brev(static_cast<unsigned>(m)) >>
@@ -909,7 +964,7 @@ __device__ void df_grid_tree(float (&x)[kDfVec], float err, float* out_h,
   if (threadIdx.x == 0) {
     part_err[blockIdx.x] = block_err;
   }
-  if (!arrive_last(counter)) {
+  if (!arrive_last(counter, threadIdx.x < kDfVec)) {
     return;
   }
   // the fold: the tree over the 8*G partials, index i with i + 4G first;
@@ -918,19 +973,39 @@ __device__ void df_grid_tree(float (&x)[kDfVec], float err, float* out_h,
   const int tf = nf < kThreads ? nf : kThreads;
   const int mf = nf / tf;
   const int mf_log = __ffs(mf) - 1;
+  // this thread's first error sum, loaded beside the partials
+  const int g = static_cast<int>(gridDim.x);
+  const float pe0 = static_cast<int>(threadIdx.x) < g
+                        ? __ldcg(part_err + threadIdx.x) : 0.0f;
   float e2 = 0.0f;
   if (threadIdx.x < tf) {
+    // the first kFoldAhead partials loaded together, before the pushes
+    float ahead[kFoldAhead];
+#pragma unroll
+    for (int m = 0; m < kFoldAhead; ++m) {
+      if (m < mf) {
+        ahead[m] = __ldcg(part + threadIdx.x + bit_reverse(m, mf_log) * tf);
+      }
+    }
     TreeStack<1, kFoldDepth> stack;
     float y[1] = {0.0f};
-    for (int m = 0; m < mf; ++m) {
+#pragma unroll
+    for (int m = 0; m < kFoldAhead; ++m) {
+      if (m < mf) {
+        y[0] = ahead[m];
+        stack.push(m, y, e2);
+      }
+    }
+    for (int m = kFoldAhead; m < mf; ++m) {
       y[0] = __ldcg(part + threadIdx.x + bit_reverse(m, mf_log) * tf);
       stack.push(m, y, e2);
     }
     sm[0][threadIdx.x] = y[0];
   }
   smem_tree(sm, 1, tf, e2);
-  for (int i = threadIdx.x; i < static_cast<int>(gridDim.x); i += kThreads) {
-    e2 = __fadd_rn(e2, __ldcg(part_err + i));
+  for (int i = threadIdx.x; i < g; i += kThreads) {
+    e2 = __fadd_rn(e2, i == static_cast<int>(threadIdx.x)
+                           ? pe0 : __ldcg(part_err + i));
   }
   const float total_err = block_sum(e2, sm_err);
   if (threadIdx.x == 0) {
@@ -942,43 +1017,50 @@ __device__ void df_grid_tree(float (&x)[kDfVec], float err, float* out_h,
   }
 }
 
-// load8 of v's 8 elements at i0 times the mask's (exact: 0 or 1)
-__device__ __forceinline__ void load8_masked(const float* p, const float* mask,
-                                             int64_t i0, int64_t n,
-                                             float (&e)[kDfVec]) {
-  load8(p, i0, n, e);
-  if (mask != nullptr) {
-    float m[kDfVec];
-    load8(mask, i0, n, m);
-#pragma unroll
-    for (int r = 0; r < kDfVec; ++r) {
-      e[r] = __fmul_rn(e[r], m[r]);
-    }
-  }
-}
-
 // df_dot(x * mask, y) (mask may be null) on df64.py's pairwise tree, in
 // one launch, the last block writing the pair, or with `root_sqrt`
 // its df_sqrt (df_norm(x) when y is x), to (out_h[0], out_l[0]).  The
-// df64 start vector's norm (single device) and row 5cd's dot pass.
+// df64 start vector's norm (single device, and row 5cd's start norms)
+// and row 5cd's dot pass (out: the shard's slot), launched as a
+// dependent; with `early`, row 0's y and mask are loaded before the
+// wait (x, the SpMV's output, never is).
 template <int Depth>
 __global__ void __launch_bounds__(kThreads)
 df_dot_kernel(const float* __restrict__ xh, const float* __restrict__ xl,
               const float* __restrict__ mask, const float* __restrict__ yh,
               const float* __restrict__ yl, int64_t n, int rows_log,
-              float* out_h, float* out_l, int root_sqrt,
+              float* out_h, float* out_l, int root_sqrt, int early,
               unsigned char* work) {
+  float c[kDfVec], d[kDfVec], mk[kDfVec];
+  const bool pre = early != 0 && df_base(0) < n;
+  if (pre) {
+    load8(yh, df_base(0), n, c);
+    load8(yl, df_base(0), n, d);
+    if (mask != nullptr) {
+      load8(mask, df_base(0), n, mk);
+    }
+  }
+  grid_dep_wait();
+  grid_dep_launch();
   TreeStack<kDfVec, Depth> stack;
   float x[kDfVec];
   float err = 0.0f;
   for (int m = 0; m < (1 << rows_log); ++m) {
     const int64_t i0 = df_base(bit_reverse(m, rows_log));
     if (i0 < n) {
-      float a[kDfVec], b[kDfVec], c[kDfVec], d[kDfVec];
-      load8_masked(xh, mask, i0, n, a);
-      load8_masked(xl, mask, i0, n, b);
-      load8(yh, i0, n, c);
-      load8(yl, i0, n, d);
+      float a[kDfVec], b[kDfVec];
+      if (!pre || m != 0) {
+        load8(yh, i0, n, c);
+        load8(yl, i0, n, d);
+        if (mask != nullptr) {
+          load8(mask, i0, n, mk);
+        }
+      }
+      load8(xh, i0, n, a);
+      load8(xl, i0, n, b);
+      if (mask != nullptr) {
+        mask8(a, b, mk);
+      }
 #pragma unroll
       for (int r = 0; r < kDfVec; ++r) {
         float e;
@@ -1422,20 +1504,47 @@ lanczos_step_df_kernel(DfStepArgs a) {
 
 // ------------------------------------------------------------- row 5d
 // The per-shard passes of the row-sharded loops (dist/mesh.py): the step
-// split at the mesh's two psums.  Each pass is one plain launch a shard
-// and ends, where it reduces, in the
-// shard's partial in a 0-d buffer, which the mesh sums across shards
-// before the next pass reads it.  V values a thread an iteration: 16-byte
-// vectors (V = 16 / sizeof(T)) when every vector is 16-byte aligned, else
-// one value (V = 1; the ELL/COO shards' rows are any length).
+// split where the reference psums, one dependent launch a pass a shard.
+// A reducing pass (the dot, the update's norm, the sub-norm) ends in the
+// shard's partial written to its slot, slots[shard] of an (n_shards,)
+// buffer; the pass that consumes the sum folds every slot itself, in
+// shard order, in its prologue (fold_slots: Mesh.psum's left fold, the
+// same adds, from the slots staged in shared memory), so no op runs
+// between a step's passes.  V values a thread
+// an iteration: 16-byte vectors (V = 16 / sizeof(T)) when every vector is
+// 16-byte aligned, else one value (V = 1; the ELL/COO shards' rows are
+// any length).  With `early`, a thread's first chunk of the inputs that
+// the loops never write just before the pass (q, q_{j-1}, the mask; v in
+// the update pass, and in the normalize pass when several shards share
+// the stream) is loaded before grid_dep_wait(); the grid-stride loop
+// starts at the thread's second chunk.
 
-template <typename T, int V>
-__device__ __forceinline__ void ldv(const T* p, int64_t c, T (&e)[V]) {
-  if constexpr (V == 1) {
-    e[0] = p[c];
-  } else {
-    load(p, c, e);
-  }
+// chunk c (V values); a mask chunk of V = 2 or 1 floats.  Float chunks
+// load with ld.global.ca: the plain load of a const __restrict__ float4
+// took 26.8 against 20.7 us for one shard's step at 2^21 on the H100,
+// while plain loads served the double chunks better (51.8 against 59.7
+// us) and the df passes alike (eval/step_tiers.py --sharded; PERF.md).
+__device__ __forceinline__ void ldv(const float* p, int64_t c,
+                                    float (&e)[4]) {
+  const float4 v = __ldca(reinterpret_cast<const float4*>(p) + c);
+  e[0] = v.x;
+  e[1] = v.y;
+  e[2] = v.z;
+  e[3] = v.w;
+}
+__device__ __forceinline__ void ldv(const double* p, int64_t c,
+                                    double (&e)[2]) {
+  load(p, c, e);
+}
+__device__ __forceinline__ void ldv(const float* p, int64_t c,
+                                    float (&e)[2]) {
+  const float2 v = reinterpret_cast<const float2*>(p)[c];
+  e[0] = v.x;
+  e[1] = v.y;
+}
+template <typename T>
+__device__ __forceinline__ void ldv(const T* p, int64_t c, T (&e)[1]) {
+  e[0] = p[c];
 }
 
 template <typename T, int V>
@@ -1447,43 +1556,80 @@ __device__ __forceinline__ void stv(T* p, int64_t c, const T (&e)[V]) {
   }
 }
 
-// chunk c of v (V values) times the float 0/1 mask's (exact), when mask
-// is not null
+// v times the float 0/1 mask (exact)
 template <typename T, int V>
-__device__ __forceinline__ void ldv_masked(const T* v, const float* mask,
-                                           int64_t c, T (&e)[V]) {
-  ldv<T, V>(v, c, e);
-  if (mask != nullptr) {
-    float m[V];
-    if constexpr (V == 4) {
-      load(mask, c, m);
-    } else if constexpr (V == 2) {
-      const float2 t = reinterpret_cast<const float2*>(mask)[c];
-      m[0] = t.x;
-      m[1] = t.y;
-    } else {
-      m[0] = mask[c];
-    }
+__device__ __forceinline__ void apply_mask(T (&x)[V], const float (&m)[V]) {
 #pragma unroll
-    for (int i = 0; i < V; ++i) {
-      e[i] = mul_rn(e[i], static_cast<T>(m[i]));
-    }
+  for (int i = 0; i < V; ++i) {
+    x[i] = mul_rn(x[i], static_cast<T>(m[i]));
   }
 }
 
-// This thread's V-chunks, grid-stride (chunk(c)), and past the last
-// whole chunk its one tail element, if it has one (tail(i)).
-template <int V, typename Chunk, typename Tail>
-__device__ __forceinline__ void shard_loop(int64_t n, Chunk chunk,
-                                           Tail tail) {
-  const int64_t nv = n / V;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  const int64_t g = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  for (int64_t c = g; c < nv; c += stride) {
-    chunk(c);
+// The sum of n_shards slots in shard order, as Mesh.psum's left fold
+// adds them: ((s0 + s1) + s2) + ...  `Ld` reads slot i.
+template <typename T, typename Ld>
+__device__ __forceinline__ T left_fold(int n_shards, Ld ld) {
+  T acc = ld(0);
+  for (int i = 1; i < n_shards; ++i) {
+    acc = add_rn(acc, ld(i));
   }
-  if (V > 1 && g < n - nv * V) {
-    tail(nv * V + g);
+  return acc;
+}
+
+// The folds of a's and b's n_shards slots (b may be null), in every
+// thread.  Read slot by slot, each fold would wait on one L2 round trip a
+// shard; so the block's first threads stage both sets of slots in shared
+// memory in one round trip, and every thread folds them from there (slot
+// by slot from the L2 only when they do not fit).
+template <typename T>
+__device__ void fold_slots(const T* a, const T* b, int n_shards, T& fa,
+                           T& fb) {
+  __shared__ T sm[kThreads];
+  const int t = threadIdx.x;
+  if (2 * n_shards > kThreads) {
+    fa = left_fold<T>(n_shards, [&](int i) { return __ldcg(a + i); });
+    if (b != nullptr) {
+      fb = left_fold<T>(n_shards, [&](int i) { return __ldcg(b + i); });
+    }
+    return;
+  }
+  if (t < n_shards) {
+    sm[t] = __ldcg(a + t);
+  } else if (b != nullptr && t < 2 * n_shards) {
+    sm[t] = __ldcg(b + t - n_shards);
+  }
+  __syncthreads();
+  fa = left_fold<T>(n_shards, [&](int i) { return sm[i]; });
+  if (b != nullptr) {
+    fb = left_fold<T>(n_shards, [&](int i) { return sm[n_shards + i]; });
+  }
+}
+
+// This thread's chunks: c = g, g + stride, ... below n / V.
+struct ShardIter {
+  int64_t nv, stride, g;
+  __device__ ShardIter(int64_t n, int v)
+      : nv(n / v),
+        stride(static_cast<int64_t>(gridDim.x) * kThreads),
+        g(static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) {}
+  // the index of this thread's one tail element past the whole chunks,
+  // or -1
+  __device__ int64_t tail(int64_t n, int v) const {
+    return v > 1 && g < n - nv * v ? nv * v + g : -1;
+  }
+};
+
+// One chunk of the dot pass: acc += <x * m, y> (m when masked).
+template <typename T, int V>
+__device__ __forceinline__ void dot_chunk(T (&x)[V], const T (&y)[V],
+                                          const float (&m)[V], bool masked,
+                                          T& acc) {
+  if (masked) {
+    apply_mask(x, m);
+  }
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    acc = fma_rn(x[e], y[e], acc);
   }
 }
 
@@ -1492,58 +1638,137 @@ template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
 shard_dot_kernel(const T* __restrict__ v, const float* __restrict__ mask,
                  const T* __restrict__ q, int64_t n, T* out, T* part,
-                 unsigned int* counter) {
-  T acc = T(0);
-  shard_loop<V>(n, [&](int64_t c) {
-    T x[V], y[V];
-    ldv_masked<T, V>(v, mask, c, x);
-    ldv<T, V>(q, c, y);
-#pragma unroll
-    for (int e = 0; e < V; ++e) {
-      acc = fma_rn(x[e], y[e], acc);
+                 unsigned int* counter, int early) {
+  const ShardIter it(n, V);
+  const bool masked = mask != nullptr;
+  const bool first = it.g < it.nv;
+  T y0[V];
+  float m0[V];
+  if (early != 0 && first) {
+    ldv(q, it.g, y0);
+    if (masked) {
+      ldv(mask, it.g, m0);
     }
-  }, [&](int64_t i) {
-    T x[1];
-    ldv_masked<T, 1>(v, mask, i, x);
-    acc = fma_rn(x[0], q[i], acc);
-  });
+  }
+  grid_dep_wait();
+  grid_dep_launch();
+  T acc = T(0);
+  if (first) {
+    if (early == 0) {
+      ldv(q, it.g, y0);
+      if (masked) {
+        ldv(mask, it.g, m0);
+      }
+    }
+    T x[V];
+    ldv(v, it.g, x);
+    dot_chunk(x, y0, m0, masked, acc);
+  }
+  for (int64_t c = it.g + it.stride; c < it.nv; c += it.stride) {
+    T x[V], y[V];
+    float m[V];
+    ldv(q, c, y);
+    if (masked) {
+      ldv(mask, c, m);
+    }
+    ldv(v, c, x);
+    dot_chunk(x, y, m, masked, acc);
+  }
+  const int64_t i = it.tail(n, V);
+  if (i >= 0) {
+    T xi = v[i];
+    if (masked) {
+      xi = mul_rn(xi, static_cast<T>(mask[i]));
+    }
+    acc = fma_rn(xi, q[i], acc);
+  }
   T total;
   if (grid_sum(acc, part, counter, total) && threadIdx.x == 0) {
     *out = total;
   }
 }
 
-// update pass: v' = (v * mask) - a q - b_prev q_prev over v, a the psum'd
-// dot and b_prev = sqrt(*ss_prev) the last step's norm (0 when ss_prev is
-// null); alpha[j] = a when alpha is not null; with out, *out = the
-// shard's ||v'||^2.
+// The update pass's loads of chunk c: v, q, q_{j-1} and (masked) the mask.
+template <typename T, int V>
+__device__ __forceinline__ void update_loads(const T* v, const float* mask,
+                                             const T* q, const T* qp,
+                                             int64_t c, T (&x)[V],
+                                             T (&y)[V], T (&z)[V],
+                                             float (&m)[V]) {
+  ldv(v, c, x);
+  ldv(q, c, y);
+  ldv(qp, c, z);
+  if (mask != nullptr) {
+    ldv(mask, c, m);
+  }
+}
+
+// One chunk of the update pass: v' over v at chunk c, acc += ||v'||^2.
+template <typename T, int V>
+__device__ __forceinline__ void update_chunk(T* v, int64_t c, T (&x)[V],
+                                             const T (&y)[V],
+                                             const T (&z)[V],
+                                             const float (&m)[V],
+                                             bool masked, T a, T bp,
+                                             T& acc) {
+  if (masked) {
+    apply_mask(x, m);
+  }
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    x[e] = update(x[e], y[e], z[e], a, bp);
+    acc = fma_rn(x[e], x[e], acc);
+  }
+  stv<T, V>(v, c, x);
+}
+
+// update pass: v' = (v * mask) - a q - b_prev q_prev over v, a the fold
+// of the dot slots and b_prev = sqrt of the fold of the last step's norm
+// slots (0 when ss_prev is null); alpha[j] = a when alpha is not null;
+// with out, *out = the shard's ||v'||^2.
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
 shard_update_kernel(T* v, const float* __restrict__ mask,
                     const T* __restrict__ q, const T* __restrict__ qp,
-                    int64_t n, const T* a_p, const T* ss_prev, T* alpha,
-                    int j, T* out, T* part, unsigned int* counter) {
-  const T a = *a_p;
-  const T bp = ss_prev != nullptr ? sqrt_rn(*ss_prev) : T(0);
+                    int64_t n, const T* a_slots, const T* ss_prev,
+                    int n_shards, T* alpha, int j, T* out, T* part,
+                    unsigned int* counter, int early) {
+  const ShardIter it(n, V);
+  const bool masked = mask != nullptr;
+  const bool first = it.g < it.nv;
+  T x0[V], y0[V], z0[V];
+  float m0[V];
+  if (early != 0 && first) {
+    update_loads(v, mask, q, qp, it.g, x0, y0, z0, m0);
+  }
+  grid_dep_wait();
+  grid_dep_launch();
+  T a, ss = T(0);
+  fold_slots(a_slots, ss_prev, n_shards, a, ss);
+  const T bp = ss_prev != nullptr ? sqrt_rn(ss) : T(0);
   T acc = T(0);
-  shard_loop<V>(n, [&](int64_t c) {
-    T x[V], y[V], z[V];
-    ldv_masked<T, V>(v, mask, c, x);
-    ldv<T, V>(q, c, y);
-    ldv<T, V>(qp, c, z);
-#pragma unroll
-    for (int e = 0; e < V; ++e) {
-      x[e] = update(x[e], y[e], z[e], a, bp);
-      acc = fma_rn(x[e], x[e], acc);
+  if (first) {
+    if (early == 0) {
+      update_loads(v, mask, q, qp, it.g, x0, y0, z0, m0);
     }
-    stv<T, V>(v, c, x);
-  }, [&](int64_t i) {
-    T x[1];
-    ldv_masked<T, 1>(v, mask, i, x);
-    const T w = update(x[0], q[i], qp[i], a, bp);
+    update_chunk(v, it.g, x0, y0, z0, m0, masked, a, bp, acc);
+  }
+  for (int64_t c = it.g + it.stride; c < it.nv; c += it.stride) {
+    T x[V], y[V], z[V];
+    float m[V];
+    update_loads(v, mask, q, qp, c, x, y, z, m);
+    update_chunk(v, c, x, y, z, m, masked, a, bp, acc);
+  }
+  const int64_t i = it.tail(n, V);
+  if (i >= 0) {
+    T xi = v[i];
+    if (masked) {
+      xi = mul_rn(xi, static_cast<T>(mask[i]));
+    }
+    const T w = update(xi, q[i], qp[i], a, bp);
     v[i] = w;
     acc = fma_rn(w, w, acc);
-  });
+  }
   if (alpha != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
     alpha[j] = a;
   }
@@ -1560,54 +1785,86 @@ template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
 shard_sub_norm_kernel(T* v, const T* __restrict__ w, int64_t n, T* out,
                       T* part, unsigned int* counter) {
+  grid_dep_wait();
+  grid_dep_launch();
+  const ShardIter it(n, V);
   T acc = T(0);
-  shard_loop<V>(n, [&](int64_t c) {
+  for (int64_t c = it.g; c < it.nv; c += it.stride) {
     T x[V], y[V];
-    ldv<T, V>(v, c, x);
-    ldv<T, V>(w, c, y);
+    ldv(v, c, x);
+    ldv(w, c, y);
 #pragma unroll
     for (int e = 0; e < V; ++e) {
       x[e] = sub_rn(x[e], y[e]);
       acc = fma_rn(x[e], x[e], acc);
     }
     stv<T, V>(v, c, x);
-  }, [&](int64_t i) {
+  }
+  const int64_t i = it.tail(n, V);
+  if (i >= 0) {
     const T x = sub_rn(v[i], w[i]);
     v[i] = x;
     acc = fma_rn(x, x, acc);
-  });
+  }
   T total;
   if (grid_sum(acc, part, counter, total) && threadIdx.x == 0) {
     *out = total;
   }
 }
 
-// normalize pass: b = sqrt(*ss) (the psum'd norm), q = b > 0 ? v / b : 0
-// over v and into `row` (if not null); beta[j] = b when beta is not null
+template <typename T, int V>
+__device__ __forceinline__ void normalize_chunk(T* v, T* row, int64_t c,
+                                                T (&x)[V], bool ok, T b) {
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    x[e] = ok ? div_rn(x[e], b) : T(0);
+  }
+  stv<T, V>(v, c, x);
+  if (row != nullptr) {
+    stv<T, V>(row, c, x);
+  }
+}
+
+// normalize pass: b = sqrt of the fold of the norm slots, q = b > 0 ?
+// v / b : 0 over v and into `row` (if not null); beta[j] = b when beta
+// is not null.  With `early` (the caller's word that the kernel just
+// before does not write v: several shards' passes in turn on one
+// stream), the thread's first chunk of v is loaded before the wait.
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
-shard_normalize_kernel(T* v, int64_t n, const T* ss, T* beta, int j,
-                       T* row) {
-  const T b = sqrt_rn(*ss);
+shard_normalize_kernel(T* v, int64_t n, const T* ss, int n_shards, T* beta,
+                       int j, T* row, int early) {
+  const ShardIter it(n, V);
+  const bool first = it.g < it.nv;
+  T x0[V];
+  if (early != 0 && first) {
+    ldv(v, it.g, x0);
+  }
+  grid_dep_wait();
+  grid_dep_launch();
+  T sum, unused;
+  fold_slots(ss, static_cast<const T*>(nullptr), n_shards, sum, unused);
+  const T b = sqrt_rn(sum);
   const bool ok = b > T(0);
-  shard_loop<V>(n, [&](int64_t c) {
+  if (first) {
+    if (early == 0) {
+      ldv(v, it.g, x0);
+    }
+    normalize_chunk(v, row, it.g, x0, ok, b);
+  }
+  for (int64_t c = it.g + it.stride; c < it.nv; c += it.stride) {
     T x[V];
-    ldv<T, V>(v, c, x);
-#pragma unroll
-    for (int e = 0; e < V; ++e) {
-      x[e] = ok ? div_rn(x[e], b) : T(0);
-    }
-    stv<T, V>(v, c, x);
+    ldv(v, c, x);
+    normalize_chunk(v, row, c, x, ok, b);
+  }
+  const int64_t i = it.tail(n, V);
+  if (i >= 0) {
+    const T xi = ok ? div_rn(v[i], b) : T(0);
+    v[i] = xi;
     if (row != nullptr) {
-      stv<T, V>(row, c, x);
+      row[i] = xi;
     }
-  }, [&](int64_t i) {
-    const T x = ok ? div_rn(v[i], b) : T(0);
-    v[i] = x;
-    if (row != nullptr) {
-      row[i] = x;
-    }
-  });
+  }
   if (beta != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
     beta[j] = b;
   }
@@ -1618,37 +1875,102 @@ shard_normalize_kernel(T* v, int64_t n, const T* ss, T* beta, int j,
 // on the shard's n_loc elements (df_geometry's map, so its hi word is the
 // plain tree's on the shard's slice); the update pass computes v' in the
 // same map and reduces ||v'||^2 on the same tree; the normalize pass needs
-// no reduction and walks contiguous memory.
+// no reduction and walks contiguous memory.  Their slots are (hi, lo)
+// pairs, slots[2 * shard] and slots[2 * shard + 1] of (n_shards, 2), and a
+// consuming pass folds them as _df_allsum does (fold_df_slots, df_fold).
+
+// slot 0's (hi, lo) pair df_added with each later shard's, in shard order;
+// `Ld` reads float i of the (n_shards, 2) slots
+template <typename Ld>
+__device__ __forceinline__ Df df_fold(int n_shards, Ld ld) {
+  Df acc{ld(0), ld(1)};
+  for (int i = 1; i < n_shards; ++i) {
+    acc = df_add(acc, Df{ld(2 * i), ld(2 * i + 1)});
+  }
+  return acc;
+}
+
+// fold_slots for (hi, lo) pairs: the df folds of a's and b's slots (b may
+// be null), staged in shared memory in one round trip when they fit
+__device__ void fold_df_slots(const float* a, const float* b, int n_shards,
+                              Df& fa, Df& fb) {
+  __shared__ float sm[kThreads];
+  const int t = threadIdx.x;
+  const int w = 2 * n_shards;
+  if (2 * w > kThreads) {
+    fa = df_fold(n_shards, [&](int i) { return __ldcg(a + i); });
+    if (b != nullptr) {
+      fb = df_fold(n_shards, [&](int i) { return __ldcg(b + i); });
+    }
+    return;
+  }
+  if (t < w) {
+    sm[t] = __ldcg(a + t);
+  } else if (b != nullptr && t < 2 * w) {
+    sm[t] = __ldcg(b + t - w);
+  }
+  __syncthreads();
+  fa = df_fold(n_shards, [&](int i) { return sm[i]; });
+  if (b != nullptr) {
+    fb = df_fold(n_shards, [&](int i) { return sm[w + i]; });
+  }
+}
 
 // update pass: v' = df_sub(v * mask, df_add(df_mul(a, q), df_mul(b_prev,
-// q_prev))) over v, a the allsum'd df dot and b_prev = df_sqrt(ss_prev)
-// (0 when ss_prev is null); (ah, al)[j] = a when ah is not null; the
-// shard's df dot of v' with itself to (out_h[0], out_l[0]).
+// q_prev))) over v, a the fold of the dot slots and b_prev = df_sqrt of
+// the fold of the last step's norm slots (0 when ssp is null); (ah,
+// al)[j] = a when ah is not null; the shard's df dot of v' with itself to
+// (out_h[0], out_l[0]).  With `early`, row 0's v, q, q_prev and mask are
+// loaded before the wait.
 template <int Depth>
 __global__ void __launch_bounds__(kThreads)
 df_update_kernel(float* vh, float* vl, const float* __restrict__ mask,
                  const float* __restrict__ qh, const float* __restrict__ ql,
                  const float* __restrict__ ph, const float* __restrict__ pl,
-                 int64_t n, int rows_log, const float* a_h, const float* a_l,
-                 const float* ssp_h, const float* ssp_l, float* ah,
-                 float* al, int j, float* out_h, float* out_l,
+                 int64_t n, int rows_log, const float* a_slots,
+                 const float* ssp, int n_shards, float* ah, float* al, int j,
+                 float* out_h, float* out_l, int early,
                  unsigned char* work) {
-  const Df a{*a_h, *a_l};
-  const Df bp = ssp_h != nullptr ? df_sqrt(Df{*ssp_h, *ssp_l})
-                                 : Df{0.0f, 0.0f};
+  float v0[kDfVec], v1[kDfVec], q0[kDfVec], q1[kDfVec], p0[kDfVec],
+      p1[kDfVec], mk[kDfVec];
+  const bool pre = early != 0 && df_base(0) < n;
+  if (pre) {
+    const int64_t i0 = df_base(0);
+    load8(vh, i0, n, v0);
+    load8(vl, i0, n, v1);
+    load8(qh, i0, n, q0);
+    load8(ql, i0, n, q1);
+    load8(ph, i0, n, p0);
+    load8(pl, i0, n, p1);
+    if (mask != nullptr) {
+      load8(mask, i0, n, mk);
+    }
+  }
+  grid_dep_wait();
+  grid_dep_launch();
+  Df a, ss{0.0f, 0.0f};
+  fold_df_slots(a_slots, ssp, n_shards, a, ss);
+  const Df bp = ssp != nullptr ? df_sqrt(ss) : Df{0.0f, 0.0f};
   TreeStack<kDfVec, Depth> stack;
   float x[kDfVec];
   float err = 0.0f;
   for (int m = 0; m < (1 << rows_log); ++m) {
     const int64_t i0 = df_base(bit_reverse(m, rows_log));
     if (i0 < n) {
-      float v0[8], v1[8], q0[8], q1[8], p0[8], p1[8];
-      load8_masked(vh, mask, i0, n, v0);
-      load8_masked(vl, mask, i0, n, v1);
-      load8(qh, i0, n, q0);
-      load8(ql, i0, n, q1);
-      load8(ph, i0, n, p0);
-      load8(pl, i0, n, p1);
+      if (!pre || m != 0) {
+        load8(vh, i0, n, v0);
+        load8(vl, i0, n, v1);
+        load8(qh, i0, n, q0);
+        load8(ql, i0, n, q1);
+        load8(ph, i0, n, p0);
+        load8(pl, i0, n, p1);
+        if (mask != nullptr) {
+          load8(mask, i0, n, mk);
+        }
+      }
+      if (mask != nullptr) {
+        mask8(v0, v1, mk);
+      }
 #pragma unroll
       for (int r = 0; r < kDfVec; ++r) {
         const Df w = df_update(Df{v0[r], v1[r]}, Df{q0[r], q1[r]},
@@ -1680,46 +2002,83 @@ df_update_kernel(float* vh, float* vl, const float* __restrict__ mask,
   df_grid_tree(x, err, out_h, out_l, false, work);
 }
 
-// normalize pass: b = df_sqrt(ss) (the allsum'd norm), q =
+// The df normalize pass's loads of 4 elements at i0: v, and ans when
+// the recombine folds into it.
+__device__ __forceinline__ void df_normalize_loads(
+    const float* vh, const float* vl, const float* ans_h, const float* ans_l,
+    int64_t i0, int64_t n, float (&w0)[4], float (&w1)[4], float (&s0)[4],
+    float (&s1)[4]) {
+  loadk<4>(vh, i0, n, w0);
+  loadk<4>(vl, i0, n, w1);
+  if (ans_h != nullptr) {
+    loadk<4>(ans_h, i0, n, s0);
+    loadk<4>(ans_l, i0, n, s1);
+  }
+}
+
+// q = where(ok, df_mul(inv, v), 0) over v's 4 elements at i0, and with
+// ans, ans = df_add(ans, df_mul(c, q))
+__device__ __forceinline__ void df_normalize_chunk(
+    float* vh, float* vl, float* ans_h, float* ans_l, int64_t i0, int64_t n,
+    float (&w0)[4], float (&w1)[4], float (&s0)[4], float (&s1)[4], Df inv,
+    bool ok, Df c) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const Df q = df_mul(inv, Df{w0[k], w1[k]});
+    w0[k] = ok ? q.h : 0.0f;
+    w1[k] = ok ? q.l : 0.0f;
+  }
+  storek<4>(vh, i0, n, w0);
+  storek<4>(vl, i0, n, w1);
+  if (ans_h != nullptr) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const Df sum = df_add(Df{s0[k], s1[k]}, df_mul(c, Df{w0[k], w1[k]}));
+      s0[k] = sum.h;
+      s1[k] = sum.l;
+    }
+    storek<4>(ans_h, i0, n, s0);
+    storek<4>(ans_l, i0, n, s1);
+  }
+}
+
+// normalize pass: b = df_sqrt of the fold of the norm slots, q =
 // where(b > 0, df_mul(df_div(1, b), v'), 0) over v; (bh, bl)[j] = b when
 // bh is not null; with ans, ans = df_add(ans, df_mul(coeff[jc], q)).
+// `early` as in shard_normalize_kernel (v's and ans's first 4 elements).
 __global__ void __launch_bounds__(kThreads)
-df_normalize_kernel(float* vh, float* vl, int64_t n, const float* ss_h,
-                    const float* ss_l, float* bh, float* bl, int j,
-                    float* ans_h, float* ans_l, const float* ch,
-                    const float* cl, int jc) {
-  const Df b = df_sqrt(Df{*ss_h, *ss_l});
+df_normalize_kernel(float* vh, float* vl, int64_t n, const float* ss,
+                    int n_shards, float* bh, float* bl, int j, float* ans_h,
+                    float* ans_l, const float* ch, const float* cl, int jc,
+                    int early) {
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kThreads * 4;
+  const int64_t i00 =
+      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * 4;
+  const bool first = i00 < n;
+  float w0[4], w1[4], s0[4], s1[4];
+  if (early != 0 && first) {
+    df_normalize_loads(vh, vl, ans_h, ans_l, i00, n, w0, w1, s0, s1);
+  }
+  grid_dep_wait();
+  grid_dep_launch();
+  Df total, unused;
+  fold_df_slots(ss, nullptr, n_shards, total, unused);
+  const Df b = df_sqrt(total);
   const bool ok = b.h > 0.0f;
   const Df inv = df_div(Df{1.0f, 0.0f}, ok ? b : Df{1.0f, 0.0f});
   const Df c = ans_h != nullptr ? Df{ch[jc], cl[jc]} : Df{0.0f, 0.0f};
-  const int64_t step = static_cast<int64_t>(gridDim.x) * kThreads * 4;
-  for (int64_t i0 = (static_cast<int64_t>(blockIdx.x) * kThreads +
-                     threadIdx.x) * 4;
-       i0 < n; i0 += step) {
-    float w0[4], w1[4];
-    loadk<4>(vh, i0, n, w0);
-    loadk<4>(vl, i0, n, w1);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const Df q = df_mul(inv, Df{w0[k], w1[k]});
-      w0[k] = ok ? q.h : 0.0f;
-      w1[k] = ok ? q.l : 0.0f;
+  if (first) {
+    if (early == 0) {
+      df_normalize_loads(vh, vl, ans_h, ans_l, i00, n, w0, w1, s0, s1);
     }
-    storek<4>(vh, i0, n, w0);
-    storek<4>(vl, i0, n, w1);
-    if (ans_h != nullptr) {
-      float s0[4], s1[4];
-      loadk<4>(ans_h, i0, n, s0);
-      loadk<4>(ans_l, i0, n, s1);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const Df sum = df_add(Df{s0[k], s1[k]}, df_mul(c, Df{w0[k], w1[k]}));
-        s0[k] = sum.h;
-        s1[k] = sum.l;
-      }
-      storek<4>(ans_h, i0, n, s0);
-      storek<4>(ans_l, i0, n, s1);
-    }
+    df_normalize_chunk(vh, vl, ans_h, ans_l, i00, n, w0, w1, s0, s1, inv,
+                       ok, c);
+  }
+  for (int64_t i0 = i00 + step; i0 < n; i0 += step) {
+    float x0[4], x1[4], t0[4], t1[4];
+    df_normalize_loads(vh, vl, ans_h, ans_l, i0, n, x0, x1, t0, t1);
+    df_normalize_chunk(vh, vl, ans_h, ans_l, i0, n, x0, x1, t0, t1, inv, ok,
+                       c);
   }
   if (bh != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
     bh[j] = b.h;
@@ -1805,15 +2164,28 @@ struct Id {
   using type = T;
 };
 
-// One launch of a pass kernel on `s`, `grid` blocks (the error cleared
-// if refused).
+// One launch of a pass kernel on `s`, `grid` blocks, as a programmatic
+// dependent of the kernel before it on the stream (the attribute
+// cudaLaunchAttributeProgrammaticStreamSerialization: it may start once
+// that kernel's blocks have all called grid_dep_launch() or exited, and
+// waits in grid_dep_wait()).  A refused launch returns its error (cleared)
+// and is never retried without the attribute.
 template <typename... P>
 int launch_pass(void (*fn)(P...), int grid, cudaStream_t s,
                 typename Id<P>::type... args) {
   void* ptrs[] = {static_cast<void*>(&args)...};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
   const cudaError_t err =
-      cudaLaunchKernel(reinterpret_cast<const void*>(fn), dim3(grid),
-                       dim3(kThreads), ptrs, 0, s);
+      cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(fn), ptrs);
   if (err != cudaSuccess) {
     cudaGetLastError();
   }
@@ -1833,7 +2205,7 @@ unsigned int* counter_of(void* work) {
 // (registers only where rows need them)
 int launch_df_dot(const float* xh, const float* xl, const float* mask,
                   const float* yh, const float* yl, int64_t n, float* out_h,
-                  float* out_l, int root_sqrt, void* work,
+                  float* out_l, int root_sqrt, int early, void* work,
                   cudaStream_t s) {
   int blocks, rows_log;
   if (!df_geometry(n, blocks, rows_log)) {
@@ -1842,7 +2214,7 @@ int launch_df_dot(const float* xh, const float* xl, const float* mask,
   unsigned char* w = static_cast<unsigned char*>(work);
   auto go = [&](auto fn) {
     return launch_pass(fn, blocks, s, xh, xl, mask, yh, yl, n,
-                       rows_log, out_h, out_l, root_sqrt, w);
+                       rows_log, out_h, out_l, root_sqrt, early, w);
   };
   if (rows_log == 0) {
     return go(df_dot_kernel<0>);
@@ -1855,11 +2227,10 @@ int launch_df_dot(const float* xh, const float* xl, const float* mask,
 
 int launch_df_update(float* vh, float* vl, const float* mask,
                      const float* qh, const float* ql, const float* ph,
-                     const float* pl, int64_t n, const float* a_h,
-                     const float* a_l, const float* ssp_h,
-                     const float* ssp_l, float* ah, float* al, int j,
-                     float* out_h, float* out_l, void* work,
-                     cudaStream_t s) {
+                     const float* pl, int64_t n, const float* a_slots,
+                     const float* ssp, int n_shards, float* ah, float* al,
+                     int j, float* out_h, float* out_l, int early,
+                     void* work, cudaStream_t s) {
   int blocks, rows_log;
   if (!df_geometry(n, blocks, rows_log)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1867,8 +2238,8 @@ int launch_df_update(float* vh, float* vl, const float* mask,
   unsigned char* w = static_cast<unsigned char*>(work);
   auto go = [&](auto fn) {
     return launch_pass(fn, blocks, s, vh, vl, mask, qh, ql, ph, pl, n,
-                       rows_log, a_h, a_l, ssp_h, ssp_l, ah, al, j, out_h,
-                       out_l, w);
+                       rows_log, a_slots, ssp, n_shards, ah, al, j, out_h,
+                       out_l, early, w);
   };
   if (rows_log == 0) {
     return go(df_update_kernel<0>);
@@ -1882,7 +2253,7 @@ int launch_df_update(float* vh, float* vl, const float* mask,
 // Row 5d's launches: V = Vec<T>::n with `vec`, else 1
 template <typename T>
 int launch_shard_dot(const void* v, const void* mask, const void* q,
-                     void* out, int64_t n, bool vec, void* work,
+                     void* out, int64_t n, bool vec, int early, void* work,
                      cudaStream_t s) {
   constexpr int W = Vec<T>::n;
   auto go = [&](auto fn) {
@@ -1890,7 +2261,7 @@ int launch_shard_dot(const void* v, const void* mask, const void* q,
                        static_cast<const T*>(v),
                        static_cast<const float*>(mask),
                        static_cast<const T*>(q), n, static_cast<T*>(out),
-                       part_of<T>(work), counter_of(work));
+                       part_of<T>(work), counter_of(work), early);
   };
   return vec ? go(shard_dot_kernel<T, W>) : go(shard_dot_kernel<T, 1>);
 }
@@ -1898,17 +2269,18 @@ int launch_shard_dot(const void* v, const void* mask, const void* q,
 template <typename T>
 int launch_shard_update(void* v, const void* mask, const void* q,
                         const void* qp, const void* a, const void* ss_prev,
-                        void* alpha, int j, void* out, int64_t n, bool vec,
-                        void* work, cudaStream_t s) {
+                        int n_shards, void* alpha, int j, void* out,
+                        int64_t n, bool vec, int early, void* work,
+                        cudaStream_t s) {
   constexpr int W = Vec<T>::n;
   auto go = [&](auto fn) {
     return launch_pass(fn, grid_for(n, vec ? W : 1), s,
                        static_cast<T*>(v), static_cast<const float*>(mask),
                        static_cast<const T*>(q), static_cast<const T*>(qp),
                        n, static_cast<const T*>(a),
-                       static_cast<const T*>(ss_prev), static_cast<T*>(alpha),
-                       j, static_cast<T*>(out), part_of<T>(work),
-                       counter_of(work));
+                       static_cast<const T*>(ss_prev), n_shards,
+                       static_cast<T*>(alpha), j, static_cast<T*>(out),
+                       part_of<T>(work), counter_of(work), early);
   };
   return vec ? go(shard_update_kernel<T, W>) : go(shard_update_kernel<T, 1>);
 }
@@ -1927,13 +2299,15 @@ int launch_shard_sub_norm(void* v, const void* w, void* out, int64_t n,
 }
 
 template <typename T>
-int launch_shard_normalize(void* v, const void* ss, void* beta, int j,
-                           void* row, int64_t n, bool vec, cudaStream_t s) {
+int launch_shard_normalize(void* v, const void* ss, int n_shards, void* beta,
+                           int j, void* row, int64_t n, bool vec, int early,
+                           cudaStream_t s) {
   constexpr int W = Vec<T>::n;
   auto go = [&](auto fn) {
     return launch_pass(fn, grid_for(n, vec ? W : 1), s,
                        static_cast<T*>(v), n, static_cast<const T*>(ss),
-                       static_cast<T*>(beta), j, static_cast<T*>(row));
+                       n_shards, static_cast<T*>(beta), j,
+                       static_cast<T*>(row), early);
   };
   return vec ? go(shard_normalize_kernel<T, W>)
              : go(shard_normalize_kernel<T, 1>);
@@ -2150,14 +2524,18 @@ extern "C" int tlt_df_norm(const void* xh, const void* xl, void* out_h,
   const float* h = static_cast<const float*>(xh);
   const float* l = static_cast<const float*>(xl);
   return launch_df_dot(h, l, nullptr, h, l, n, static_cast<float*>(out_h),
-                       static_cast<float*>(out_l), 1, work,
+                       static_cast<float*>(out_l), 1, 0, work,
                        static_cast<cudaStream_t>(stream));
 }
 
 // ---- row 5d: one pass of one shard on `stream`, value_bytes 4 (float)
 // or 8 (double); `vec` 1 when every vector is 16-byte aligned (16-byte
-// accesses), else 0.  `out` a 0-d buffer of the vectors' type.  Each returns the launch's CUDA
-// error (0 = launched).
+// accesses), else 0.  A reducing pass writes the shard's partial to
+// `out` (its slot); a consuming pass folds the n_shards slots of `a`,
+// `ss_prev` or `ss` in shard order.  With `early` 1 the pass loads q,
+// q_prev and the mask (and in the update pass v) before it waits on the
+// kernel before it, which must not write them.  Each returns the launch's
+// CUDA error (0 = launched).
 
 namespace {
 bool pass_args_ok(long long n, int value_bytes) {
@@ -2168,34 +2546,36 @@ bool pass_args_ok(long long n, int value_bytes) {
 // *out = <v * mask, q> (mask: float 0/1, or null)
 extern "C" int tlt_shard_step_dot(const void* v, const void* mask,
                                   const void* q, void* out, long long n,
-                                  int value_bytes, int vec, void* work,
-                                  void* stream) {
+                                  int value_bytes, int vec, int early,
+                                  void* work, void* stream) {
   if (!pass_args_ok(n, value_bytes)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return value_bytes == 4
-      ? launch_shard_dot<float>(v, mask, q, out, n, vec, work, s)
-      : launch_shard_dot<double>(v, mask, q, out, n, vec, work, s);
+      ? launch_shard_dot<float>(v, mask, q, out, n, vec, early, work, s)
+      : launch_shard_dot<double>(v, mask, q, out, n, vec, early, work, s);
 }
 
-// v = v * mask - *a q - sqrt(*ss_prev) q_prev (ss_prev null: 0); alpha[j]
-// = *a when alpha is not null; *out = ||v||^2 when out is not null
+// v = v * mask - a q - sqrt(ss) q_prev, a and ss the folds of the n_shards
+// slots of a and ss_prev (ss_prev null: 0); alpha[j] = a when alpha is not
+// null; *out = ||v||^2 when out is not null
 extern "C" int tlt_shard_step_update(void* v, const void* mask,
                                      const void* q, const void* q_prev,
                                      const void* a, const void* ss_prev,
-                                     void* alpha, int j, void* out,
-                                     long long n, int value_bytes, int vec,
-                                     void* work, void* stream) {
-  if (!pass_args_ok(n, value_bytes) || j < 0) {
+                                     int n_shards, void* alpha, int j,
+                                     void* out, long long n, int value_bytes,
+                                     int vec, int early, void* work,
+                                     void* stream) {
+  if (!pass_args_ok(n, value_bytes) || j < 0 || n_shards < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return value_bytes == 4
-      ? launch_shard_update<float>(v, mask, q, q_prev, a, ss_prev, alpha, j,
-                                   out, n, vec, work, s)
-      : launch_shard_update<double>(v, mask, q, q_prev, a, ss_prev, alpha, j,
-                                    out, n, vec, work, s);
+      ? launch_shard_update<float>(v, mask, q, q_prev, a, ss_prev, n_shards,
+                                   alpha, j, out, n, vec, early, work, s)
+      : launch_shard_update<double>(v, mask, q, q_prev, a, ss_prev, n_shards,
+                                    alpha, j, out, n, vec, early, work, s);
 }
 
 // v -= w; *out = ||v||^2 (reorthogonalization)
@@ -2211,30 +2591,36 @@ extern "C" int tlt_shard_step_sub_norm(void* v, const void* w, void* out,
       : launch_shard_sub_norm<double>(v, w, out, n, vec, work, s);
 }
 
-// b = sqrt(*ss); v = b > 0 ? v / b : 0, also into row (if not null);
-// beta[j] = b when beta is not null
-extern "C" int tlt_shard_step_normalize(void* v, const void* ss, void* beta,
-                                        int j, void* row, long long n,
-                                        int value_bytes, int vec,
+// b = sqrt of the fold of the n_shards slots of ss; v = b > 0 ? v / b : 0,
+// also into row (if not null); beta[j] = b when beta is not null; with
+// `early` 1, v is loaded before the wait (the kernel before must not
+// write it)
+extern "C" int tlt_shard_step_normalize(void* v, const void* ss,
+                                        int n_shards, void* beta, int j,
+                                        void* row, long long n,
+                                        int value_bytes, int vec, int early,
                                         void* stream) {
-  if (!pass_args_ok(n, value_bytes) || j < 0) {
+  if (!pass_args_ok(n, value_bytes) || j < 0 || n_shards < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return value_bytes == 4
-      ? launch_shard_normalize<float>(v, ss, beta, j, row, n, vec, s)
-      : launch_shard_normalize<double>(v, ss, beta, j, row, n, vec, s);
+      ? launch_shard_normalize<float>(v, ss, n_shards, beta, j, row, n, vec,
+                                      early, s)
+      : launch_shard_normalize<double>(v, ss, n_shards, beta, j, row, n, vec,
+                                       early, s);
 }
 
 // ---- row 5cd: one df64 pass of one shard on `stream`; every vector
-// 16-byte aligned.
+// 16-byte aligned; slots of (hi, lo) pairs, `early` as in row 5d.
 
 // (out_h[0], out_l[0]) = df_dot((xh, xl) * mask, (yh, yl)) on df64.py's
 // tree over the n elements
 extern "C" int tlt_shard_df_dot(const void* xh, const void* xl,
                                 const void* mask, const void* yh,
                                 const void* yl, void* out_h, void* out_l,
-                                long long n, void* work, void* stream) {
+                                long long n, int early, void* work,
+                                void* stream) {
   if (n < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -2244,50 +2630,50 @@ extern "C" int tlt_shard_df_dot(const void* xh, const void* xl,
                        static_cast<const float*>(yh),
                        static_cast<const float*>(yl), n,
                        static_cast<float*>(out_h), static_cast<float*>(out_l),
-                       0, work, static_cast<cudaStream_t>(stream));
+                       0, early, work, static_cast<cudaStream_t>(stream));
 }
 
-// v = df_sub(v * mask, df_add(df_mul(a, q), df_mul(df_sqrt(ss_prev),
-// q_prev))) (ss_prev null: 0); (ah, al)[j] = a when ah is not null; (out_h,
-// out_l) = the df dot of v with itself
+// v = df_sub(v * mask, df_add(df_mul(a, q), df_mul(df_sqrt(ss), q_prev)))
+// with a and ss the folds of the n_shards pairs of a_slots and ssp (ssp
+// null: 0); (ah, al)[j] = a when ah is not null; (out_h, out_l) = the df
+// dot of v with itself
 extern "C" int tlt_shard_df_update(
     void* vh, void* vl, const void* mask, const void* qh, const void* ql,
-    const void* ph, const void* pl, const void* a_h, const void* a_l,
-    const void* ssp_h, const void* ssp_l, void* ah, void* al, int j,
-    void* out_h, void* out_l, long long n, void* work, void* stream) {
-  if (n < 1 || j < 0) {
+    const void* ph, const void* pl, const void* a_slots, const void* ssp,
+    int n_shards, void* ah, void* al, int j, void* out_h, void* out_l,
+    long long n, int early, void* work, void* stream) {
+  if (n < 1 || j < 0 || n_shards < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return launch_df_update(
       static_cast<float*>(vh), static_cast<float*>(vl),
       static_cast<const float*>(mask), static_cast<const float*>(qh),
       static_cast<const float*>(ql), static_cast<const float*>(ph),
-      static_cast<const float*>(pl), n, static_cast<const float*>(a_h),
-      static_cast<const float*>(a_l), static_cast<const float*>(ssp_h),
-      static_cast<const float*>(ssp_l), static_cast<float*>(ah),
+      static_cast<const float*>(pl), n, static_cast<const float*>(a_slots),
+      static_cast<const float*>(ssp), n_shards, static_cast<float*>(ah),
       static_cast<float*>(al), j, static_cast<float*>(out_h),
-      static_cast<float*>(out_l), work,
+      static_cast<float*>(out_l), early, work,
       static_cast<cudaStream_t>(stream));
 }
 
-// b = df_sqrt(ss); v = where(b > 0, df_mul(df_div(1, b), v), 0); (bh,
-// bl)[j] = b when bh is not null; with ans_h, ans = df_add(ans,
-// df_mul((ch, cl)[jc], v))
-extern "C" int tlt_shard_df_normalize(void* vh, void* vl, const void* ss_h,
-                                      const void* ss_l, void* bh, void* bl,
+// b = df_sqrt of the fold of the n_shards pairs of ss; v = where(b > 0,
+// df_mul(df_div(1, b), v), 0); (bh, bl)[j] = b when bh is not null; with
+// ans_h, ans = df_add(ans, df_mul((ch, cl)[jc], v)); `early` as in
+// tlt_shard_step_normalize (v and ans)
+extern "C" int tlt_shard_df_normalize(void* vh, void* vl, const void* ss,
+                                      int n_shards, void* bh, void* bl,
                                       int j, void* ans_h, void* ans_l,
                                       const void* ch, const void* cl, int jc,
-                                      long long n, void* stream) {
-  if (n < 1 || j < 0 || jc < 0) {
+                                      long long n, int early, void* stream) {
+  if (n < 1 || j < 0 || jc < 0 || n_shards < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return launch_pass(df_normalize_kernel, grid_for(n, 4),
                      static_cast<cudaStream_t>(stream),
                      static_cast<float*>(vh), static_cast<float*>(vl), n,
-                     static_cast<const float*>(ss_h),
-                     static_cast<const float*>(ss_l), static_cast<float*>(bh),
-                     static_cast<float*>(bl), j, static_cast<float*>(ans_h),
-                     static_cast<float*>(ans_l),
+                     static_cast<const float*>(ss), n_shards,
+                     static_cast<float*>(bh), static_cast<float*>(bl), j,
+                     static_cast<float*>(ans_h), static_cast<float*>(ans_l),
                      static_cast<const float*>(ch),
-                     static_cast<const float*>(cl), jc);
+                     static_cast<const float*>(cl), jc, early);
 }

@@ -38,22 +38,32 @@ them):
 The row-sharded loops (dist/mesh.py, dist/lanczos_df.py) cannot run a
 step in one launch: the reference psums the dot and the norm across
 shards between its phases.  Rows 5d and 5cd are the step split at those
-psums, one launch a pass a shard, each reduction ending in the shard's
-partial in a small device buffer that the mesh sums before the next pass
-reads it:
+psums, one launch a pass a shard.  A reducing pass writes the shard's
+partial into its slot, ``slots[shard]`` of an (n_shards,) buffer
+((n_shards, 2) (hi, lo) pairs in df64); the pass that consumes the sum
+folds every slot itself, in shard order, with the arithmetic of the
+mesh's psum (``fold_slots_ref``: a left fold of adds) or of the
+reference's df allsum (``fold_df_slots_ref``: a chain of ``df_add``), so
+no op runs between a step's passes when the shards share a device.  On
+the card each pass is a programmatic dependent launch: it may start
+while the pass before it drains, and with ``early`` it loads the inputs
+the loops never write just before it (q, q_{j-1}, the mask; v in the
+update pass, and in the normalize pass when several shards share the
+device) before it waits.
 
 - ``shard_step_dot`` (<v * mask, q>), ``shard_step_update`` (v' over v,
-  b_prev = sqrt of the last step's psum'd norm, alpha[j], the partial
-  ||v'||^2), ``shard_step_normalize`` (beta[j] = sqrt of the psum'd
-  norm, q_{j+1} over v, the stored basis row) and, after
-  reorthogonalization's GEMVs, ``shard_step_sub_norm``;
+  b_prev = sqrt of the fold of the last step's norm slots, alpha[j], the
+  partial ||v'||^2), ``shard_step_normalize`` (beta[j] = sqrt of the
+  fold of the norm slots, q_{j+1} over v, the stored basis row) and,
+  after reorthogonalization's GEMVs, ``shard_step_sub_norm``;
 - ``shard_df_dot``, ``shard_df_update`` and ``shard_df_normalize``
   likewise on (hi, lo) pairs, the dot and the norm on core/df64.py's
   pairwise tree over the shard's elements, the normalize folding the
   recombine pass's ``ans``; ``shard_df_dot(x, x)`` is the start norm.
 
 Their plain versions (``*_ref``) are the eager ops of the sharded bodies
-before the split, so on the CPU the loops give the bits they gave.
+before the split, the same folds included, so on the CPU the loops give
+the bits they gave.
 
 The kernels' reductions are fixed-order (no floating-point atomics), so
 their alpha and beta differ from the plain version's torch.dot in
@@ -560,39 +570,77 @@ def lanczos_step_df(v, q, q_prev, alpha, beta, j: int, *, ans=None,
 
 
 # ------------------------------------------------------------- rows 5d, 5cd
-# the per-shard passes of the row-sharded loops
+# the per-shard passes of the row-sharded loops, their partials in slots
 
 
-def shard_step_dot_ref(v, q, mask=None):
-    """<v * mask, q>, a 0-d tensor (the plain torch.dot)."""
+def fold_slots_ref(slots):
+    """The sum of an (n_shards,) slot buffer in shard order, as
+    ``Mesh.psum``'s left fold adds it: ((s0 + s1) + s2) + ..."""
+    acc = slots[0]
+    for s in slots[1:]:
+        acc = acc + s
+    return acc
+
+
+def fold_df_slots_ref(slots):
+    """The df sum of an (n_shards, 2) buffer of (hi, lo) pairs: slot 0
+    ``df_add``-ed with each later slot in shard order (the reference's
+    ``_df_allsum`` fold), as a pair of 0-d tensors."""
+    acc = (slots[0, 0], slots[0, 1])
+    for i in range(1, slots.shape[0]):
+        acc = df.df_add(acc, (slots[i, 0], slots[i, 1]))
+    return acc
+
+
+def _own_slots(like, slots, width=()):
+    """``slots``, or a fresh (1, *width) buffer (one shard) like ``like``."""
+    return like.new_zeros((1, *width)) if slots is None else slots
+
+
+def shard_step_dot_ref(v, q, mask=None, slots=None, shard: int = 0):
+    """slots[shard] = <v * mask, q> (the plain torch.dot); returns the
+    slot buffer (a new (1,) one when ``slots`` is None)."""
     if mask is not None:
         v = v * mask.to(v.dtype)
-    return torch.dot(v, q)
+    slots = _own_slots(v, slots)
+    slots[shard] = torch.dot(v, q)
+    return slots
 
 
 def shard_step_update_ref(v, q, q_prev, a, ss_prev, mask=None, alpha=None,
-                          j: int = 0, norm: bool = True):
-    """(v', ||v'||^2 or None): v' = v * mask - a q - b_prev q_prev with
-    b_prev = sqrt(ss_prev) (0 when ss_prev is None); alpha[j] = a."""
+                          j: int = 0, norm: bool = True, slots=None,
+                          shard: int = 0):
+    """(v', the slot buffer or None): v' = v * mask - a q - b_prev q_prev
+    with a the fold of the dot slots ``a`` and b_prev = sqrt of the fold
+    of ``ss_prev`` (0 when None); alpha[j] = a; with ``norm``,
+    slots[shard] = ||v'||^2."""
     if mask is not None:
         v = v * mask.to(v.dtype)
-    b_prev = v.new_zeros(()) if ss_prev is None else torch.sqrt(ss_prev)
+    a = fold_slots_ref(a)
+    b_prev = (v.new_zeros(()) if ss_prev is None
+              else torch.sqrt(fold_slots_ref(ss_prev)))
     v = update_ref(v, q, q_prev, a, b_prev)
     if alpha is not None:
         alpha[j] = a
-    return v, (torch.dot(v, v) if norm else None)
+    if not norm:
+        return v, None
+    slots = _own_slots(v, slots)
+    slots[shard] = torch.dot(v, v)
+    return v, slots
 
 
-def shard_step_sub_norm_ref(v, w):
-    """(v - w, ||v - w||^2)."""
+def shard_step_sub_norm_ref(v, w, slots=None, shard: int = 0):
+    """(v - w, the slot buffer with slots[shard] = ||v - w||^2)."""
     v = v - w
-    return v, torch.dot(v, v)
+    slots = _own_slots(v, slots)
+    slots[shard] = torch.dot(v, v)
+    return v, slots
 
 
 def shard_step_normalize_ref(v, ss, beta=None, j: int = 0, store=None):
-    """q_{j+1} = v / b (zero on breakdown), b = sqrt(ss); beta[j] = b;
-    ``store`` receives q_{j+1}."""
-    b = torch.sqrt(ss)
+    """q_{j+1} = v / b (zero on breakdown), b = sqrt of the fold of the
+    norm slots ``ss``; beta[j] = b; ``store`` receives q_{j+1}."""
+    b = torch.sqrt(fold_slots_ref(ss))
     q_next = normalize_ref(v, b)
     if beta is not None:
         beta[j] = b
@@ -601,34 +649,44 @@ def shard_step_normalize_ref(v, ss, beta=None, j: int = 0, store=None):
     return q_next
 
 
-def shard_df_dot_ref(x, y, mask=None):
-    """df_dot(x * mask, y) as a (2,) tensor (hi, lo)."""
+def shard_df_dot_ref(x, y, mask=None, slots=None, shard: int = 0):
+    """slots[shard] = df_dot(x * mask, y) as (hi, lo); returns the
+    (n_shards, 2) slot buffer (a new (1, 2) one when ``slots`` is
+    None)."""
     if mask is not None:
         x = (x[0] * mask, x[1] * mask)
-    return torch.stack(df.df_dot(x, y))
+    slots = _own_slots(x[0], slots, (2,))
+    slots[shard] = torch.stack(df.df_dot(x, y))
+    return slots
 
 
 def shard_df_update_ref(v, q, q_prev, a, ss_prev, mask=None, alpha=None,
-                        j: int = 0):
-    """(v', df_dot(v', v') as a (2,) tensor): v' = update_df_ref(v * mask,
-    q, q_prev, a, df_sqrt(ss_prev)) (b_prev 0 when ss_prev is None);
-    alpha[0][j], alpha[1][j] = a."""
+                        j: int = 0, slots=None, shard: int = 0):
+    """(v', the slot buffer): v' = update_df_ref(v * mask, q, q_prev, a,
+    df_sqrt(ss)), a and ss the df folds of the slot buffers ``a`` and
+    ``ss_prev`` (b_prev 0 when ss_prev is None); alpha[0][j], alpha[1][j]
+    = a; slots[shard] = df_dot(v', v')."""
     if mask is not None:
         v = (v[0] * mask, v[1] * mask)
+    a = fold_df_slots_ref(a)
     zero = v[0].new_zeros(())
-    b_prev = (zero, zero) if ss_prev is None else df.df_sqrt(ss_prev)
+    b_prev = ((zero, zero) if ss_prev is None
+              else df.df_sqrt(fold_df_slots_ref(ss_prev)))
     v = update_df_ref(v, q, q_prev, a, b_prev)
     if alpha is not None:
         alpha[0][j], alpha[1][j] = a
-    return v, torch.stack(df.df_dot(v, v))
+    slots = _own_slots(v[0], slots, (2,))
+    slots[shard] = torch.stack(df.df_dot(v, v))
+    return v, slots
 
 
 def shard_df_normalize_ref(v, ss, beta=None, j: int = 0, ans=None,
                            coeff=None):
-    """q_{j+1} = normalize_df_ref(v, df_sqrt(ss)); beta[0][j], beta[1][j]
-    = that df_sqrt; with ``ans`` (a (hi, lo) pair of (n,)), ans =
-    df_add(ans, df_scale(coeff[j + 1], q_{j+1})) in place."""
-    b = df.df_sqrt(ss)
+    """q_{j+1} = normalize_df_ref(v, b), b = df_sqrt of the df fold of the
+    norm slots ``ss``; beta[0][j], beta[1][j] = b; with ``ans`` (a (hi,
+    lo) pair of (n,)), ans = df_add(ans, df_scale(coeff[j + 1], q_{j+1}))
+    in place."""
+    b = df.df_sqrt(fold_df_slots_ref(ss))
     q_next = normalize_df_ref(v, b)
     if beta is not None:
         beta[0][j], beta[1][j] = b
@@ -639,10 +697,9 @@ def shard_df_normalize_ref(v, ss, beta=None, j: int = 0, ans=None,
 
 def _pass_setup(what: str, dtype, v, *ts, scalars=()):
     """The checks of a pass on CUDA tensors: ``v`` and ``ts`` (None
-    skipped) contiguous (n,) of ``dtype`` on one device, the 0-d scalars
-    and (k,) buffers in ``scalars`` of ``dtype`` on that device.  Returns
-    (the library, n, whether every vector is 16-byte aligned, the
-    stream)."""
+    skipped) contiguous (n,) of ``dtype`` on one device, the (k,) buffers
+    in ``scalars`` of ``dtype`` on that device.  Returns (the library, n,
+    whether every vector is 16-byte aligned, the stream)."""
     if v.dim() != 1:
         raise ValueError(f"{what}: v must be (n,), got {tuple(v.shape)}")
     n = v.shape[0]
@@ -666,6 +723,31 @@ def _pass_setup(what: str, dtype, v, *ts, scalars=()):
             torch.cuda.current_stream(v.device).cuda_stream)
 
 
+def _check_slots(what: str, slots, like, width=()) -> int:
+    """A slot buffer on CUDA: contiguous (n_shards, *width) of like's
+    dtype on like's device.  Returns n_shards."""
+    if (slots.dtype != like.dtype or slots.device != like.device
+            or not slots.is_contiguous() or slots.dim() != 1 + len(width)
+            or tuple(slots.shape[1:]) != width or slots.shape[0] < 1):
+        raise ValueError(f"{what}: slots must be a contiguous (n_shards, "
+                         f"{', '.join(map(str, width))}) {like.dtype} "
+                         f"buffer on {like.device}, got {slots.dtype} "
+                         f"{tuple(slots.shape)} on {slots.device}")
+    return slots.shape[0]
+
+
+def _slot_ptr(what: str, slots, like, shard: int, width=()):
+    """(the slot buffer a reducing pass writes, a new (1, *width) one when
+    None; the address of its slot ``shard``)."""
+    if slots is None:
+        slots = like.new_zeros((1, *width))
+    n_shards = _check_slots(what, slots, like, width)
+    if not 0 <= shard < n_shards:
+        raise ValueError(f"{what}: shard {shard} outside {n_shards} slots")
+    offset = shard * slots.stride(0) * slots.element_size()
+    return slots, slots.data_ptr() + offset
+
+
 def _check_pass_types(what: str, v, mask, *ts):
     if v.device.type != "cuda":
         raise ValueError(f"no {what} for device {v.device}")
@@ -684,80 +766,99 @@ def _check_slot(what: str, buf, j: int):
                          f"{tuple(buf.shape)}")
 
 
-def shard_step_dot(v, q, *, mask=None, work=None):
-    """Row 5d's dot pass on one shard: the shard's <v * mask, q> as a 0-d
-    tensor.  ``work`` is the loop's ``workspace`` on v's device (made here
-    if None).  The CUDA kernel on a CUDA tensor, the plain version on a
-    CPU one."""
+def shard_step_dot(v, q, *, mask=None, work=None, slots=None,
+                   shard: int = 0, early: bool = False):
+    """Row 5d's dot pass on one shard: slots[shard] = the shard's <v *
+    mask, q>.  ``slots`` is the (n_shards,) buffer of the step's dot
+    partials (a new (1,) one when None); returns it.  ``work`` is the
+    loop's ``workspace`` on v's device (made here if None).  With
+    ``early`` the kernel loads q and the mask before it waits on the
+    kernel launched just before it, which then must not write them (the
+    loops' order guarantees it).  The CUDA kernel on a CUDA tensor, the
+    plain version on a CPU one."""
     global launches_step_sharded
     if v.device.type == "cpu":
-        return shard_step_dot_ref(v, q, mask)
-    _check_pass_types("shard_step_dot", v, mask, q)
-    lib, n, vec, stream = _pass_setup("shard_step_dot", v.dtype, v, q, mask)
+        return shard_step_dot_ref(v, q, mask, slots, shard)
+    what = "shard_step_dot"
+    _check_pass_types(what, v, mask, q)
+    lib, n, vec, stream = _pass_setup(what, v.dtype, v, q, mask)
+    slots, out = _slot_ptr(what, slots, v, shard)
     work = workspace(v.device) if work is None else work
-    out = v.new_empty(())
     _raise_on(lib.tlt_shard_step_dot(
-        v.data_ptr(), _ptr(mask), q.data_ptr(), out.data_ptr(), n,
-        v.element_size(), int(vec), work.data_ptr(), stream),
-        "shard_step_dot")
+        v.data_ptr(), _ptr(mask), q.data_ptr(), out, n, v.element_size(),
+        int(vec), int(early), work.data_ptr(), stream), what)
     launches_step_sharded += 1
-    return out
+    return slots
 
 
 def shard_step_update(v, q, q_prev, a, ss_prev, *, mask=None, alpha=None,
-                      j: int = 0, norm: bool = True, work=None):
+                      j: int = 0, norm: bool = True, work=None, slots=None,
+                      shard: int = 0, early: bool = False):
     """Row 5d's update pass on one shard: v' = v * mask - a q - b_prev
-    q_prev, b_prev = sqrt(ss_prev) (the last step's psum'd ||v'||^2; 0
-    when None), ``a`` the psum'd dot (0-d tensors on v's device); alpha[j]
-    = a when ``alpha`` is given.  Returns (v', the shard's ||v'||^2 as a
-    0-d tensor, or None without ``norm``).  On a CUDA tensor v' is
-    written over v.  ``work`` as in ``shard_step_dot``."""
+    q_prev, where the kernel folds itself, in shard order, the dot slots
+    ``a`` into a and the last step's norm slots ``ss_prev`` into b_prev**2
+    (b_prev 0 when None); alpha[j] = a when ``alpha`` is given.  Returns
+    (v', ``slots`` with slots[shard] = the shard's ||v'||^2, or None
+    without ``norm``).  On a CUDA tensor v' is written over v.  ``work``
+    as in ``shard_step_dot``; with ``early`` the kernel also loads v,
+    q_prev before its wait."""
     global launches_step_sharded
     if v.device.type == "cpu":
         return shard_step_update_ref(v, q, q_prev, a, ss_prev, mask, alpha,
-                                     j, norm)
+                                     j, norm, slots, shard)
     what = "shard_step_update"
     _check_pass_types(what, v, mask, q, q_prev)
     _check_slot(what, alpha, j)
     lib, n, vec, stream = _pass_setup(what, v.dtype, v, q, q_prev, mask,
-                                      scalars=(a, ss_prev, alpha))
+                                      scalars=(alpha,))
     _check_distinct(what, v, q, q_prev, mask)
+    n_shards = _check_slots(what, a, v)
+    if ss_prev is not None and _check_slots(what, ss_prev, v) != n_shards:
+        raise ValueError(f"{what}: {n_shards} dot slots, "
+                         f"{ss_prev.shape[0]} norm slots")
+    out = None
+    if norm:
+        slots, out = _slot_ptr(what, slots, v, shard)
     work = workspace(v.device) if work is None else work
-    out = v.new_empty(()) if norm else None
     _raise_on(lib.tlt_shard_step_update(
         v.data_ptr(), _ptr(mask), q.data_ptr(), q_prev.data_ptr(),
-        a.data_ptr(), _ptr(ss_prev), _ptr(alpha), j, _ptr(out), n,
-        v.element_size(), int(vec), work.data_ptr(), stream),
+        a.data_ptr(), _ptr(ss_prev), n_shards, _ptr(alpha), j, out, n,
+        v.element_size(), int(vec), int(early), work.data_ptr(), stream),
         what)
     launches_step_sharded += 1
-    return v, out
+    return v, (slots if norm else None)
 
 
-def shard_step_sub_norm(v, w, *, work=None):
+def shard_step_sub_norm(v, w, *, work=None, slots=None, shard: int = 0):
     """Reorthogonalization's pass on one shard, after the GEMVs: (v - w,
-    the shard's ||v - w||^2); on a CUDA tensor v - w is written over v."""
+    ``slots`` with slots[shard] = the shard's ||v - w||^2); on a CUDA
+    tensor v - w is written over v."""
     global launches_step_sharded
     if v.device.type == "cpu":
-        return shard_step_sub_norm_ref(v, w)
+        return shard_step_sub_norm_ref(v, w, slots, shard)
     what = "shard_step_sub_norm"
     _check_pass_types(what, v, None, w)
     lib, n, vec, stream = _pass_setup(what, v.dtype, v, w)
     _check_distinct(what, v, w)
+    slots, out = _slot_ptr(what, slots, v, shard)
     work = workspace(v.device) if work is None else work
-    out = v.new_empty(())
     _raise_on(lib.tlt_shard_step_sub_norm(
-        v.data_ptr(), w.data_ptr(), out.data_ptr(), n, v.element_size(),
-        int(vec), work.data_ptr(), stream), what)
+        v.data_ptr(), w.data_ptr(), out, n, v.element_size(), int(vec),
+        work.data_ptr(), stream), what)
     launches_step_sharded += 1
-    return v, out
+    return v, slots
 
 
-def shard_step_normalize(v, ss, *, beta=None, j: int = 0, store=None):
-    """Row 5d's normalize pass on one shard: b = sqrt(ss) (the psum'd
-    ||v'||^2, a 0-d tensor on v's device), q_{j+1} = v / b (zero on
+def shard_step_normalize(v, ss, *, beta=None, j: int = 0, store=None,
+                         early: bool = False):
+    """Row 5d's normalize pass on one shard: b = sqrt of the kernel's fold
+    of the norm slots ``ss`` (shard order), q_{j+1} = v / b (zero on
     breakdown); beta[j] = b when ``beta`` is given; ``store`` (a (n,)
     view, such as a row of the stored basis) receives q_{j+1}.  On a CUDA
-    tensor q_{j+1} is written over v and returned."""
+    tensor q_{j+1} is written over v and returned.  With ``early`` the
+    kernel loads v before it waits on the kernel launched just before it,
+    which then must not write v (several shards' passes in turn on one
+    device)."""
     global launches_step_sharded
     if v.device.type == "cpu":
         return shard_step_normalize_ref(v, ss, beta, j, store)
@@ -765,18 +866,19 @@ def shard_step_normalize(v, ss, *, beta=None, j: int = 0, store=None):
     _check_pass_types(what, v, None, store)
     _check_slot(what, beta, j)
     lib, n, vec, stream = _pass_setup(what, v.dtype, v, store,
-                                      scalars=(ss, beta))
+                                      scalars=(beta,))
     _check_distinct(what, v, store)
+    n_shards = _check_slots(what, ss, v)
     _raise_on(lib.tlt_shard_step_normalize(
-        v.data_ptr(), ss.data_ptr(), _ptr(beta), j, _ptr(store), n,
-        v.element_size(), int(vec), stream), what)
+        v.data_ptr(), ss.data_ptr(), n_shards, _ptr(beta), j, _ptr(store),
+        n, v.element_size(), int(vec), int(early), stream), what)
     launches_step_sharded += 1
     return v
 
 
 def _df_pass_setup(what: str, v, *pairs, mask=None, scalars=()):
     """Row 5cd's checks: every vector of the pairs float32, (n,), 16-byte
-    aligned, on v's CUDA device; the scalars float32 there."""
+    aligned, on v's CUDA device; the (k,) buffers float32 there."""
     vh = v[0]
     if vh.device.type != "cuda":
         raise ValueError(f"no {what} for device {vh.device}")
@@ -798,69 +900,80 @@ def _df_pass_setup(what: str, v, *pairs, mask=None, scalars=()):
             torch.cuda.current_stream(vh.device).cuda_stream)
 
 
-def shard_df_dot(x, y, *, mask=None, work=None):
-    """Row 5cd's dot pass on one shard: df_dot(x * mask, y) of (hi, lo)
-    pairs on core/df64.py's pairwise tree over the shard's elements, as a
-    (2,) float32 tensor (hi, lo).  ``shard_df_dot(x, x)`` is the start
-    norm's partial.  ``work`` as in ``shard_step_dot``.  The
-    CUDA kernel on CUDA tensors, the plain version on CPU ones."""
+def shard_df_dot(x, y, *, mask=None, work=None, slots=None, shard: int = 0,
+                 early: bool = False):
+    """Row 5cd's dot pass on one shard: slots[shard] = df_dot(x * mask, y)
+    of (hi, lo) pairs on core/df64.py's pairwise tree over the shard's
+    elements, as (hi, lo).  ``slots`` is the (n_shards, 2) float32 buffer
+    of the partials (a new (1, 2) one when None); returns it.
+    ``shard_df_dot(x, x)`` is the start norm's partial.  ``work`` and
+    ``early`` (here: y and the mask) as in ``shard_step_dot``.  The CUDA
+    kernel on CUDA tensors, the plain version on CPU ones."""
     global launches_step_df_sharded
     if x[0].device.type == "cpu":
-        return shard_df_dot_ref(x, y, mask)
-    lib, n, stream = _df_pass_setup("shard_df_dot", x, y, mask=mask)
+        return shard_df_dot_ref(x, y, mask, slots, shard)
+    what = "shard_df_dot"
+    lib, n, stream = _df_pass_setup(what, x, y, mask=mask)
+    slots, out = _slot_ptr(what, slots, x[0], shard, (2,))
     work = workspace(x[0].device) if work is None else work
-    out = x[0].new_empty(2)
     _raise_on(lib.tlt_shard_df_dot(
         x[0].data_ptr(), x[1].data_ptr(), _ptr(mask), y[0].data_ptr(),
-        y[1].data_ptr(), out[0:1].data_ptr(), out[1:2].data_ptr(), n,
-        work.data_ptr(), stream), "shard_df_dot")
+        y[1].data_ptr(), out, out + 4, n, int(early), work.data_ptr(),
+        stream), what)
     launches_step_df_sharded += 1
-    return out
+    return slots
 
 
 def shard_df_update(v, q, q_prev, a, ss_prev, *, mask=None, alpha=None,
-                    j: int = 0, work=None):
+                    j: int = 0, work=None, slots=None, shard: int = 0,
+                    early: bool = False):
     """Row 5cd's update pass on one shard: v' = df_sub(v * mask,
-    df_add(df_scale(a, q), df_scale(b_prev, q_prev))), b_prev =
-    df_sqrt(ss_prev) (the last step's allsum'd norm pair; 0 when None),
-    ``a`` the allsum'd dot pair (0-d tensors on v's device); (alpha[0],
-    alpha[1])[j] = a when ``alpha`` is given.  Returns (v', the shard's
-    df_dot(v', v') as a (2,) tensor); on CUDA tensors v' is written over
-    v."""
+    df_add(df_scale(a, q), df_scale(b_prev, q_prev))), where the kernel
+    folds the (n_shards, 2) dot slots ``a`` into a and the last step's
+    norm slots ``ss_prev`` into b_prev = df_sqrt(...) (0 when None), each
+    with df_adds in shard order; (alpha[0], alpha[1])[j] = a when
+    ``alpha`` is given.  Returns (v', ``slots`` with slots[shard] =
+    df_dot(v', v')); on CUDA tensors v' is written over v.  ``early`` as
+    in ``shard_step_update``."""
     global launches_step_df_sharded
     if v[0].device.type == "cpu":
-        return shard_df_update_ref(v, q, q_prev, a, ss_prev, mask, alpha, j)
+        return shard_df_update_ref(v, q, q_prev, a, ss_prev, mask, alpha, j,
+                                   slots, shard)
     what = "shard_df_update"
-    ssp = (None, None) if ss_prev is None else ss_prev
     al = (None, None) if alpha is None else alpha
     for buf in al:
         _check_slot(what, buf, j)
     lib, n, stream = _df_pass_setup(what, v, q, q_prev, mask=mask,
-                                    scalars=(*a, *ssp, *al))
+                                    scalars=al)
     for t in v:
         _check_distinct(what, t, *q, *q_prev, mask)
     _check_distinct(what, v[0], v[1])
+    n_shards = _check_slots(what, a, v[0], (2,))
+    if (ss_prev is not None
+            and _check_slots(what, ss_prev, v[0], (2,)) != n_shards):
+        raise ValueError(f"{what}: {n_shards} dot slots, "
+                         f"{ss_prev.shape[0]} norm slots")
+    slots, out = _slot_ptr(what, slots, v[0], shard, (2,))
     work = workspace(v[0].device) if work is None else work
-    out = v[0].new_empty(2)
     _raise_on(lib.tlt_shard_df_update(
         v[0].data_ptr(), v[1].data_ptr(), _ptr(mask), q[0].data_ptr(),
         q[1].data_ptr(), q_prev[0].data_ptr(), q_prev[1].data_ptr(),
-        a[0].data_ptr(), a[1].data_ptr(), *map(_ptr, ssp), *map(_ptr, al),
-        j, out[0:1].data_ptr(), out[1:2].data_ptr(), n, work.data_ptr(),
-        stream), what)
+        a.data_ptr(), _ptr(ss_prev), n_shards, *map(_ptr, al), j, out,
+        out + 4, n, int(early), work.data_ptr(), stream), what)
     launches_step_df_sharded += 1
-    return v, out
+    return v, slots
 
 
 def shard_df_normalize(v, ss, *, beta=None, j: int = 0, ans=None,
-                       coeff=None):
-    """Row 5cd's normalize pass on one shard: b = df_sqrt(ss) (the
-    allsum'd norm pair, 0-d tensors on v's device), q_{j+1} =
-    df_scale(df_div(1, b), v) (zero on breakdown); (beta[0], beta[1])[j]
-    = b when ``beta`` is given; with ``ans`` (a (hi, lo) pair of (n,)) and
-    ``coeff`` ((k,) pairs), ans = df_add(ans, df_scale(coeff[j + 1],
-    q_{j+1})) in place.  On CUDA tensors q_{j+1} is written over v and
-    returned."""
+                       coeff=None, early: bool = False):
+    """Row 5cd's normalize pass on one shard: b = df_sqrt of the kernel's
+    df fold of the (n_shards, 2) norm slots ``ss`` (shard order), q_{j+1}
+    = df_scale(df_div(1, b), v) (zero on breakdown); (beta[0],
+    beta[1])[j] = b when ``beta`` is given; with ``ans`` (a (hi, lo) pair
+    of (n,)) and ``coeff`` ((k,) pairs), ans = df_add(ans,
+    df_scale(coeff[j + 1], q_{j+1})) in place.  On CUDA tensors q_{j+1}
+    is written over v and returned.  ``early`` (v and ans) as in
+    ``shard_step_normalize``."""
     global launches_step_df_sharded
     if v[0].device.type == "cpu":
         return shard_df_normalize_ref(v, ss, beta, j, ans, coeff)
@@ -874,12 +987,13 @@ def shard_df_normalize(v, ss, *, beta=None, j: int = 0, ans=None,
             _check_slot(what, c, j + 1)
         ans_p, coeff_p = tuple(ans), tuple(coeff)
     lib, n, stream = _df_pass_setup(what, v, ans, mask=None,
-                                    scalars=(*ss, *bt, *coeff_p))
+                                    scalars=(*bt, *coeff_p))
     for t in v:
         _check_distinct(what, t, *(x for x in ans_p if x is not None))
+    n_shards = _check_slots(what, ss, v[0], (2,))
     _raise_on(lib.tlt_shard_df_normalize(
-        v[0].data_ptr(), v[1].data_ptr(), ss[0].data_ptr(), ss[1].data_ptr(),
+        v[0].data_ptr(), v[1].data_ptr(), ss.data_ptr(), n_shards,
         *map(_ptr, bt), j, *map(_ptr, ans_p), *map(_ptr, coeff_p), j + 1, n,
-        stream), what)
+        int(early), stream), what)
     launches_step_df_sharded += 1
     return v
