@@ -73,22 +73,28 @@ jax or of the JAX package.  Each phase prints one JSON line:
      bit for bit against ``lanczos``;
  11  the row-sharded path (``tpu_lanczos_torch.dist``) on phase 3's
      graph, 4 shards of this one card (``make_mesh(devices=[cuda:0] *
-     4)``): the pack, kernels 1 and 1c == their plain versions on every
-     shard level, the 1-shard SpMV == single-device, the exact launch
+     4)``): the pack, kernel 1 on every f32/f64 pass and reduce level
+     (the unsplit halo pack's level reading the shard's rows and its halo
+     in place) and the df64 shard kernel (``kernels/csrc/
+     spmv_cpg_shard.cu``: every df64 level of a shard with its folds in
+     one launch) == their plain versions on every shard level, the
+     1-shard SpMV == single-device, the exact launch
      counts of ``lanczos_cpg_sharded``, ``expm_action_sharded`` and
      ``expm_action_df_sharded``, their accuracy against phase 4's oracle,
      the halo path on a 2-D stencil, the sharded estimators against
      phase 10, one NCCL rank, the CLI's ``--shards``, and CUDA-event
      times (the shards run in turn on one card: kernel work and
-     launches, no collective over a link); and rows 5d and 5cd, the
+     launches, no collective over a link) of the SpMV, the df SpMV and
+     each shard's alone with its exchanges made beforehand
+     (``eval/shard_alone.py``); and rows 5d and 5cd, the
      step's per-shard passes: each pass kernel with its slots against its
      plain version at a shard's n_loc and at an odd chunk count, the
      exact pass counts of every sharded loop, the device time of one
      shard's step and of the whole 4-shard step after the SpMV beside the
      eager passes' and their bounds, the 4-shard Lanczos and df64 query
      through the kernels and through the eager passes in turns, and
-     (after phase 9, in a child process) a traced 4-shard Lanczos with no
-     kernel between a step's passes;
+     (after phase 9, in child processes) a traced 4-shard Lanczos with no
+     kernel between a step's passes, and a traced SpMV and df SpMV;
  12  the eval harness (``tpu_lanczos_torch.eval``) on phase 3's graph,
      pack and phase 4's oracle answer: the stage breakdown (kernel 1's
      launches per Lanczos, the staged answer against ``expm_action``'s;
@@ -162,7 +168,8 @@ BF16_OPS_PER_S = 989e12
 # every kernel's launch counter, (module, name): its wrapper adds one per
 # launch
 COUNTERS = tuple(("tpu_lanczos_torch.kernels.spmv_cpg", c) for c in (
-    "launches", "launches_slab", "launches_comp", "launches_comp_slab")) + (
+    "launches", "launches_slab", "launches_comp", "launches_comp_slab",
+    "launches_shard_df")) + (
     ("tpu_lanczos_torch.kernels.spmv_cst", "launches_cst"),
     ("tpu_lanczos_torch.kernels.spmv_gpg", "launches_gpg"),
     ("tpu_lanczos_torch.eval.mxu_probe", "launches_mxu"),
@@ -963,11 +970,19 @@ def estimators_phase(torch, g, dg, top_ritz: float) -> dict:
 
 # phase 11: the row-sharded path, 4 shards of one card
 SHARDS = 4
+# launches of a 4-shard SpMV of bench.py's graph (checked in phase 11):
+# f32/f64, kernel 1 on every shard's own and cross pass and on shard 0's
+# one reduce level with tiles; df64, a main-level launch a shard and
+# shard 0's reduce level
+SHARD_SPMV_LAUNCHES = 9
+SHARD_DF_SPMV_LAUNCHES = 5
 HALO_SIDE, HALO_K = 1000, 30
 SHARD_REPLACES = ("tpu_lanczos/dist/cpg_sharded.py:439 (_local_spmv; "
                   "tpu_lanczos/kernels/spmv_cpg.py:342)")
-SHARD_COMP_REPLACES = ("tpu_lanczos/dist/lanczos_df.py:79 (_local_spmv_df; "
-                       "tpu_lanczos/kernels/spmv_cpg.py:342, compensated)")
+SHARD_DF_REPLACES = ("tpu_lanczos/dist/lanczos_df.py:64-166 (_local_spmv_df"
+                     "'s levels and folds; tpu_lanczos/kernels/spmv_cpg.py:"
+                     "342, compensated and plain)")
+SHARD_SOURCE = "tpu_lanczos_torch/kernels/csrc/spmv_cpg_shard.cu"
 SHARD_STEP_REPLACES = ("tpu_lanczos/dist/mesh.py:82-107 and :189-220 (the "
                        "XLA-fused step of the sharded fori_loops around "
                        "their psums; no Pallas kernel)")
@@ -979,43 +994,61 @@ CHUNK = SUB * 128
 
 
 def shard_level_checks(torch, spmv_cpg, errs: dict, what: str):
-    """A plain and a compensated level function for the sharded SpMVs:
-    each runs the kernel and its plain version on the same inputs (every
-    input +-0.0 in lane 127), checks them equal and carries the kernel's
-    output on."""
-    def lane_127_zero(x2d):
-        check(not bool(x2d[:, 127].any()),
+    """The sharded SpMVs' kernel functions, checked: each runs the kernel
+    (kernel 1 on a pass or a reduce level, its halo read in place; the
+    df shard kernel) and its plain version on the same inputs (every
+    source +-0.0 in lane 127), checks them equal bit for bit and carries
+    the kernel's output on.  Returns (level_fn, df_fn)."""
+    def lane_127_zero(x):
+        check(not bool(x.reshape(-1, 128)[:, 127].any()),
               f"{what}: shard level input is zero in lane 127")
 
-    def plain(x2d, level, n_chunks, sub, base=None, slab=False):
+    def note(key, got, want):
+        check(torch.equal(got, want), f"{what}: {key} kernel == plain "
+              f"({got.dtype})")
+        errs[key] = max(errs[key], float((got - want).abs().max()))
+
+    def level(x2d, level, n_chunks, sub, base=None, halo=None):
         lane_127_zero(x2d)
-        got = spmv_cpg.run_level(x2d, level, n_chunks, sub, base)
-        want = spmv_cpg.run_level_ref(x2d, level, n_chunks, sub, base)
-        check(torch.equal(got, want), f"{what}: shard level kernel == plain "
-              f"({x2d.dtype})")
-        errs["plain"] = max(errs["plain"], float((got - want).abs().max()))
-        errs["levels"] += 1
+        if halo is not None:
+            lane_127_zero(halo)
+            errs["halo_calls"] += 1
+        got = spmv_cpg.run_level(x2d, level, n_chunks, sub, base, halo=halo)
+        note("level", got, spmv_cpg.run_level_ref(x2d, level, n_chunks, sub,
+                                                  base, halo=halo))
+        errs["level_calls"] += 1
         return got
 
-    def comp(x2d, level, n_chunks, sub, slab=False):
-        lane_127_zero(x2d)
-        got = spmv_cpg.run_level_comp(x2d, level, n_chunks, sub)
-        want = spmv_cpg.run_level_comp_ref(x2d, level, n_chunks, sub)
-        for g_t, w_t in zip(got, want):
-            check(torch.equal(g_t, w_t),
-                  f"{what}: compensated shard level kernel == plain")
-            errs["comp"] = max(errs["comp"], float((g_t - w_t).abs().max()))
-        errs["comp_levels"] += 1
+    def df(walks, n_chunks, sub, **kw):
+        for _, hi, lo in walks:
+            for x in (*hi, *lo):
+                lane_127_zero(x)
+        got = spmv_cpg.run_shard_level_df(walks, n_chunks, sub, **kw)
+        want = spmv_cpg.run_shard_level_df_ref(walks, n_chunks, sub, **kw)
+        for g_p, w_p in zip(got, want):
+            check((g_p is None) == (w_p is None), f"{what}: df outputs")
+            for g_t, w_t in zip(g_p or (), w_p or ()):
+                note("df", g_t, w_t)
+        errs["df_calls"] += 1
         return got
 
-    return plain, comp
+    return level, df
 
 
-def shard_passes(sg) -> list:
-    """The level passes one sharded SpMV runs (an empty main-level pass
-    is skipped on the host)."""
-    return [i for i in range(len(sg.levels))
-            if i >= sg.n_main or sg.t_reals[i] > 0]
+def shard_errs() -> dict:
+    return {"level": 0.0, "df": 0.0, "level_calls": 0, "halo_calls": 0,
+            "df_calls": 0}
+
+
+def shard_spmv_counts(sg, n_spmv: int, df: bool = False) -> dict:
+    """The sharded SpMV's launches of ``n_spmv`` SpMVs (``shard_launches``):
+    in f32/f64 kernel 1 once a main pass and a reduce level with tiles on
+    a shard; in df64 the df shard kernel once a shard's main level and
+    once a reduce level with tiles on it."""
+    from tpu_lanczos_torch.dist.cpg_sharded import shard_launches
+
+    per = sum(shard_launches(sg, df=df))
+    return {"launches_shard_df" if df else "launches": n_spmv * per}
 
 
 def shard_pass_case(torch, v_raw, q, qp, mask):
@@ -1176,7 +1209,8 @@ def shard_step_phase(torch, g, sg4, mesh4, xr, rng) -> dict:
     from tpu_lanczos_torch.dist.lanczos_df import _local_spmv_df
     from tpu_lanczos_torch.eval.step_tiers import (eager_shard_passes,
                                                    mesh_step, spmv_stand_in)
-    from tpu_lanczos_torch.kernels.spmv_cpg import run_level, run_level_comp
+    from tpu_lanczos_torch.kernels.spmv_cpg import (run_level,
+                                                    run_shard_level_df)
 
     n_loc = sg4.n_loc
     xq = sg4.permute_in(xr / np.linalg.norm(xr), np.float64)
@@ -1199,7 +1233,7 @@ def shard_step_phase(torch, g, sg4, mesh4, xr, rng) -> dict:
         inputs[dt] = (v, q, qp)
     pairs = [list(zip(*(mesh4.split(t, n_loc) for t in split_f64(a))))
              for a in (xq, xp)]
-    v_df = _local_spmv_df(sg4, mesh4, pairs[0], run_level, run_level_comp,
+    v_df = _local_spmv_df(sg4, mesh4, pairs[0], run_shard_level_df,
                           masked=False)
     for s in range(SHARDS):
         note("5cd", shard_df_pass_case(torch, v_df[s], pairs[0][s],
@@ -1266,38 +1300,71 @@ def shard_step_phase(torch, g, sg4, mesh4, xr, rng) -> dict:
     return out
 
 
-def sharded_spmv_cost(sg, value_bytes: int = 4):
-    """(bytes, adds) one sharded SpMV must move and do at least, summed
-    over shards: each pass's real tiles' l1 + l2 + s_ids and chunk ranges
-    read once, its source buffer read once, its output written once (and
-    the running y read as its base); each exchange's gathered buffer
-    written once; the realmask read and y written.  One add per tile
-    cell, one per cell per base."""
+def sharded_spmv_cost(sg, value_bytes: int = 4, df: bool = False):
+    """(bytes, ops) one sharded SpMV must move and do at least, as its
+    kernels run it, summed over shards: each level a shard runs
+    (``shard_passes``) reads its real tiles' l1 + l2 + s_ids and chunk
+    ranges once and its source buffer once, in df64 both streams of it
+    (the tile's indices once for the two); a pass after the first of a
+    shard (in df64: a reduce level) reads the running base (y, or (y,
+    e)); each launch writes its output once (in df64 (y, e) where a later
+    exchange reads them and the finished (hi, lo)); each exchange's
+    gathered buffers are written once; the realmask is read (and, in
+    f32/f64, y written again by its multiply).  One add a tile cell and
+    one a base cell (df64: the two-sum's seven and lo's one a tile cell,
+    the fold's ten a cell a walk or base)."""
+    from tpu_lanczos_torch.dist.cpg_sharded import (_reduce_levels,
+                                                    shard_passes)
+
     sub, c_loc, n_loc = sg.sub, sg.c_loc, sg.n_loc
+    streams = 2 if df else 1
     chunk = sub * 128 * value_bytes
-    nbytes, adds = 0, 0
-    for i in shard_passes(sg):
-        level = sg.levels[i]
-        if i >= sg.n_main:
-            src = sg.n_shards * int(level[0]["sel"].shape[0])
-            gathered = src
-        elif "halo_sel" in level[0]:
-            gathered = sg.n_shards * int(level[0]["halo_sel"].shape[0])
-            src = gathered + (c_loc if not sg.overlap else 0)
-        elif sg.overlap and i == 0:
-            src, gathered = c_loc, 0
-        else:
-            src = gathered = sg.n_chunks
-        base = i >= sg.n_main or (sg.overlap and i == 1)
-        nbytes += gathered * chunk
-        for lv in level:
-            t = int(lv["counts"].sum())
+    reduce = _reduce_levels(sg)
+
+    def src_chunks(li):
+        level = sg.levels[li]
+        if li >= sg.n_main:
+            return sg.n_shards * int(level[0]["sel"].shape[0])
+        halo = (sg.n_shards * int(level[0]["halo_sel"].shape[0])
+                if "halo_sel" in level[0] else sg.n_chunks)
+        if sg.overlap:
+            return c_loc if li == 0 else halo
+        return halo + c_loc if "halo_sel" in level[0] else halo
+
+    nbytes, ops = 0, 0
+    # the exchanges: the main level's (cross pass or unsplit level), then
+    # each reduce level's
+    if not sg.overlap or sg.t_reals[1]:
+        lv = sg.levels[sg.n_main - 1][0]
+        nbytes += streams * chunk * (
+            sg.n_shards * int(lv["halo_sel"].shape[0]) if "halo_sel" in lv
+            else sg.n_chunks)
+    for li in reduce:
+        nbytes += streams * chunk * src_chunks(li)
+    out_vec = n_loc * value_bytes * streams
+    for s in range(sg.n_shards):
+        levels = shard_passes(sg, s)
+        for i, li in enumerate(levels):
+            t = sg.shard_tiles[li][s]
+            lv = sg.levels[li][s]
             l2b = lv["l2"].element_size()
             nbytes += (t * (sub * 128 + 128 * sub * l2b + 4) + 2 * c_loc * 4
-                       + src * chunk + n_loc * value_bytes * (1 + int(base)))
-            adds += t * sub * 128 + (n_loc if base else 0)
-    return (nbytes + sg.n_pad * (4 + value_bytes),
-            adds + sg.n_pad)
+                       + streams * src_chunks(li) * chunk)
+            ops += t * sub * 128 * (8 if df else 1)
+            if li >= sg.n_main or (i and not df):  # the base, folded in
+                nbytes += out_vec
+                ops += n_loc * (10 if df else 1)
+            elif df and li == 1:
+                ops += n_loc * 10  # the cross walk's fold
+        # the outputs: one a launch (df64: the (y, e) a later exchange
+        # reads, and the finished pair), the realmask
+        runs = [li for li in levels if li >= sg.n_main]
+        if df:
+            keeps = bool(reduce) + sum(1 for li in runs if li != reduce[-1])
+            nbytes += (keeps + 1) * out_vec + n_loc * 4
+        else:
+            nbytes += len(levels) * out_vec + n_loc * (4 + value_bytes)
+    return nbytes, ops
 
 
 def sharded_phase(torch, g, dev, ref, ref_shift, top_ref, p10,
@@ -1320,11 +1387,12 @@ def sharded_phase(torch, g, dev, ref, ref_shift, top_ref, p10,
                                         init_distributed, make_mesh)
     from tpu_lanczos_torch.dist.cpg_sharded import (
         ShardedCPG, _local_spmv, dest_only_kw, lanczos_cpg_sharded,
-        pack_cpg_sharded, split_cpg, spmv_cpg_sharded, spmv_cpg_sharded_ref)
+        pack_cpg_sharded, shard_launches, split_cpg, spmv_cpg_sharded,
+        spmv_cpg_sharded_ref)
     from tpu_lanczos_torch.dist.lanczos_df import (
         _local_spmv_df, expm_action_df_sharded, spmv_cpg_df_sharded,
         spmv_cpg_df_sharded_ref)
-    from tpu_lanczos_torch.eval import oracle
+    from tpu_lanczos_torch.eval import oracle, shard_alone
     from tpu_lanczos_torch.graphs import generators
     from tpu_lanczos_torch.kernels import spmv_cpg
     from tpu_lanczos_torch.kernels.cpg import pack_cpg
@@ -1354,8 +1422,15 @@ def sharded_phase(torch, g, dev, ref, ref_shift, top_ref, p10,
                                 mesh1)
     torch.cuda.synchronize()
     pack1_s = time.time() - t0
-    passes = shard_passes(sg4)
-    per_spmv = SHARDS * len(passes)
+    per_shard = shard_launches(sg4)
+    per_spmv = sum(per_shard)
+    per_shard_df = shard_launches(sg4, df=True)
+    per_df_spmv = sum(per_shard_df)
+    check(per_spmv == SHARD_SPMV_LAUNCHES
+          and per_df_spmv == SHARD_DF_SPMV_LAUNCHES,
+          f"{per_spmv} and {per_df_spmv} launches a 4-shard SpMV and df "
+          f"SpMV ({per_shard}, {per_shard_df}), want {SHARD_SPMV_LAUNCHES} "
+          f"and {SHARD_DF_SPMV_LAUNCHES}")
     main_halo = any("halo_sel" in sg4.levels[i][0]
                     for i in range(sg4.n_main))
     check(sg4.overlap and sg4.n_main == 2, "4-shard pack: overlap split")
@@ -1367,26 +1442,30 @@ def sharded_phase(torch, g, dev, ref, ref_shift, top_ref, p10,
           "n_chunks": sg4.n_chunks, "c_loc": sg4.c_loc,
           "overlap": sg4.overlap, "main_level_halo": main_halo,
           "levels": len(sg4.levels), "t_reals": list(sg4.t_reals),
-          "shard_tiles_per_level": tiles, "passes": passes,
-          "launches_per_spmv": per_spmv,
+          "shard_tiles_per_level": tiles,
+          "launches_per_shard": per_shard, "launches_per_spmv": per_spmv,
+          "launches_per_shard_df": per_shard_df,
+          "launches_per_df_spmv": per_df_spmv,
           "dest_only_single_device_levels": len(cgd.levels),
           "dest_only_single_device_tiles": list(cgd.t_reals)})
 
-    # ---- kernels 1 and 1c == plain on every shard level, one SpMV each
-    errs = {"plain": 0.0, "comp": 0.0, "levels": 0, "comp_levels": 0}
-    plain, comp = shard_level_checks(torch, spmv_cpg, errs, "bn1M 4 shards")
+    # ---- kernel 1 and the df shard kernel == plain on every shard level,
+    # one f32, one f64 and one df SpMV
+    errs = shard_errs()
+    level_k, df_k = shard_level_checks(torch, spmv_cpg, errs,
+                                       "bn1M 4 shards")
     xr = rng.standard_normal(N)
     x1 = [r.clone() for r in sg4.realmask]
     x64 = mesh4.split(sg4.permute_in(xr, np.float64), sg4.n_loc)
-    y_ones = _local_spmv(sg4, mesh4, x1, plain)
-    y64 = _local_spmv(sg4, mesh4, x64, plain)
+    y_ones = _local_spmv(sg4, mesh4, x1, level_k)
+    y64 = _local_spmv(sg4, mesh4, x64, level_k)
     from tpu_lanczos_torch.core.lanczos_df import split_f64
 
     hi, lo = split_f64(sg4.permute_in(xr, np.float64))
     hi, lo = mesh4.split(hi, sg4.n_loc), mesh4.split(lo, sg4.n_loc)
-    y_df = _local_spmv_df(sg4, mesh4, list(zip(hi, lo)), plain, comp)
-    check(errs["levels"] == 2 * per_spmv + per_spmv
-          and errs["comp_levels"] == per_spmv,
+    y_df = _local_spmv_df(sg4, mesh4, list(zip(hi, lo)), df_k)
+    check(errs["level_calls"] == 2 * per_spmv
+          and errs["df_calls"] == per_df_spmv,
           f"every shard level checked ({errs})")
     want = g.to_scipy() @ xr
     got64 = sg4.permute_out(mesh4.to_host(y64))
@@ -1406,9 +1485,7 @@ def sharded_phase(torch, g, dev, ref, ref_shift, top_ref, p10,
         (y1,) = spmv_cpg_sharded(sg1, mesh1, x_t)
         check(torch.equal(y1, spmv_cpg.spmv_cpg(cgd, x_t)),
               f"1-shard SpMV == single-device spmv_cpg ({x_t.dtype})")
-    emit({"phase": 11, "part": "levels", "levels_checked": errs["levels"],
-          "comp_levels_checked": errs["comp_levels"],
-          "max_abs_err": errs["plain"], "comp_max_abs_err": errs["comp"],
+    emit({"phase": 11, "part": "levels", "checked": errs,
           "lane_127_zero": True, "f64_spmv_rel_vs_scipy": rel64,
           "df_spmv_rel_vs_scipy": rel_df_spmv,
           "one_shard_equals_single_device": True})
@@ -1422,18 +1499,18 @@ def sharded_phase(torch, g, dev, ref, ref_shift, top_ref, p10,
     steps_df = SHARDS * (3 * (2 * K - 1) + 2)
     st, ms_l, wall_l, counts = timed_call(
         torch, lambda: lanczos_cpg_sharded(sg4, xr1, K, mesh4))
-    check_counts(counts, {"launches": K * per_spmv,
+    check_counts(counts, {**shard_spmv_counts(sg4, K),
                           "launches_step_sharded": steps_f32},
-                 "lanczos_cpg_sharded: k * shards * passes, 3 * k * shards "
-                 "step passes")
+                 "lanczos_cpg_sharded: k SpMVs (kernel 1 a pass and a "
+                 "reduce level with tiles on a shard), 3 * k * shards step "
+                 "passes")
     lanczos_launches = counts["launches"]
     (ans, shift, _, _), _, wall_e, counts = timed_call(
         torch, lambda: expm_action_sharded(sg4, k=K, mesh=mesh4, fmt="cpg",
                                            log_scale=True))
-    check_counts(counts, {"launches": K * per_spmv,
+    check_counts(counts, {**shard_spmv_counts(sg4, K),
                           "launches_step_sharded": steps_f32},
-                 "expm_action_sharded: k * shards * passes, 3 * k * shards "
-                 "step passes")
+                 "expm_action_sharded: k SpMVs, 3 * k * shards step passes")
     expm_launches = counts["launches"]
     expm_step_launches = counts["launches_step_sharded"]
     rel32 = rel_to_oracle(ans, shift)
@@ -1443,12 +1520,11 @@ def sharded_phase(torch, g, dev, ref, ref_shift, top_ref, p10,
     res_df, _, wall_df, counts = timed_call(
         torch, lambda: expm_action_df_sharded(g, k=K, mesh=mesh4, sg=sg4,
                                               log_scale=True))
-    check_counts(counts, {"launches": (2 * K - 1) * per_spmv,
-                          "launches_comp": (2 * K - 1) * per_spmv,
+    check_counts(counts, {**shard_spmv_counts(sg4, 2 * K - 1, df=True),
                           "launches_step_df_sharded": steps_df},
-                 "expm_action_df_sharded: (2k-1) * shards * passes each, "
-                 "shards * (3 (2k-1) + 2) df step passes")
-    df_comp_launches = counts["launches_comp"]
+                 "expm_action_df_sharded: 2k-1 df SpMVs (the df shard "
+                 "kernel alone), shards * (3 (2k-1) + 2) df step passes")
+    df_launches = counts["launches_shard_df"]
     df_step_launches = counts["launches_step_df_sharded"]
     rel_df = rel_to_oracle(res_df.ans, res_df.log_scale)
     top_df = set(np.argsort(res_df.ans)[-TOPK:].tolist())
@@ -1466,8 +1542,7 @@ def sharded_phase(torch, g, dev, ref, ref_shift, top_ref, p10,
     emit({"phase": 11, "part": "main_path", "k": K,
           "launches_lanczos": lanczos_launches,
           "launches_expm": expm_launches,
-          "launches_df_comp": df_comp_launches,
-          "launches_df_plain": (2 * K - 1) * per_spmv,
+          "launches_df_shard": df_launches,
           "launches_step_sharded": expm_step_launches,
           "launches_step_df_sharded": df_step_launches,
           "rel_error_f32": rel32, "rel_error_df64": rel_df,
@@ -1515,24 +1590,43 @@ def sharded_phase(torch, g, dev, ref, ref_shift, top_ref, p10,
     check(sgs.overlap and "halo_sel" in sgs.levels[1][0],
           "the stencil's 4-shard pack takes the halo path")
     h_pad = int(sgs.levels[1][0]["halo_sel"].shape[0])
-    errs_h = {"plain": 0.0, "comp": 0.0, "levels": 0, "comp_levels": 0}
-    plain_h, _ = shard_level_checks(torch, spmv_cpg, errs_h, "stencil")
-    _local_spmv(sgs, mesh4, [r.clone() for r in sgs.realmask], plain_h)
+    errs_h = shard_errs()
+    level_h, df_h = shard_level_checks(torch, spmv_cpg, errs_h, "stencil")
     xs64 = rng.standard_normal(gs.n)
-    ys = _local_spmv(sgs, mesh4, mesh4.split(sgs.permute_in(
-        xs64, np.float64), sgs.n_loc), plain_h)
-    rel_hs = float(np.linalg.norm(sgs.permute_out(mesh4.to_host(ys))
-                                  - gs.to_scipy() @ xs64)
-                   / np.linalg.norm(gs.to_scipy() @ xs64))
-    check(rel_hs < 1e-13, f"stencil 4-shard f64 SpMV vs scipy {rel_hs}")
-    per_spmv_s = SHARDS * len(shard_passes(sgs))
+    want_s = gs.to_scipy() @ xs64
+    rel_hs = {}
+    # the overlap split (the cross pass reads the halo buffer) and the
+    # unsplit main level (the shard's rows, then the halo, read in place):
+    # each kernel == plain on every shard, f64 and df SpMVs vs scipy
+    for name, sgh in (("overlap", sgs), ("unsplit", pack_cpg_sharded(
+            gs, SHARDS, mesh=mesh4, overlap=False))):
+        check("halo_sel" in sgh.levels[sgh.n_main - 1][0],
+              f"stencil {name}: the halo path")
+        _local_spmv(sgh, mesh4, [r.clone() for r in sgh.realmask], level_h)
+        xp = sgh.permute_in(xs64, np.float64)
+        ys = _local_spmv(sgh, mesh4, mesh4.split(xp, sgh.n_loc), level_h)
+        hi_s, lo_s = split_f64(xp)
+        yd = _local_spmv_df(sgh, mesh4, list(zip(
+            mesh4.split(hi_s, sgh.n_loc), mesh4.split(lo_s, sgh.n_loc))),
+            df_h)
+        got_d = (mesh4.to_host([p[0] for p in yd]).astype(np.float64)
+                 + mesh4.to_host([p[1] for p in yd]))
+        rel_hs[name] = [float(np.linalg.norm(sgh.permute_out(y) - want_s)
+                              / np.linalg.norm(want_s))
+                        for y in (mesh4.to_host(ys), got_d)]
+        check(max(rel_hs[name]) < 1e-13, f"stencil {name} 4-shard f64 and "
+              f"df SpMVs vs scipy {rel_hs[name]}")
+    check(errs_h["halo_calls"] == 2 * SHARDS,
+          f"the unsplit stencil pack's levels read their halo in place "
+          f"({errs_h})")
+    del sgh, ys, yd
     (ans_s, shift_s, _, _), _, _, counts = timed_call(
         torch, lambda: expm_action_sharded(sgs, k=HALO_K, mesh=mesh4,
                                            fmt="cpg", log_scale=True))
-    check_counts(counts, {"launches": HALO_K * per_spmv_s,
+    check_counts(counts, {**shard_spmv_counts(sgs, HALO_K),
                           "launches_step_sharded": 3 * HALO_K * SHARDS},
-                 "stencil expm_action_sharded: k * shards * passes, "
-                 "3 * k * shards step passes")
+                 "stencil expm_action_sharded: k SpMVs, 3 * k * shards "
+                 "step passes")
     t0 = time.time()
     ref_s, ref_s_shift = oracle.expm_action_shifted(gs, np.ones(gs.n),
                                                     HALO_K)
@@ -1543,11 +1637,10 @@ def sharded_phase(torch, g, dev, ref, ref_shift, top_ref, p10,
           "n": gs.n, "pack_s": halo_pack_s, "n_chunks": sgs.n_chunks,
           "c_loc": sgs.c_loc, "h_pad": h_pad,
           "exchanged_chunks": SHARDS * h_pad, "t_reals": list(sgs.t_reals),
-          "levels_checked": errs_h["levels"], "max_abs_err": errs_h["plain"],
-          "f64_spmv_rel_vs_scipy": rel_hs, "k": HALO_K,
-          "launches_expm": counts["launches"], "rel_error_f32": rel_s,
+          "checked": errs_h, "f64_df_spmv_rel_vs_scipy": rel_hs,
+          "k": HALO_K, "launches_expm": counts, "rel_error_f32": rel_s,
           "oracle_s": halo_oracle_s})
-    del sgs, ys, gs, ref_s
+    del sgs, gs, ref_s
 
     # ---- the sharded estimators on the 4-shard pack
     attempts = []
@@ -1566,23 +1659,22 @@ def sharded_phase(torch, g, dev, ref, ref_shift, top_ref, p10,
         r, ms, wall, counts = timed_call(
             torch, lambda: stochastic.estrada_index_sharded(
                 sg4, mesh=mesh4, fmt="cpg", **ESTRADA))
-        want_l = (len(attempts) * k_defl
-                  + ESTRADA["probes"] * ESTRADA["k"]) * per_spmv
+        want_l = shard_spmv_counts(
+            sg4, len(attempts) * k_defl + ESTRADA["probes"] * ESTRADA["k"])
         # the deflation's reorthogonalized steps run 4 passes a shard
         want_s = (4 * len(attempts) * k_defl
                   + 3 * ESTRADA["probes"] * ESTRADA["k"]) * SHARDS
-        check_counts(counts, {"launches": want_l,
-                              "launches_step_sharded": want_s},
-                     "estrada_index_sharded: (attempts*k_defl + probes*k)"
-                     " * launches per SpMV; (4 attempts*k_defl + 3 "
-                     "probes*k) * shards step passes")
+        check_counts(counts, {**want_l, "launches_step_sharded": want_s},
+                     "estrada_index_sharded: attempts*k_defl + probes*k "
+                     "SpMVs; (4 attempts*k_defl + 3 probes*k) * shards "
+                     "step passes")
         e10 = p10["estrada_float32"]
         d_log = abs(r.log_estimate - e10["log_estimate"])
         tol = 3.0 * float(np.hypot(r.rel_stderr, e10["rel_stderr"]))
         check(np.isfinite(r.log_estimate) and r.dropped == 0
               and d_log <= tol, f"sharded Estrada log {r.log_estimate} vs "
               f"phase 10's {e10['log_estimate']}: {d_log} <= {tol}")
-        est["estrada"] = {"launches": counts["launches"],
+        est["estrada"] = {"launches": want_l,
                           "step_passes": counts["launches_step_sharded"],
                           "attempts": len(attempts), "cuda_ms": ms,
                           "wall_s": wall, "log_estimate": r.log_estimate,
@@ -1594,21 +1686,20 @@ def sharded_phase(torch, g, dev, ref, ref_shift, top_ref, p10,
         dr, ms, wall, counts = timed_call(
             torch, lambda: stochastic.subgraph_centrality_sharded(
                 sg4, mesh=mesh4, fmt="cpg", **SUBGRAPH))
-        want_l = (len(attempts) * k_defl + (dr.retries + 1)
-                  * SUBGRAPH["probes"] * SUBGRAPH["k"]) * per_spmv
+        want_l = shard_spmv_counts(
+            sg4, len(attempts) * k_defl
+            + (dr.retries + 1) * SUBGRAPH["probes"] * SUBGRAPH["k"])
         want_s = (4 * len(attempts) * k_defl + 3 * (dr.retries + 1)
                   * SUBGRAPH["probes"] * SUBGRAPH["k"]) * SHARDS
-        check_counts(counts, {"launches": want_l,
-                              "launches_step_sharded": want_s},
-                     "subgraph_centrality_sharded: (attempts*k_defl + "
-                     "(retries+1)*probes*k) * launches per SpMV; (4 "
-                     "attempts*k_defl + 3 (retries+1)*probes*k) * shards "
-                     "step passes")
+        check_counts(counts, {**want_l, "launches_step_sharded": want_s},
+                     "subgraph_centrality_sharded: attempts*k_defl + "
+                     "(retries+1)*probes*k SpMVs; (4 attempts*k_defl + 3 "
+                     "(retries+1)*probes*k) * shards step passes")
         top1 = int(dr.top_nodes(1)[0])
         top1_10 = p10["subgraph_float32"]["top_nodes"][0]
         check(top1 == top1_10 and bool(np.all(np.isfinite(dr.diag_scaled))),
               f"sharded subgraph top-1 {top1} == phase 10's {top1_10}")
-        est["subgraph"] = {"launches": counts["launches"],
+        est["subgraph"] = {"launches": want_l,
                            "step_passes": counts["launches_step_sharded"],
                            "attempts": len(attempts),
                            "retries": dr.retries, "cuda_ms": ms,
@@ -1617,15 +1708,14 @@ def sharded_phase(torch, g, dev, ref, ref_shift, top_ref, p10,
         d, ms, wall, counts = timed_call(
             torch, lambda: stochastic.spectral_density_sharded(
                 sg4, mesh=mesh4, fmt="cpg", **DOS))
-        check_counts(counts, {"launches": DOS["probes"] * DOS["k"]
-                              * per_spmv,
-                              "launches_step_sharded": 3 * DOS["probes"]
-                              * DOS["k"] * SHARDS},
-                     "spectral_density_sharded: probes*k * launches per "
-                     "SpMV; 3 probes*k * shards step passes")
+        want_l = shard_spmv_counts(sg4, DOS["probes"] * DOS["k"])
+        check_counts(counts, {**want_l, "launches_step_sharded": 3
+                              * DOS["probes"] * DOS["k"] * SHARDS},
+                     "spectral_density_sharded: probes*k SpMVs; 3 "
+                     "probes*k * shards step passes")
         mass = float(np.trapezoid(d.density, d.grid))
         check(abs(mass - 1.0) < 1e-3, f"sharded DOS mass {mass}")
-        est["dos"] = {"launches": counts["launches"],
+        est["dos"] = {"launches": want_l,
                       "step_passes": counts["launches_step_sharded"],
                       "cuda_ms": ms,
                       "wall_s": wall, "mass": mass,
@@ -1733,6 +1823,30 @@ def sharded_phase(torch, g, dev, ref, ref_shift, top_ref, p10,
     times["df_spmv_4_shard_plain_ms"] = cuda_ms(
         torch, lambda: spmv_cpg_df_sharded_ref(sg4, mesh4, hi1, lo1),
         reps=2)[0]
+    # each shard's local SpMV and df SpMV alone, its exchanges made
+    # beforehand (eval/shard_alone.py; the slowest one a real mesh's
+    # critical path), each equal to its part of the 4-shard SpMV
+    alone = shard_alone.alone_fn(spmv_cpg_sharded, sg4, mesh4, x1)
+    alone_df = shard_alone.alone_fn(spmv_cpg_df_sharded, sg4, mesh4, hi1,
+                                    lo1)
+    y_all = spmv_cpg_sharded(sg4, mesh4, x1)
+    yd_all = spmv_cpg_df_sharded(sg4, mesh4, hi1, lo1)
+    for s in range(SHARDS):
+        got_d = alone_df(s)
+        check(torch.equal(alone(s), y_all[s])
+              and torch.equal(got_d[0], yd_all[s][0])
+              and torch.equal(got_d[1], yd_all[s][1]),
+              f"shard {s} alone == its part of the 4-shard SpMVs")
+    alone_ms = [cuda_ms(torch, lambda: alone(s))[0] for s in range(SHARDS)]
+    alone_df_ms = [cuda_ms(torch, lambda: alone_df(s))[0]
+                   for s in range(SHARDS)]
+    slow = int(np.argmax(alone_ms))
+    slow_df = int(np.argmax(alone_df_ms))
+    times.update({
+        "shard_alone_ms": alone_ms, "shard_alone_df_ms": alone_df_ms,
+        "slowest_shard": slow, "slowest_shard_df": slow_df,
+        "slowest_shard_alone_ms": alone_ms[slow],
+        "slowest_shard_alone_df_ms": alone_df_ms[slow_df]})
     syncs_expm = syncs(torch, lambda: expm_action_sharded(
         sg4, k=K, mesh=mesh4, fmt="cpg", log_scale=True))
     check(syncs_expm == 4, f"expm_action_sharded: 4 host syncs "
@@ -1761,30 +1875,32 @@ def sharded_phase(torch, g, dev, ref, ref_shift, top_ref, p10,
     times["library_row_blocks_ms"] = cuda_ms(
         torch, lambda: [b @ x_full for b in blocks])[0]
     bound_ms, bound_by = bound(*sharded_spmv_cost(sg4))
-    # the df SpMV runs every pass twice (the compensated one on hi, the
-    # plain one on lo): twice the bytes, and 7 adds a tile cell for the
-    # two-sum (its lo pass's adds and the folds are left out)
-    df_bytes, df_adds = sharded_spmv_cost(sg4)
-    df_bound = bound(2 * df_bytes, 7 * df_adds)
+    # the df SpMV reads each tile's indices once for both streams
+    df_bound = bound(*sharded_spmv_cost(sg4, df=True))
     emit({"phase": 11, "part": "times", **times,
           "note": "4 shards run in turn on one card: kernel work and "
                   "launches, no collective over a link",
           "syncs_expm_action_sharded": syncs_expm,
           "library_rel_diff": lib_rel, "bound_ms": bound_ms,
           "bound_by": bound_by, "df_bound_ms": df_bound[0],
-          "launches_per_spmv": per_spmv})
+          "df_bound_by": df_bound[1], "launches_per_spmv": per_spmv,
+          "launches_per_shard": per_shard,
+          "launches_per_df_spmv": per_df_spmv})
+    # row 1d: ms and plain_ms are the whole 4-shard SpMV (df SpMV) through
+    # the kernels and through the plain versions; launches count the
+    # kernel's own in expm_action_sharded (expm_action_df_sharded)
     entries.append({
         "name": "spmv_cpg_level_sharded", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": SHARD_REPLACES,
-        "launches": expm_launches, "max_abs_err": errs["plain"],
+        "launches": expm_launches, "max_abs_err": errs["level"],
         "ms": times["spmv_4_shard_ms"],
         "plain_ms": times["spmv_4_shard_plain_ms"], "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": times["library_row_blocks_ms"]})
     entries.append({
-        "name": "spmv_cpg_level_comp_sharded", "route": "cuda",
-        "source": KERNEL_SOURCE, "replaces": SHARD_COMP_REPLACES,
-        "launches": df_comp_launches, "max_abs_err": errs["comp"],
+        "name": "spmv_cpg_shard_level_df", "route": "cuda",
+        "source": SHARD_SOURCE, "replaces": SHARD_DF_REPLACES,
+        "launches": df_launches, "max_abs_err": errs["df"],
         "ms": times["df_spmv_4_shard_ms"],
         "plain_ms": times["df_spmv_4_shard_plain_ms"],
         "bound_ms": df_bound[0], "bound_by": df_bound[1],
@@ -1915,6 +2031,45 @@ def traced_lanczos(torch, dg) -> dict:
 # row 5d's pass kernels, three a shard a step
 SHARD_PASS_KERNELS = ("shard_dot_kernel", "shard_update_kernel",
                       "shard_normalize_kernel")
+# the sharded SpMV's kernels (kernel 1 on a reduce level)
+SHARD_SPMV_KERNELS = ("cpg_shard_level_df_kernel", "cpg_level_kernel")
+
+
+def sharded_bn1m():
+    """bench.py's graph packed for 4 shards of the card, as phase 11
+    packs it, and the mesh."""
+    from tpu_lanczos_torch import generators
+    from tpu_lanczos_torch.dist import make_mesh
+    from tpu_lanczos_torch.dist.cpg_sharded import pack_cpg_sharded
+
+    g = generators.barabasi_albert(N, M, seed=SEED, use_native=True)
+    mesh = make_mesh(devices=["cuda:0"] * SHARDS)
+    return pack_cpg_sharded(g, SHARDS, mesh=mesh, sub=SUB), mesh
+
+
+def traced_sharded_spmvs(torch) -> dict:
+    """One traced 4-shard SpMV and df SpMV of bn1M: their kernels by
+    name, the SpMV kernels' launches and the elementwise ops among the
+    rest (the exchanges' copies are not; in f32 the realmask multiply
+    is)."""
+    from tpu_lanczos_torch.dist.cpg_sharded import spmv_cpg_sharded
+    from tpu_lanczos_torch.dist.lanczos_df import spmv_cpg_df_sharded
+
+    sg, mesh = sharded_bn1m()
+    x1 = [r.clone() for r in sg.realmask]
+    lo1 = [torch.zeros_like(t) for t in x1]
+    out = {}
+    for key, fn in (("spmv", lambda: spmv_cpg_sharded(sg, mesh, x1)),
+                    ("df_spmv", lambda: spmv_cpg_df_sharded(sg, mesh, x1,
+                                                            lo1))):
+        ks, _ = traced_kernels(torch, fn)
+        by = kernel_stats(ks, SHARD_SPMV_KERNELS)["by_name"]
+        out[key] = {"kernels": len(ks), "by_name": by,
+                    "spmv_kernels": sum(by.get(k, {}).get("launches", 0)
+                                        for k in SHARD_SPMV_KERNELS),
+                    "elementwise": sum(r["launches"] for n, r in by.items()
+                                       if "elementwise" in n)}
+    return out
 
 
 def traced_sharded_lanczos(torch) -> dict:
@@ -1923,15 +2078,9 @@ def traced_sharded_lanczos(torch) -> dict:
     the kernels that run between the first and the last of a step's
     3 * shards passes that are not passes (with the fold in the passes,
     none)."""
-    from tpu_lanczos_torch import generators
-    from tpu_lanczos_torch.dist import make_mesh
-    from tpu_lanczos_torch.dist.cpg_sharded import (lanczos_cpg_sharded,
-                                                    pack_cpg_sharded)
+    from tpu_lanczos_torch.dist.cpg_sharded import lanczos_cpg_sharded
 
-    g = generators.barabasi_albert(N, M, seed=SEED, use_native=True)
-    mesh = make_mesh(devices=["cuda:0"] * SHARDS)
-    sg = pack_cpg_sharded(g, SHARDS, mesh=mesh, sub=SUB)
-    del g
+    sg, mesh = sharded_bn1m()
     x1 = [r.clone() for r in sg.realmask]
     kernels, cats = traced_kernels(
         torch, lambda: lanczos_cpg_sharded(sg, x1, K, mesh))
@@ -1971,6 +2120,8 @@ def trace_child(name: str, suite_cache: str) -> dict:
 
     if name == "bn1M_4_shards":
         return traced_sharded_lanczos(torch)
+    if name == "bn1M_4_shard_spmvs":
+        return traced_sharded_spmvs(torch)
     if name == "bn1M":
         g = generators.barabasi_albert(N, M, seed=SEED, use_native=True)
         pack = pack_cpg(g, sub=SUB, device="cuda")
@@ -1991,11 +2142,14 @@ def trace_part(suite_cache: str, t_all: float) -> None:
     per-step realmask multiply) and of the suite's stencil_2600, a mesh's
     profile (its graph and pack from phase 12's suite cache); and phase
     11's of bn1M on 4 shards of the card (k * shards launches of each of
-    row 5d's three passes, and no kernel between a step's passes).  Each
-    runs in a child process with a profiler of its own: in this process,
-    after the profiled probe calls of phase 9, a trace once lost one
-    kernel's record (and a profiler session before phase 9 once left the
-    probe's profiled calls with no CUDA events)."""
+    row 5d's three passes, and no kernel between a step's passes) and of
+    one 4-shard SpMV and df SpMV (9 launches of kernel 1 and 5 of the df
+    shard kernel, no elementwise op in the df SpMV).  Each runs in a
+    child process with a profiler of its own: in this process, after the
+    profiled probe calls of phase 9, a trace lost kernel records (once
+    one kernel's, once every launch of a traced SpMV's ctypes-launched
+    kernel), and a profiler session before phase 9 once left the probe's
+    profiled calls with no CUDA events."""
     root = os.path.dirname(os.path.abspath(__file__))
 
     def child(name):
@@ -2041,6 +2195,17 @@ def trace_part(suite_cache: str, t_all: float) -> None:
           "pass_kernels_ms": sum(t["by_name"][k]["ms"]
                                  for k in SHARD_PASS_KERNELS),
           "ms_by_kernel": {k: r["ms"] for k, r in t["by_name"].items()},
+          "total_s": time.time() - t_all})
+    t = child("bn1M_4_shard_spmvs")
+    spmv_t, df_t = t["spmv"], t["df_spmv"]
+    check(spmv_t["spmv_kernels"] == SHARD_SPMV_LAUNCHES
+          and df_t["spmv_kernels"] == SHARD_DF_SPMV_LAUNCHES
+          and df_t["elementwise"] == 0,
+          f"4-shard SpMV traces: {spmv_t['spmv_kernels']} and "
+          f"{df_t['spmv_kernels']} SpMV kernels a SpMV and a df SpMV, want "
+          f"{SHARD_SPMV_LAUNCHES} and {SHARD_DF_SPMV_LAUNCHES}; "
+          f"{df_t['elementwise']} elementwise ops in the df SpMV, want 0")
+    emit({"phase": 11, "part": "trace_4_shard_spmvs", **t,
           "total_s": time.time() - t_all})
 
 
@@ -2211,7 +2376,8 @@ def main() -> None:
                    "step_normalize_kernel", "df_dot_kernel",
                    "shard_dot_kernel", "shard_update_kernel",
                    "shard_sub_norm_kernel", "shard_normalize_kernel",
-                   "df_update_kernel", "df_normalize_kernel"):
+                   "df_update_kernel", "df_normalize_kernel",
+                   "cpg_shard_level_df_kernel"):
         check(any(kernel in k["kernel"] for k in ptxas), f"{kernel} built")
     os.makedirs(BUILD_DIR, exist_ok=True)
     cst_path = os.path.join(BUILD_DIR, f"cst_bn1M.{os.getpid()}.npz")

@@ -486,46 +486,157 @@ def _sharded(dev, n_shards, sub=128):
     return g, mesh, pack_cpg_sharded(g, n_shards, mesh=mesh, sub=sub)
 
 
-def test_sharded_levels_equal_plain_versions(dev):
-    """Every shard level of one SpMV and one df SpMV, on 4 shards of the
-    card, through kernels 1 and 1c and their plain versions on the same
-    inputs: equal; the sharded SpMVs equal their plain versions."""
+def _checked_shard_fns():
+    """The sharded SpMVs' kernel wrappers, each call held against its
+    plain version on the same inputs, bit for bit: kernel 1 on a pass or
+    a reduce level (its halo read in place) and the df shard kernel
+    (``run_shard_level_df``)."""
+    def level(x2d, level, n_chunks, sub, base=None, halo=None):
+        got = spmv_cpg.run_level(x2d, level, n_chunks, sub, base, halo=halo)
+        assert torch.equal(got, spmv_cpg.run_level_ref(
+            x2d, level, n_chunks, sub, base, halo=halo))
+        return got
+
+    def df(walks, n_chunks, sub, **kw):
+        got = spmv_cpg.run_shard_level_df(walks, n_chunks, sub, **kw)
+        want = spmv_cpg.run_shard_level_df_ref(walks, n_chunks, sub, **kw)
+        for g, w in zip(got, want):
+            assert (g is None) == (w is None)
+            assert g is None or (torch.equal(g[0], w[0])
+                                 and torch.equal(g[1], w[1]))
+        return got
+
+    return level, df
+
+
+def _shard_counters():
+    return (spmv_cpg.launches, spmv_cpg.launches_shard_df,
+            spmv_cpg.launches_comp)
+
+
+def _check_sharded_spmvs(sg, mesh, x64):
+    """One SpMV (f32 and f64) and one df SpMV through the checked
+    wrappers, each equal to the plain SpMVs, with exactly the launches
+    of ``shard_launches``: in f32/f64 kernel 1 once a pass and a reduce
+    level with tiles on a shard, in df64 the df kernel once a shard's
+    main level and once a reduce level with tiles on it."""
     from tpu_lanczos_torch.core.lanczos_df import split_f64
     from tpu_lanczos_torch.dist import cpg_sharded as cs, lanczos_df as ldf
 
-    g, mesh, sg = _sharded(dev, 4)
-    assert sg.overlap and min(sg.t_reals) > 0
-
-    def plain(x2d, level, n_chunks, sub, base=None, slab=False):
-        got = spmv_cpg.run_level(x2d, level, n_chunks, sub, base)
-        assert torch.equal(got, spmv_cpg.run_level_ref(x2d, level, n_chunks,
-                                                       sub, base))
-        return got
-
-    def comp(x2d, level, n_chunks, sub, slab=False):
-        got = spmv_cpg.run_level_comp(x2d, level, n_chunks, sub)
-        want = spmv_cpg.run_level_comp_ref(x2d, level, n_chunks, sub)
-        assert all(torch.equal(a, b) for a, b in zip(got, want))
-        return got
-
-    x64 = sg.permute_in(np.random.default_rng(0).standard_normal(g.n),
-                        np.float64)
+    level, df = _checked_shard_fns()
     for dt in (np.float32, np.float64):
         xs = mesh.split(x64.astype(dt), sg.n_loc)
-        before = spmv_cpg.launches
-        y = cs._local_spmv(sg, mesh, xs, plain)
+        before = _shard_counters()
+        y = cs._local_spmv(sg, mesh, xs, level)
         torch.cuda.synchronize()
-        passes = sum(1 for i in range(len(sg.levels))
-                     if i >= sg.n_main or sg.t_reals[i] > 0)
-        assert spmv_cpg.launches - before == 4 * passes
+        after = _shard_counters()
+        assert tuple(a - b for a, b in zip(after, before)) == (
+            sum(cs.shard_launches(sg)), 0, 0)
         assert all(torch.equal(a, b) for a, b in zip(
             y, cs.spmv_cpg_sharded_ref(sg, mesh, xs)))
     hi, lo = split_f64(x64)
     hi, lo = mesh.split(hi, sg.n_loc), mesh.split(lo, sg.n_loc)
-    got = ldf._local_spmv_df(sg, mesh, list(zip(hi, lo)), plain, comp)
+    before = _shard_counters()
+    got = ldf._local_spmv_df(sg, mesh, list(zip(hi, lo)), df)
+    after = _shard_counters()
+    assert tuple(a - b for a, b in zip(after, before)) == (
+        0, sum(cs.shard_launches(sg, df=True)), 0)
     want = ldf.spmv_cpg_df_sharded_ref(sg, mesh, hi, lo)
     assert all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
                for a, b in zip(got, want))
+
+
+def test_sharded_levels_equal_plain_versions(dev):
+    """Every shard's passes and reduce levels (kernel 1) and df64 levels
+    (the df shard kernel) of one SpMV and one df SpMV, on 4 shards of
+    the card, equal their plain versions on the same inputs, with
+    exactly the launches of ``shard_launches``: the 40,000-node
+    power-law pack has a hub shard with reduce levels, a shard with
+    cross tiles and no own tiles, and two shards with no tiles at all."""
+    g, mesh, sg = _sharded(dev, 4)
+    assert sg.overlap and min(sg.t_reals) > 0
+    assert [any(t[s] for t in sg.shard_tiles) for s in range(4)] == [
+        True, True, False, False]
+    _check_sharded_spmvs(sg, mesh, sg.permute_in(
+        np.random.default_rng(0).standard_normal(g.n), np.float64))
+
+
+@pytest.mark.parametrize("overlap", [True, False])
+def test_shard_kernels_on_the_stencil_halo_pack(dev, overlap):
+    """The 2-D stencil's 4-shard pack exchanges halo chunks: with the
+    overlap split the cross pass reads the compact halo buffer, without
+    it the main level reads the shard's rows and the halo, each in place
+    (kernel 1's two-source launch, the df kernel's two sources); each
+    kernel equals its plain version on every shard."""
+    from tpu_lanczos_torch.dist import make_mesh
+    from tpu_lanczos_torch.dist.cpg_sharded import pack_cpg_sharded
+
+    g = generators.stencil_2d(200)
+    mesh = make_mesh(devices=[dev] * 4)
+    sg = pack_cpg_sharded(g, 4, mesh=mesh, sub=128, overlap=overlap)
+    assert "halo_sel" in sg.levels[sg.n_main - 1][0]
+    _check_sharded_spmvs(sg, mesh, sg.permute_in(
+        np.random.default_rng(1).standard_normal(g.n), np.float64))
+
+
+def test_df_shard_spmvs_on_two_streams(dev):
+    """Two df SpMVs queued on two streams of the card at once, each
+    launch of two walks with its own pair flags: every result equals the
+    plain version, bit for bit."""
+    from tpu_lanczos_torch.core.lanczos_df import split_f64
+    from tpu_lanczos_torch.dist import lanczos_df as ldf
+
+    g, mesh, sg = _sharded(dev, 4)
+    xs = [sg.permute_in(np.random.default_rng(seed).standard_normal(g.n),
+                        np.float64) for seed in (2, 3)]
+    ins = [[mesh.split(t, sg.n_loc) for t in split_f64(x)] for x in xs]
+    wants = [ldf.spmv_cpg_df_sharded_ref(sg, mesh, hi, lo)
+             for hi, lo in ins]
+    streams = [torch.cuda.Stream(device=dev) for _ in ins]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(8):
+        for i, (st, (hi, lo)) in enumerate(zip(streams, ins)):
+            with torch.cuda.stream(st):
+                outs[i].append(ldf.spmv_cpg_df_sharded(sg, mesh, hi, lo))
+    torch.cuda.synchronize()
+    for got_all, want in zip(outs, wants):
+        for got in got_all:
+            assert all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                       for a, b in zip(got, want))
+
+
+def test_sharded_queries_launch_exactly(dev):
+    """Per SpMV the launches of ``shard_launches``:
+    ``expm_action_sharded`` k SpMVs through kernel 1,
+    ``expm_action_df_sharded`` 2k - 1 df SpMVs through the df shard
+    kernel alone (no other level kernel), and an estimator its probes'
+    steps."""
+    from tpu_lanczos_torch.core import stochastic
+    from tpu_lanczos_torch.dist import cpg_sharded as cs
+    from tpu_lanczos_torch.dist import expm_action_sharded
+    from tpu_lanczos_torch.dist.lanczos_df import expm_action_df_sharded
+
+    g, mesh, sg = _sharded(dev, 4)
+    per = sum(cs.shard_launches(sg))
+    per_df = sum(cs.shard_launches(sg, df=True))
+    k = 10
+    before = _shard_counters()
+    expm_action_sharded(sg, k=k, mesh=mesh, fmt="cpg")
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_shard_counters(), before)) == (
+        k * per, 0, 0)
+    before = _shard_counters()
+    expm_action_df_sharded(g, k=k, mesh=mesh, sg=sg)
+    assert tuple(a - b for a, b in zip(_shard_counters(), before)) == (
+        0, (2 * k - 1) * per_df, 0)
+    before = _shard_counters()
+    d = stochastic.spectral_density_sharded(sg, mesh=mesh, fmt="cpg", k=8,
+                                            probes=3)
+    torch.cuda.synchronize()
+    assert np.isfinite(d.density).all()
+    assert tuple(a - b for a, b in zip(_shard_counters(), before)) == (
+        3 * 8 * per, 0, 0)
 
 
 def test_one_shard_spmv_equals_single_device(dev):

@@ -61,7 +61,8 @@ def _rel(a, b):
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
-def test_every_compensated_shard_level_bit_identical_to_reference():
+def test_every_compensated_shard_level_bit_identical_to_reference(
+        monkeypatch):
     g = generators.barabasi_albert(40000, 4, seed=5, use_native=False)
     ref = ref_cs.pack_cpg_sharded(g, 4, sub=128)
     mesh = cpu_mesh(4)
@@ -69,18 +70,25 @@ def test_every_compensated_shard_level_bit_identical_to_reference():
     assert sg.overlap and min(sg.t_reals) > 0
     calls = []
 
+    real_comp = spmv_cpg.run_level_comp_ref
+
     def comp(x2d, level, n_chunks, sub, slab=False):
         calls.append((x2d.clone(), level))
-        return spmv_cpg.run_level_comp_ref(x2d, level, n_chunks, sub)
+        return real_comp(x2d, level, n_chunks, sub)
 
+    # the df64 shard level's plain version walks hi through this
+    monkeypatch.setattr(spmv_cpg, "run_level_comp_ref", comp)
     hi, lo = split_f64(sg.permute_in(
         np.random.default_rng(2).standard_normal(g.n), np.float64))
     ldf._local_spmv_df(sg, mesh, list(zip(mesh.split(hi, sg.n_loc),
                                           mesh.split(lo, sg.n_loc))),
-                       spmv_cpg.run_level_ref, comp)
+                       spmv_cpg.run_shard_level_df_ref)
+    monkeypatch.undo()
     where = {id(d): (li, s) for li, lv in enumerate(sg.levels)
              for s, d in enumerate(lv)}
-    assert len(calls) == 4 * len(sg.levels)
+    # every level each shard runs
+    assert len(calls) == sum(len(cs.shard_passes(sg, s)) for s in range(4))
+    assert {where[id(lv)][0] for _, lv in calls} == set(range(len(sg.levels)))
     for x2d, level in calls:
         li, s = where[id(level)]
         rl = {k: jnp.asarray(np.asarray(v)[s])

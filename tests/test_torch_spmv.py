@@ -146,7 +146,8 @@ def dest_only_pack(request):
 
 @pytest.mark.parametrize("n_shards", [2, 4, 5])
 def test_every_sharded_level_input_is_zero_in_lane_127(dest_only_pack,
-                                                       n_shards):
+                                                       n_shards,
+                                                       monkeypatch):
     """The ghost-skip premise on the row-sharded path: every buffer a
     shard's level reads (its own rows, the gathered vector, its rows
     followed by the halo, the halo buffer, the compact reduce buffer,
@@ -156,6 +157,7 @@ def test_every_sharded_level_input_is_zero_in_lane_127(dest_only_pack,
     g, cg = dest_only_pack
     mesh = make_mesh(n_shards, device="cpu")
     xr = np.random.default_rng(6).standard_normal(g.n)
+    real_plain, real_comp = spmv_cpg.run_level_ref, spmv_cpg.run_level_comp_ref
     for overlap in (True, False):
         split = cs.split_cpg(cg, n_shards, overlap)
         sg = cs.ShardedCPG.from_numpy(split["meta"], split["levels"],
@@ -167,30 +169,38 @@ def test_every_sharded_level_input_is_zero_in_lane_127(dest_only_pack,
             assert not x2d[:, LANE - 1].any()
             assert x2d.shape[0] % sg.sub == 0
 
-        def plain(x2d, level, n_chunks, sub, base=None, slab=False):
+        def plain(x2d, level, n_chunks, sub, base=None, slab=False,
+                  halo=None):
             check(x2d)
-            if base is not None:
-                check(base)
+            for t in (base, halo):
+                if t is not None:
+                    check(t.reshape(-1, LANE))
             n["calls"] += 1
-            return spmv_cpg.run_level_ref(x2d, level, n_chunks, sub, base)
+            return real_plain(x2d, level, n_chunks, sub, base, halo=halo)
 
         def comp(x2d, level, n_chunks, sub, slab=False):
             check(x2d)
             n["calls"] += 1
-            return spmv_cpg.run_level_comp_ref(x2d, level, n_chunks, sub)
+            return real_comp(x2d, level, n_chunks, sub)
 
         x64 = sg.permute_in(xr, np.float64)
         x32 = mesh.split(x64.astype(np.float32), sg.n_loc)
         cs._local_spmv(sg, mesh, x32, plain)
         hi, lo = split_f64(x64)
-        ldf._local_spmv_df(sg, mesh, list(zip(mesh.split(hi, sg.n_loc),
-                                              mesh.split(lo, sg.n_loc))),
-                           plain, comp)
-        # every pass of every shard, thrice: the plain SpMV, and the df
-        # SpMV's compensated and plain runs (an empty main pass is skipped)
-        passes = sum(1 for i in range(len(sg.levels))
-                     if i >= sg.n_main or sg.t_reals[i] > 0)
-        assert n["calls"] == 3 * n_shards * passes
+        # the df64 shard level's plain version walks hi and lo through
+        # these
+        with monkeypatch.context() as m:
+            m.setattr(spmv_cpg, "run_level_ref", plain)
+            m.setattr(spmv_cpg, "run_level_comp_ref", comp)
+            ldf._local_spmv_df(sg, mesh, list(zip(
+                mesh.split(hi, sg.n_loc), mesh.split(lo, sg.n_loc))),
+                spmv_cpg.run_shard_level_df_ref)
+        # every pass a shard runs, thrice: the plain SpMV, and the df
+        # SpMV's compensated and plain runs (a pass or a reduce level
+        # with no tiles on a shard is not run there)
+        passes = sum(len(cs.shard_passes(sg, s))
+                     for s in range(n_shards))
+        assert n["calls"] == 3 * passes
 
 
 def _level_args(port, dtype=torch.float32):

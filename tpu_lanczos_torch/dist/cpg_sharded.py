@@ -1,9 +1,11 @@
-"""Row-sharded CPG: the CUDA level kernel on each shard's tiles.
+"""Row-sharded CPG: the CUDA level kernels on each shard's tiles.
 
 The port of ``tpu_lanczos/dist/cpg_sharded.py``, the path of row 1d:
-kernels 1 (``kernels/spmv_cpg.py::run_level``) and 1c (``run_level_comp``,
-in dist/lanczos_df.py) as the row-sharded path launches them, on a
-shard's dest chunks (``c_loc``) reading a source of another size.
+kernel 1 (``kernels/spmv_cpg.py::run_level``) as the reference's
+row-sharded body runs it, a launch a pass, on a shard's dest chunks
+(``c_loc``) reading a source of another size (or two: the shard's rows
+and its halo, each read in place), and in df64 the shard level kernel
+(``run_shard_level_df``, in dist/lanczos_df.py).
 
 - positions are the usual CPG layout; chunks are split into contiguous
   blocks of ``c_loc = n_chunks / n_shards``, so a shard's slice of the
@@ -14,17 +16,21 @@ shard's dest chunks (``c_loc``) reading a source of another size.
   the buffer the level reads;
 - per SpMV the shard's vector is exchanged (all of it, or, for a
   locality-ordered pack, only the boundary chunks other shards read: the
-  halo) and the unmodified kernel runs over the shard's tiles;
+  halo) and the kernel runs over the shard's tiles;
 - reduce levels read virtual-row partial sums only, so each exchanges
   just the chunks its tiles source (computed at pack time): each shard
   contributes its owned needed chunks (padded to a common count), and
   the level's s ids are remapped into the gathered compact buffer.
 
 With ``overlap`` (the default pack on a mesh of more than one shard) the
-main level runs as two passes: the own-source pass reads the shard's own
-rows only and the cross-source pass the exchanged buffer.  The host
-decides which passes are empty from the pack's static ``t_reals``, never
-from a device value.
+main level is two passes: the own-source pass reads the shard's own rows
+only and the cross-source pass the exchanged buffer, its sum added to
+the own pass's as the reference does.  The host decides which passes
+and levels a shard runs from the pack's static per-shard tile counts
+(``shard_tiles``), never from a device value: a pass or a reduce level
+with no tiles on a shard is not run there (its sum would add +0.0 to a
+value that is never -0.0), and a reduce level with no tiles on any
+shard takes no exchange.
 
 Every pack is built on the host by the reference's code, so its arrays
 equal the reference's array for array; a held shard's slice of every
@@ -69,7 +75,9 @@ class ShardedCPG:
     the reference ran both cards' local SpMVs before its peer transfer
     (parallel-two-cards/lib/cu_lanczos.cu:120-125).  ``t_reals`` (the
     largest real tile count of any shard, per level) and ``mask_sparse``
-    are static host metadata, kept so the pack equals the reference's.
+    are static host metadata, kept so the pack equals the reference's;
+    ``shard_tiles`` (per level, every shard's real tile count) decides on
+    the host which passes each shard runs.
     """
 
     n: int
@@ -85,6 +93,7 @@ class ShardedCPG:
     t_reals: tuple = ()
     mask_sparse: tuple = ()
     overlap: bool = False
+    shard_tiles: tuple = ()
 
     @property
     def n_main(self) -> int:
@@ -147,7 +156,9 @@ class ShardedCPG:
             new_of_old=np.asarray(new_of_old), shards=tuple(mesh.shards),
             t_reals=tuple(int(t) for t in meta["t_reals"]),
             mask_sparse=tuple(bool(m) for m in meta["mask_sparse"]),
-            overlap=bool(meta["overlap"]))
+            overlap=bool(meta["overlap"]),
+            shard_tiles=tuple(tuple(int(c) for c in np.asarray(
+                lv["counts"]).sum(axis=1)) for lv in levels))
 
 
 def _stack_level(l1, l2, s_loc, run_ids, pair_mask, d_loc_all, tiles,
@@ -448,54 +459,95 @@ def _exchange(sg: ShardedCPG, mesh: Mesh, level, vec: list, key: str):
     return mesh.all_gather(vec)
 
 
+def _main_walks(sg: ShardedCPG, shard: int, i: int, own, gathered) -> list:
+    """The walks of shard ``shard``'s (held at place ``i``) main level:
+    (level, source) pairs.  Split (overlap): the own pass on its rows
+    and the cross pass on the gathered buffer, each where it has tiles on
+    the shard (the own pass, empty, where neither has); unsplit: the
+    level on the shard's rows followed by the halo, or on the gathered
+    vector."""
+    if not sg.overlap:
+        lv = sg.levels[0][i]
+        return [(lv, (own, gathered) if "halo_sel" in lv else (gathered,))]
+    walks = [(sg.levels[p][i], src)
+             for p, src in ((0, (own,)), (1, (gathered,)))
+             if sg.shard_tiles[p][shard]]
+    return walks or [(sg.levels[0][i], (own,))]
+
+
+def _main_exchange(sg: ShardedCPG, mesh: Mesh, q: list) -> list:
+    """The main level's exchange of a per-shard vector: the buffer its
+    cross pass (or unsplit level) reads, held shard by held shard; none
+    where no shard has a cross tile."""
+    lv = sg.levels[sg.n_main - 1]
+    if sg.overlap and not sg.t_reals[1]:
+        return [None] * len(q)
+    return _exchange(sg, mesh, lv, q, "halo_sel")
+
+
+def _reduce_levels(sg: ShardedCPG) -> list:
+    """The reduce levels some shard has tiles on, in order (a level that
+    none has takes no exchange)."""
+    return [li for li in range(sg.n_main, len(sg.levels))
+            if any(sg.shard_tiles[li])]
+
+
+def shard_passes(sg: ShardedCPG, shard: int) -> list:
+    """The levels shard ``shard`` runs in one SpMV, in order: the main
+    level's passes with tiles on it (the own pass, empty, where none
+    has), then the reduce levels with tiles on it."""
+    main = [p for p in range(sg.n_main) if sg.shard_tiles[p][shard]]
+    return (main or [0]) + [li for li in _reduce_levels(sg)
+                            if sg.shard_tiles[li][shard]]
+
+
+def shard_launches(sg: ShardedCPG, df: bool = False) -> list:
+    """The kernel launches of one sharded SpMV on each shard of the pack:
+    one a level it runs (``shard_passes``: in f32/f64 each main pass is a
+    launch), in df64 (``df``) one for its main level, both passes in it,
+    and one a reduce level."""
+    return [len(shard_passes(sg, s)) if not df else
+            1 + sum(1 for li in shard_passes(sg, s) if li >= sg.n_main)
+            for s in range(sg.n_shards)]
+
+
 def _local_spmv(sg: ShardedCPG, mesh: Mesh, q: list, level_fn,
                 masked: bool = True) -> list:
     """Every held shard's slice of y = A q (q a per-shard list): the
     reference's per-shard body (cpg_sharded.py:416-501) with each level
     through ``level_fn`` (``run_level`` or its plain version), in its
-    order of additions.  A pass that follows another passes the running
-    y as the kernel's ``base``: the kernel adds its tile sum to it, the
-    sum-then-add the reference writes as ``y + run(...)``.  With
-    ``masked=False`` the last multiply by the realmask is left out, for
-    the Lanczos step's passes to fold in (as ``spmv_cpg(...,
-    masked=False)`` on one device)."""
+    order of additions.  The exchange first; then each shard's main
+    level, pass by pass (``_main_walks``: the own pass, then the cross
+    pass); then each reduce level on the shards it has tiles on.  A pass
+    that follows another passes the running y as the kernel's ``base``:
+    the kernel adds its tile sum to it, the sum-then-add the reference
+    writes as ``y + run(...)``.  With ``masked=False`` the last multiply
+    by the realmask is left out, for the Lanczos step's passes to fold in
+    (as ``spmv_cpg(..., masked=False)`` on one device)."""
     c_loc, sub = sg.c_loc, sg.sub
     rows = c_loc * sub
 
-    def run(level, src, base=None):
-        bases = base if base is not None else [None] * len(src)
-        return [level_fn(x.reshape(-1, LANE), lv, c_loc, sub,
-                         None if b is None else b.reshape(rows, LANE)
-                         ).reshape(-1)
-                for x, lv, b in zip(src, level, bases)]
+    def run(level, src, base):
+        # src: (buffer,), or (the shard's rows, its halo), read in place
+        return level_fn(src[0].reshape(-1, LANE), level, c_loc, sub,
+                        None if base is None else base.reshape(rows, LANE),
+                        halo=src[1] if len(src) > 1 else None).reshape(-1)
 
-    if sg.overlap:
-        lv_own, lv_cross = sg.levels[0], sg.levels[1]
-        own_empty, cross_empty = sg.t_reals[0] == 0, sg.t_reals[1] == 0
-        # the exchange first, then the own pass, which reads only the
-        # shard's rows, then the cross pass on the exchanged buffer
-        gathered = (None if cross_empty
-                    else _exchange(sg, mesh, lv_cross, q, "halo_sel"))
-        if own_empty:
-            y = [torch.zeros_like(t) for t in q]
-        else:
-            y = run(lv_own, q)
-        if not cross_empty:
-            y = run(lv_cross, gathered, base=y)
-        base = 2
-    else:
-        lv0 = sg.levels[0]
-        src = _exchange(sg, mesh, lv0, q, "halo_sel")
-        if "halo_sel" in lv0[0]:
-            # the shard's own chunks, then the halo (s_ids past c_loc)
-            src = [torch.cat([t, h]) for t, h in zip(q, src)]
-        y = run(lv0, src)
-        base = 1
-    for level in sg.levels[base:]:
+    gathered = _main_exchange(sg, mesh, q)
+    y = []
+    for i, (s, qs, gs) in enumerate(zip(mesh.shards, q, gathered)):
+        ys = None
+        for level, src in _main_walks(sg, s, i, qs, gs):
+            ys = run(level, src, ys)
+        y.append(ys)
+    for li in _reduce_levels(sg):
         # exchange only the chunks this level's tiles source (the
         # virtual-cell partials); s_ids were remapped into the compact
         # buffer
-        y = run(level, _exchange(sg, mesh, level, y, "sel"), base=y)
+        level = sg.levels[li]
+        buf = _exchange(sg, mesh, level, y, "sel")
+        y = [run(lv, (b,), ys) if sg.shard_tiles[li][s] else ys
+             for s, ys, b, lv in zip(mesh.shards, y, buf, level)]
     if not masked:
         return y
     return [t * r.to(t.dtype) for t, r in zip(y, sg.realmask)]

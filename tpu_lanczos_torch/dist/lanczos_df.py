@@ -3,18 +3,21 @@
 The port of ``tpu_lanczos/dist/lanczos_df.py``: the two-pass Q-free df64
 scheme of core/lanczos_df.py on the row mesh, with
 
-- the sharded CPG SpMV in compensated arithmetic: on every level the hi
-  stream rides the compensated level kernel (``run_level_comp``, kernel
-  1c, which emits an error stream) and the lo stream the plain one
-  (``run_level``, kernel 1), and elementwise two-sums fold the pairs
-  between levels: the single-device ``spmv_cpg_df`` structure per
-  shard, with the exchanges carrying BOTH streams;
+- the sharded CPG SpMV in compensated arithmetic: every level of a
+  shard is one launch of the df64 shard kernel (``run_shard_level_df``):
+  one walk of its tiles two-sums the hi stream (kernel 1c's sum, with its
+  error stream) and adds the lo stream (kernel 1's), and the same launch
+  folds the level into the shard's (y, e) pair and, on its last level,
+  finishes the (hi, lo) pair: the single-device ``spmv_cpg_df`` structure
+  per shard, with the exchanges carrying BOTH streams and no elementwise
+  op between the launches;
 - cross-shard dots done exactly in df arithmetic: each shard's df dot
   (hi, lo) pair goes to its slot (``Mesh.slots``, 2 floats a shard) and
   the pass that needs the sum folds the slots with ``df_add`` in shard
   order, the reference's ``_df_allsum``.  A plain psum of hi and lo
   separately would round the hi partials and lose the compensation;
-- the main level's own/cross-source overlap split of the sharded pack;
+- the main level's own/cross-source overlap split of the sharded pack,
+  both passes walked in the main level's one launch;
 - the step after the SpMV (the reference's ``_body_core_sh``,
   lanczos_df.py:171-188) on row 5cd's pass kernels
   (kernels/lanczos_step.py): a df dot pass on every held shard (the SpMV's
@@ -25,9 +28,11 @@ scheme of core/lanczos_df.py on the row mesh, with
 
 Every operation keeps the reference's order, and every df op outside
 the kernels is a chain of separate eager torch ops (core/df64.py), so no
-multiply is fused into an add.  The cross-shard fold changes the order
-of summation, so results differ from single-device df64 at the df
-roundoff level, not above it.
+multiply is fused into an add.  A level with no tiles on a shard is not
+run there: its fold would add zeros to a pair whose e is already NaN
+wherever y is not finite, and which is never -0.0.  The cross-shard fold
+changes the order of summation, so results differ from single-device
+df64 at the df roundoff level, not above it.
 """
 
 from __future__ import annotations
@@ -37,109 +42,79 @@ import torch
 
 from tpu_lanczos_torch.core import df64 as df
 from tpu_lanczos_torch.core import expmv
-from tpu_lanczos_torch.core.df64 import two_sum
 from tpu_lanczos_torch.core.lanczos_df import split_f64
 from tpu_lanczos_torch.core.pipeline import LanczosResult
-from tpu_lanczos_torch.dist.cpg_sharded import (ShardedCPG, _exchange,
-                                                pack_cpg_sharded)
+from tpu_lanczos_torch.dist.cpg_sharded import (
+    ShardedCPG, _exchange, _main_exchange, _main_walks, _reduce_levels,
+    pack_cpg_sharded)
 from tpu_lanczos_torch.dist.mesh import (Mesh, StepBuffers, make_mesh,
                                          one_stream, per_replica,
                                          step_buffers)
 from tpu_lanczos_torch.kernels import lanczos_step as ls
-from tpu_lanczos_torch.kernels.cpg import LANE
-from tpu_lanczos_torch.kernels.spmv_cpg import (
-    run_level, run_level_comp, run_level_comp_ref, run_level_ref)
+from tpu_lanczos_torch.kernels.spmv_cpg import (run_shard_level_df,
+                                                run_shard_level_df_ref)
 
 
-def _local_spmv_df(sg: ShardedCPG, mesh: Mesh, q: list, level_fn,
-                   comp_fn, masked: bool = True) -> list:
+def _local_spmv_df(sg: ShardedCPG, mesh: Mesh, q: list, df_fn,
+                   masked: bool = True) -> list:
     """Every held shard's df y = A (q_hi + q_lo) (q a per-shard list of
     (hi, lo) pairs): the reference's per-shard body (lanczos_df.py:64-169)
-    with each level run compensated on hi (``comp_fn``) and plain on lo
-    (``level_fn``), in its order of additions.  With ``masked=False`` the
-    last multiply of hi and lo by the realmask is left out, for the
-    step's passes to fold in."""
+    in its order of additions, each level of a shard one call of
+    ``df_fn`` (``run_shard_level_df`` or its plain version): the main
+    level's walks, then each reduce level the shard has tiles on, folded
+    into its (y, e) pair, the last one finishing the (hi, lo) pair.  Each
+    call keeps (y, e) while a later level's exchange reads them.  With
+    ``masked=False`` the last multiply of hi and lo by the realmask is
+    left out, for the step's passes to fold in."""
     c_loc, sub = sg.c_loc, sg.sub
-    rows = c_loc * sub
-
-    def run(fn, level, src):
-        return [fn(x.reshape(-1, LANE), lv, c_loc, sub)
-                for x, lv in zip(src, level)]
-
-    def gather_cross(level, vec):
-        return _exchange(sg, mesh, level, vec, "halo_sel")
-
     q_hi = [p[0] for p in q]
     q_lo = [p[1] for p in q]
-    if sg.overlap:
-        lv_own, lv_cross = sg.levels[0], sg.levels[1]
-        own_empty, cross_empty = sg.t_reals[0] == 0, sg.t_reals[1] == 0
-        # both exchanges first, then the own passes, then the cross passes
-        if not cross_empty:
-            g_hi = gather_cross(lv_cross, q_hi)
-            g_lo = gather_cross(lv_cross, q_lo)
-        if own_empty:
-            y2d = [t.new_zeros((rows, LANE)) for t in q_hi]
-            e2d = [t.new_zeros((rows, LANE)) for t in q_hi]
-        else:
-            comp = run(comp_fn, lv_own, q_hi)
-            lt = run(level_fn, lv_own, q_lo)
-            y2d = [c[0] for c in comp]
-            e2d = [c[1] + b for c, b in zip(comp, lt)]
-        if not cross_empty:
-            comp = run(comp_fn, lv_cross, g_hi)
-            lt = run(level_fn, lv_cross, g_lo)
-            for s, (c, b) in enumerate(zip(comp, lt)):
-                y2d[s], t = two_sum(y2d[s], c[0])
-                e2d[s] = ((e2d[s] + t) + c[1]) + b
-        base = 2
-    else:
-        lv0 = sg.levels[0]
-        src_hi, src_lo = gather_cross(lv0, q_hi), gather_cross(lv0, q_lo)
-        if "halo_sel" in lv0[0]:
-            # the shard's own chunks, then the halo (s_ids past c_loc)
-            src_hi = [torch.cat([t, h]) for t, h in zip(q_hi, src_hi)]
-            src_lo = [torch.cat([t, h]) for t, h in zip(q_lo, src_lo)]
-        comp = run(comp_fn, lv0, src_hi)
-        lt = run(level_fn, lv0, src_lo)
-        y2d = [c[0] for c in comp]
-        e2d = [c[1] + b for c, b in zip(comp, lt)]
-        base = 1
-
-    y = [t.reshape(-1) for t in y2d]
-    e = [t.reshape(-1) for t in e2d]
-    for level in sg.levels[base:]:
+    g_hi = _main_exchange(sg, mesh, q_hi)
+    g_lo = _main_exchange(sg, mesh, q_lo)
+    reduce = _reduce_levels(sg)
+    # the level each held shard finishes on (0: its main level)
+    last = [max((li for li in reduce if sg.shard_tiles[li][s]), default=0)
+            for s in mesh.shards]
+    masks = [r if masked else None for r in sg.realmask]
+    ye, out = [], []
+    for i, s in enumerate(mesh.shards):
+        walks = [(lv, hi, lo) for (lv, hi), (_, lo) in zip(
+            _main_walks(sg, s, i, q_hi[i], g_hi[i]),
+            _main_walks(sg, s, i, q_lo[i], g_lo[i]))]
+        pair, fin = df_fn(walks, c_loc, sub, keep=bool(reduce),
+                          finish=last[i] == 0, mask=masks[i])
+        ye.append(pair)
+        out.append(fin)
+    for n, li in enumerate(reduce):
         # the compact reduce-level exchange, of BOTH partial streams
-        comp = run(comp_fn, level, _exchange(sg, mesh, level, y, "sel"))
-        lt = run(level_fn, level, _exchange(sg, mesh, level, e, "sel"))
-        out_y, out_e = [], []
-        for ys, es, c, b in zip(y, e, comp, lt):
-            ys, t = two_sum(ys, c[0].reshape(-1))
-            out_y.append(ys)
-            out_e.append(((es + t) + c[1].reshape(-1)) + b.reshape(-1))
-        y, e = out_y, out_e
-    out = []
-    for ys, es, r in zip(y, e, sg.realmask):
-        # two_sum, not fast_two_sum: after cancellation |e| can exceed |y|
-        hi, lo = two_sum(ys, es)
-        out.append((hi * r, lo * r) if masked else (hi, lo))  # exact 0/1
+        level = sg.levels[li]
+        b_y = _exchange(sg, mesh, level, [p[0] for p in ye], "sel")
+        b_e = _exchange(sg, mesh, level, [p[1] for p in ye], "sel")
+        for i, s in enumerate(mesh.shards):
+            if sg.shard_tiles[li][s]:
+                pair, fin = df_fn([(level[i], (b_y[i],), (b_e[i],))], c_loc,
+                                  sub, base=ye[i],
+                                  keep=n + 1 < len(reduce),
+                                  finish=last[i] == li, mask=masks[i])
+                ye[i] = pair
+                out[i] = fin if fin is not None else out[i]
     return out
 
 
 def spmv_cpg_df_sharded(sg: ShardedCPG, mesh: Mesh, q_hi: list,
                         q_lo: list) -> list:
     """Double-word y = A (q_hi + q_lo) on the mesh, every shard level
-    through ``run_level_comp`` and ``run_level``.  Returns the per-shard
-    list of (hi, lo) float32 pairs."""
-    return _local_spmv_df(sg, mesh, list(zip(q_hi, q_lo)), run_level,
-                          run_level_comp)
+    through ``run_shard_level_df``.  Returns the per-shard list of (hi,
+    lo) float32 pairs."""
+    return _local_spmv_df(sg, mesh, list(zip(q_hi, q_lo)),
+                          run_shard_level_df)
 
 
 def spmv_cpg_df_sharded_ref(sg: ShardedCPG, mesh: Mesh, q_hi: list,
                             q_lo: list) -> list:
     """The same df SpMV through the plain versions on any device."""
-    return _local_spmv_df(sg, mesh, list(zip(q_hi, q_lo)), run_level_ref,
-                          run_level_comp_ref)
+    return _local_spmv_df(sg, mesh, list(zip(q_hi, q_lo)),
+                          run_shard_level_df_ref)
 
 
 def _step_df(sg: ShardedCPG, mesh: Mesh, q: list, q_prev: list, ss_prev,
@@ -155,7 +130,7 @@ def _step_df(sg: ShardedCPG, mesh: Mesh, q: list, q_prev: list, ss_prev,
     q_{j+1}.  Returns (q_{j+1}, the norm slots) as per-shard lists;
     ``ss_prev`` is the last step's (None at j = 0)."""
     n = len(q)
-    v = _local_spmv_df(sg, mesh, q, run_level, run_level_comp, masked=False)
+    v = _local_spmv_df(sg, mesh, q, run_shard_level_df, masked=False)
     for vs, qs, r, w, d, s in zip(v, q, sg.realmask, bufs.work, bufs.dot,
                                   mesh.shards):
         ls.shard_df_dot(vs, qs, mask=r, work=w, slots=d, shard=s,

@@ -17,7 +17,10 @@ for df64, at Europe's size, with and without the pack's realmask
 multiply; and the row-sharded path on 4 shards of the card
 (``make_mesh(devices=[cuda:0] * 4)``, the shards in turn):
 ``lanczos_cpg_sharded`` at k=50 (CUDA events, median of 5), the df64
-query ``expm_action_df_sharded`` (host wall, median of 3), the whole
+query ``expm_action_df_sharded`` (host wall, median of 3), one SpMV and
+one df SpMV (CUDA events, median of 5), each shard's local SpMV and df
+SpMV alone with the exchanges it reads made beforehand (the slowest one
+a real mesh's critical path), the whole
 4-shard step after the SpMV, f32 and df64 (the loops' own step function
 on the stored products of one SpMV, behind one ordinary one-value
 kernel that stands in for the SpMV's last level, queued behind a sleep),
@@ -39,6 +42,9 @@ import sys
 
 THIS_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
+# each turn times one shard alone through this checkout's helper
+SHARD_ALONE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "shard_alone.py")
 
 TURN = r"""
 import json, sys, time
@@ -112,6 +118,27 @@ row["df64_query_4_shard_s"], row["df64_query_4_shard_samples"] = wall_s(
     lambda: expm_action_df_sharded(g, k=50, mesh=mesh4, sg=sg4,
                                    log_scale=True), reps=3)
 
+# the 4-shard SpMV and df SpMV, and each shard's local SpMV and df SpMV
+# alone with the exchanges it reads made beforehand (the slowest one is a
+# real mesh's critical path), through this script's checkout's
+# eval/shard_alone.py
+import importlib.util
+from tpu_lanczos_torch.dist.cpg_sharded import spmv_cpg_sharded
+from tpu_lanczos_torch.dist.lanczos_df import spmv_cpg_df_sharded
+spec = importlib.util.spec_from_file_location("shard_alone", sys.argv[4])
+shard_alone = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(shard_alone)
+lo4 = [torch.zeros_like(t) for t in x4]
+row["spmv_4_shard_ms"], row["spmv_4_shard_samples"] = cuda_ms(
+    lambda: spmv_cpg_sharded(sg4, mesh4, x4))
+row["df_spmv_4_shard_ms"], row["df_spmv_4_shard_samples"] = cuda_ms(
+    lambda: spmv_cpg_df_sharded(sg4, mesh4, x4, lo4))
+alone = shard_alone.alone_fn(spmv_cpg_sharded, sg4, mesh4, x4)
+alone_df = shard_alone.alone_fn(spmv_cpg_df_sharded, sg4, mesh4, x4, lo4)
+row["shard_alone_ms"] = [cuda_ms(lambda: alone(s))[0] for s in range(4)]
+row["shard_alone_df_ms"] = [cuda_ms(lambda: alone_df(s))[0]
+                            for s in range(4)]
+
 
 def queued_us(fn, calls=50, reps=5):
     # (median device us a call, samples, the host's enqueue us a call)
@@ -152,8 +179,7 @@ def queued(name, fn, calls=50):
 # step with the real SpMV, device and host enqueue a step.
 from tpu_lanczos_torch.dist import lanczos_df as dldf
 from tpu_lanczos_torch.dist import mesh as dmesh
-from tpu_lanczos_torch.dist.cpg_sharded import _local, _local_spmv
-from tpu_lanczos_torch.kernels.spmv_cpg import run_level, run_level_comp
+from tpu_lanczos_torch.dist.cpg_sharded import _local
 
 
 def step_state(width=()):
@@ -165,7 +191,7 @@ def step_state(width=()):
 nrm = float(torch.cat(x4).norm())
 q4 = [t / nrm for t in x4]
 qp4 = [torch.zeros_like(t) for t in q4]
-v4 = _local_spmv(sg4, mesh4, q4, run_level, masked=False)
+v4 = _local(sg4, mesh4)(q4)
 tick = torch.zeros(1, device="cuda")
 spmv4 = dmesh.LocalSpmv(lambda q: (tick.add_(1), v4)[1],
                         mask=list(sg4.realmask))
@@ -189,8 +215,10 @@ queued("step_4_shard_f32", mesh_step(spmv4))
 queued("loop_step_4_shard_f32", mesh_step(_local(sg4, mesh4)), calls=20)
 qd4 = [(t, torch.zeros_like(t)) for t in q4]
 pd4 = [(torch.zeros_like(t), torch.zeros_like(t)) for t in q4]
-vd4 = dldf._local_spmv_df(sg4, mesh4, qd4, run_level, run_level_comp,
-                          masked=False)
+# the df SpMV's product, masked: the step's passes multiply it by the
+# 0/1 realmask again, which changes no value
+vd4 = spmv_cpg_df_sharded(sg4, mesh4, [p[0] for p in qd4],
+                          [p[1] for p in qd4])
 real_df_spmv = dldf._local_spmv_df
 dldf._local_spmv_df = lambda *a, **kw: (tick.add_(1), vd4)[1]
 carry = {"ss": None, "j": 1, "bufs": step_state((2,))}
@@ -290,7 +318,7 @@ def main(argv=None) -> int:
     for root, tag in turns:
         # each turn builds its own checkout's kernels into its build/
         proc = subprocess.run([sys.executable, "-c", TURN, root, tag,
-                               "1" if args.sharded else "0"],
+                               "1" if args.sharded else "0", SHARD_ALONE],
                               capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             print(proc.stderr[-4000:], file=sys.stderr)

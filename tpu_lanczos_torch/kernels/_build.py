@@ -21,8 +21,8 @@ from tpu_lanczos_torch.utils import BUILD_DIR, build_shared
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = [os.path.join(CSRC_DIR, name) for name in (
-    "spmv_cpg.cu", "spmv_cst.cu", "spmv_gpg.cu", "mxu_probe.cu",
-    "lanczos_step.cu")]
+    "spmv_cpg.cu", "spmv_cpg_shard.cu", "spmv_cst.cu", "spmv_gpg.cu",
+    "mxu_probe.cu", "lanczos_step.cu")]
 HEADERS = [os.path.join(CSRC_DIR, name) for name in (
     "tma.cuh", "heavy_first.cuh")]
 LIB_PATH = os.path.join(BUILD_DIR, "libtlt_kernels.so")
@@ -56,6 +56,19 @@ def bind_cpg(lib):
     lib.tlt_spmv_cpg_level_comp.restype = i
     lib.tlt_spmv_cpg_level_comp.argtypes = [p, p, p, p, p, p, p, p,
                                             i, i, i, i, p]
+    return lib
+
+
+def bind_shard(lib):
+    """Argument types of the row-sharded path's entry points on ``lib``:
+    spmv_cpg.cu's two-source level and spmv_cpg_shard.cu's df64 level
+    (its arguments' struct passes by its address)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.tlt_spmv_cpg_level_halo.restype = i
+    lib.tlt_spmv_cpg_level_halo.argtypes = [p, p, i, p, p, p, p, p, p, p,
+                                            i, i, i, i, p]
+    lib.tlt_spmv_cpg_shard_df.restype = i
+    lib.tlt_spmv_cpg_shard_df.argtypes = [p, i, p]
     return lib
 
 
@@ -115,6 +128,7 @@ def bind_step(lib):
 def _bind(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     bind_cpg(lib)
+    bind_shard(lib)
     bind_lineage(lib)
     bind_step(lib)
     lib.tlt_mxu_probe.restype = i

@@ -17,7 +17,9 @@
 // (if given) is added last, exactly as the reference adds its tile sum to
 // x or y outside the kernel: the result is bit-identical to the
 // reference.  Output is the untransposed (n_chunks*sub, 128) y layout, so
-// no transpose pass follows.
+// no transpose pass follows.  A shard of the row-sharded path may read its
+// source from two buffers, its own rows and its halo, each in place
+// (tlt_spmv_cpg_level_halo).
 //
 // The slab layout makes every tile source-slab-pure: s_ids are GLOBAL
 // slab ids (128 rows of x each, not chunk ids times sub), l1_t = l1[t*128
@@ -142,17 +144,29 @@ __device__ __forceinline__ Cells block_cells(int sub) {
 
 // Classic tile t's value for dest cell (ld, c): x[s_ids[t]*sub + L2,
 // L1[L2, ld]], or, with kSkipGhost, +0.0 without a load where L1 is lane
-// 127.
-template <bool kSkipGhost, typename T, typename L2T>
+// 127.  With kHalo the source is two buffers: chunks s_id < split are
+// x's, the rest chunk s_id - split of halo (a shard's rows and its halo,
+// each read in place).
+template <bool kSkipGhost, bool kHalo = false, typename T, typename L2T>
 __device__ __forceinline__ T tile_value(const T* __restrict__ x,
                                         const int8_t* __restrict__ l1,
                                         const L2T* __restrict__ l2,
                                         const int32_t* __restrict__ s_ids,
                                         int64_t t, int64_t cells, int c,
-                                        int sub, int ld) {
+                                        int sub, int ld,
+                                        const T* __restrict__ halo = nullptr,
+                                        int split = 0) {
   const int ss = static_cast<int>(l2[t * cells + c]);
   const int lane = l1[(t * sub + ss) * kLane + ld];
-  const T* p = x + (static_cast<int64_t>(s_ids[t]) * sub + ss) * kLane + lane;
+  int64_t sid = s_ids[t];
+  const T* src = x;
+  if constexpr (kHalo) {
+    if (sid >= split) {
+      src = halo;
+      sid -= split;
+    }
+  }
+  const T* p = src + (sid * sub + ss) * kLane + lane;
   if constexpr (kSkipGhost) {
     return lane != kGhost ? *p : T(0);
   } else {
@@ -177,14 +191,16 @@ __device__ __forceinline__ void store_cells(T v, T (&tr)[kRows][kCols + 1],
   out[o] = base != nullptr ? base[o] + tr[r][col] : tr[r][col];
 }
 
-template <typename T, typename L2T>
+// With kHalo, chunks s_id >= split of the source are halo's (tile_value).
+template <typename T, typename L2T, bool kHalo = false>
 __global__ void __launch_bounds__(kThreads)
 cpg_level_kernel(const T* __restrict__ x, const int8_t* __restrict__ l1,
                  const L2T* __restrict__ l2, const int32_t* __restrict__ s_ids,
                  const int32_t* __restrict__ starts,
                  const int32_t* __restrict__ counts,
                  const T* __restrict__ base, T* __restrict__ out,
-                 int n_chunks, int sub) {
+                 int n_chunks, int sub, const T* __restrict__ halo = nullptr,
+                 int split = 0) {
   const Cells k = block_cells(sub);
   const int d = tlt::heavy_first_chunk(counts, n_chunks);
   const int64_t cells = static_cast<int64_t>(sub) * kLane;
@@ -193,8 +209,8 @@ cpg_level_kernel(const T* __restrict__ x, const int8_t* __restrict__ l1,
   T acc = T(0);
 #pragma unroll 8
   for (int i = 0; i < count; ++i) {
-    acc += tile_value<false>(x, l1, l2, s_ids, start + i, cells, k.c, sub,
-                             k.ld);
+    acc += tile_value<false, kHalo>(x, l1, l2, s_ids, start + i, cells, k.c,
+                                    sub, k.ld, halo, split);
   }
   __shared__ T tr[kRows][kCols + 1];
   store_cells(acc, tr, k, d, sub, base, out);
@@ -605,13 +621,22 @@ dim3 level_grid(int n_chunks, int sub) {
 template <typename T, typename L2T>
 void launch(const void* x, const void* l1, const void* l2, const void* s_ids,
             const void* starts, const void* counts, const void* base,
-            void* out, int n_chunks, int sub, cudaStream_t stream) {
-  cpg_level_kernel<T, L2T><<<level_grid(n_chunks, sub), kThreads, 0,
-                             stream>>>(
-      static_cast<const T*>(x), static_cast<const int8_t*>(l1),
-      static_cast<const L2T*>(l2), static_cast<const int32_t*>(s_ids),
-      static_cast<const int32_t*>(starts), static_cast<const int32_t*>(counts),
-      static_cast<const T*>(base), static_cast<T*>(out), n_chunks, sub);
+            void* out, int n_chunks, int sub, cudaStream_t stream,
+            const void* halo = nullptr, int split = 0) {
+  const auto args = [&](auto kernel) {
+    kernel<<<level_grid(n_chunks, sub), kThreads, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const int8_t*>(l1),
+        static_cast<const L2T*>(l2), static_cast<const int32_t*>(s_ids),
+        static_cast<const int32_t*>(starts),
+        static_cast<const int32_t*>(counts), static_cast<const T*>(base),
+        static_cast<T*>(out), n_chunks, sub, static_cast<const T*>(halo),
+        split);
+  };
+  if (halo != nullptr) {
+    args(cpg_level_kernel<T, L2T, true>);
+  } else {
+    args(cpg_level_kernel<T, L2T, false>);
+  }
 }
 
 template <typename L2T>
@@ -667,6 +692,41 @@ extern "C" int tlt_spmv_cpg_level(const void* x, const void* l1,
   } else if (value_bytes == 8 && l2_bytes == 2) {
     launch<double, int16_t>(x, l1, l2, s_ids, starts, counts, base, out,
                             n_chunks, sub, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches one classic CPG level on `stream` that reads its source from
+// two buffers: chunks s_id < split of x, the rest chunk s_id - split of
+// halo (a shard's own rows and its halo, each read in place, where the
+// row-sharded path once copied them into one buffer).  Otherwise as
+// tlt_spmv_cpg_level.
+extern "C" int tlt_spmv_cpg_level_halo(const void* x, const void* halo,
+                                       int split, const void* l1,
+                                       const void* l2, const void* s_ids,
+                                       const void* starts,
+                                       const void* counts, const void* base,
+                                       void* out, int n_chunks, int sub,
+                                       int l2_bytes, int value_bytes,
+                                       void* stream) {
+  if (bad_shape(n_chunks, sub) || halo == nullptr || split < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (value_bytes == 4 && l2_bytes == 1) {
+    launch<float, uint8_t>(x, l1, l2, s_ids, starts, counts, base, out,
+                           n_chunks, sub, s, halo, split);
+  } else if (value_bytes == 4 && l2_bytes == 2) {
+    launch<float, int16_t>(x, l1, l2, s_ids, starts, counts, base, out,
+                           n_chunks, sub, s, halo, split);
+  } else if (value_bytes == 8 && l2_bytes == 1) {
+    launch<double, uint8_t>(x, l1, l2, s_ids, starts, counts, base, out,
+                            n_chunks, sub, s, halo, split);
+  } else if (value_bytes == 8 && l2_bytes == 2) {
+    launch<double, int16_t>(x, l1, l2, s_ids, starts, counts, base, out,
+                            n_chunks, sub, s, halo, split);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -12,10 +12,15 @@ CUDA tensor and takes its plain version (``run_level_ref``,
 untransposed (n_chunks*sub, 128) level output, and all are bit-identical
 to the reference's kernel.  ``n_chunks`` counts the dest chunks: on a
 shard of the row-sharded path (dist/cpg_sharded.py) the source holds
-another number of chunks than the dest.
+another number of chunks than the dest, or lies in two buffers
+(``run_level(..., halo=)``).  ``run_shard_level_df`` launches the
+row-sharded path's df64 level (``csrc/spmv_cpg_shard.cu``), its plain
+version ``run_shard_level_df_ref``.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -29,6 +34,9 @@ launches_slab = 0
 # and the compensated one (run_level_comp), classic and slab layout
 launches_comp = 0
 launches_comp_slab = 0
+# the row-sharded df64 level kernel (csrc/spmv_cpg_shard.cu,
+# run_shard_level_df)
+launches_shard_df = 0
 
 # the slab kernel's TMA row coordinates are int32 (csrc/spmv_cpg.cu,
 # slab_map_rows)
@@ -76,10 +84,13 @@ def _untransposed(acc: torch.Tensor, n_chunks: int, sub: int):
 
 
 def run_level_ref(x2d: torch.Tensor, level: dict, n_chunks: int, sub: int,
-                  base: torch.Tensor | None = None,
-                  slab: bool = False) -> torch.Tensor:
+                  base: torch.Tensor | None = None, slab: bool = False,
+                  halo: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version of one level: each cell's sum from 0 in tile
-    order, ``base`` added after it."""
+    order, ``base`` added after it.  With ``halo`` the source is x2d's
+    chunks followed by halo's."""
+    if halo is not None:
+        x2d = torch.cat([x2d, halo.reshape(-1, LANE)])
     acc = x2d.new_zeros((n_chunks, LANE, sub))  # [D, ld, rd]
     for d, g in _tile_values(x2d, level, n_chunks, sub, slab):
         acc[d] += g
@@ -156,31 +167,44 @@ def _check(x2d, level, n_chunks, sub, base, slab=False):
 
 
 def run_level(x2d: torch.Tensor, level: dict, n_chunks: int, sub: int,
-              base: torch.Tensor | None = None,
-              slab: bool = False) -> torch.Tensor:
+              base: torch.Tensor | None = None, slab: bool = False,
+              halo: torch.Tensor | None = None) -> torch.Tensor:
     """One CPG level of a classic (or, with ``slab``, a slab-layout)
     pack: the CUDA kernel on a CUDA tensor, the plain version on a CPU
     tensor.  Writes ``n_chunks`` dest chunks, (n_chunks*sub, 128); the
-    source x may hold another number of chunks (see ``_check``).
-    Launches on the current stream without syncing."""
+    source x may hold another number of chunks (see ``_check``).  With
+    ``halo`` (classic only) the source is x2d's chunks followed by
+    halo's, each read in place.  Launches on the current stream without
+    syncing."""
     global launches, launches_slab
     if x2d.device.type == "cpu":
-        return run_level_ref(x2d, level, n_chunks, sub, base, slab)
+        return run_level_ref(x2d, level, n_chunks, sub, base, slab, halo)
     if x2d.device.type != "cuda":
         raise ValueError(f"no CPG SpMV for device {x2d.device}")
     _check(x2d, level, n_chunks, sub, base, slab)
+    if halo is not None:
+        if slab:
+            raise ValueError("a slab level reads one source buffer")
+        _check(halo.reshape(-1, LANE), level, n_chunks, sub, None)
+        if halo.dtype != x2d.dtype or halo.device != x2d.device:
+            raise ValueError("halo must have x's dtype and device")
     from tpu_lanczos_torch.kernels import _build
 
     lib = _build.library()
     out = x2d.new_empty((n_chunks * sub, LANE))
-    err = lib.tlt_spmv_cpg_level(
-        x2d.data_ptr(), level["l1"].data_ptr(), level["l2"].data_ptr(),
-        level["s_ids"].data_ptr(), level["starts"].data_ptr(),
-        level["counts"].data_ptr(),
-        None if base is None else base.data_ptr(), out.data_ptr(),
-        n_chunks, sub, level["l2"].element_size(), x2d.element_size(),
-        int(slab), torch.cuda.current_stream(x2d.device).cuda_stream,
-    )
+    index = (level["l1"].data_ptr(), level["l2"].data_ptr(),
+             level["s_ids"].data_ptr(), level["starts"].data_ptr(),
+             level["counts"].data_ptr(),
+             None if base is None else base.data_ptr(), out.data_ptr(),
+             n_chunks, sub, level["l2"].element_size(), x2d.element_size())
+    stream = torch.cuda.current_stream(x2d.device).cuda_stream
+    if halo is None:
+        err = lib.tlt_spmv_cpg_level(x2d.data_ptr(), *index, int(slab),
+                                     stream)
+    else:
+        err = lib.tlt_spmv_cpg_level_halo(x2d.data_ptr(), halo.data_ptr(),
+                                          x2d.shape[0] // sub, *index,
+                                          stream)
     if err != 0:
         raise RuntimeError(f"spmv_cpg kernel launch failed: CUDA error {err}")
     if slab:
@@ -325,3 +349,179 @@ def spmv_cpg_df_ref(cg: CPGGraph, x_hi: torch.Tensor, x_lo: torch.Tensor):
     """The same double-word SpMV through the plain versions on any
     device."""
     return _spmv_df(cg, x_hi, x_lo, run_level_ref, run_level_comp_ref)
+
+
+# ---- the row-sharded df64 level kernel (csrc/spmv_cpg_shard.cu)
+#
+# A walk is one pass of a shard's level: ``(level, src_hi, src_lo)``, where
+# ``level`` is the shard's level dict and each source a tuple of its (flat)
+# tensors: the buffer the pass reads, or the shard's own rows followed by
+# its halo, which the kernel reads in place (s_ids below the own rows'
+# chunk count read them, the rest the halo).
+
+
+class _Walk(ctypes.Structure):
+    """csrc/spmv_cpg_shard.cu's ``Walk``."""
+
+    _fields_ = [("x", ctypes.c_void_p * 2), ("lo", ctypes.c_void_p * 2),
+                ("l1", ctypes.c_void_p), ("l2", ctypes.c_void_p),
+                ("s_ids", ctypes.c_void_p), ("starts", ctypes.c_void_p),
+                ("counts", ctypes.c_void_p), ("split", ctypes.c_int),
+                ("pad", ctypes.c_int)]
+
+
+class _ShardArgs(ctypes.Structure):
+    """csrc/spmv_cpg_shard.cu's ``ShardArgs``."""
+
+    _fields_ = [("walk", _Walk * 2)] + [
+        (name, ctypes.c_void_p) for name in (
+            "base_y", "base_e", "out_y", "out_e", "out_hi", "out_lo",
+            "mask", "part", "flags")] + [(name, ctypes.c_int) for name in (
+                "n_walks", "n_chunks", "sub", "pad")]
+
+
+def _df_outputs(keep: bool, finish: bool) -> None:
+    if not (keep or finish):
+        raise ValueError("a df64 shard level keeps (y, e), finishes the "
+                         "pair, or both")
+
+
+def run_shard_level_df_ref(walks, n_chunks: int, sub: int, base=None,
+                           keep: bool = True, finish: bool = False,
+                           mask: torch.Tensor | None = None):
+    """Plain version of a shard's df64 level: each walk compensated on
+    hi (``run_level_comp_ref``) and plain on lo (``run_level_ref``), folded
+    as the row-sharded df SpMV folded them before ``run_shard_level_df``:
+    without a ``base`` y = acc, e = err + lo from the first walk, then for
+    every further walk, and for every walk onto the (y, e) ``base`` of a
+    reduce level, ``y, t = two_sum(y, acc); e = ((e + t) + err) + lo``.
+    Returns ((y, e) if ``keep``, (hi, lo) = two_sum(y, e), times ``mask``
+    where given, if ``finish``), each flat, None where not asked for."""
+    _df_outputs(keep, finish)
+    y = e = None
+    if base is not None:
+        y, e = (t.reshape(-1, LANE) for t in base)
+    for level, src_hi, src_lo in walks:
+        c0, c1 = run_level_comp_ref(torch.cat(src_hi).reshape(-1, LANE),
+                                    level, n_chunks, sub)
+        b = run_level_ref(torch.cat(src_lo).reshape(-1, LANE), level,
+                          n_chunks, sub)
+        if y is None:
+            y, e = c0, c1 + b
+        else:
+            y, t = two_sum(y, c0)
+            e = ((e + t) + c1) + b
+    y, e = y.reshape(-1), e.reshape(-1)
+    if not finish:
+        return (y, e), None
+    # two_sum, not fast_two_sum: after cancellation |e| can exceed |y|
+    hi, lo = two_sum(y, e)
+    if mask is not None:
+        hi, lo = hi * mask, lo * mask  # exact 0/1
+    return ((y, e) if keep else None), (hi, lo)
+
+
+def _check_shard(walks, n_chunks: int, sub: int) -> None:
+    """The df64 shard wrapper's checks: one or two (level, src_hi,
+    src_lo) walks, each level's arrays as ``_check`` takes them, every
+    source tensor contiguous float32 of whole chunks on one device, the
+    lo stream's the hi stream's shapes.  That every s_id lies in its
+    walk's source is checked where the pack is split
+    (dist/cpg_sharded.py::_check_sources)."""
+    if not 1 <= len(walks) <= 2 or any(len(w) != 3 for w in walks):
+        raise ValueError("a df64 shard level takes 1 or 2 (level, src_hi, "
+                         "src_lo) walks")
+    x0 = walks[0][1][0]
+    for level, src_hi, src_lo in walks:
+        if not 1 <= len(src_hi) <= 2 or len(src_lo) != len(src_hi):
+            raise ValueError("a walk reads 1 or 2 source tensors, the same "
+                             "number in each stream")
+        for x, x_hi in zip((*src_hi, *src_lo), (*src_hi, *src_hi)):
+            if (x.dtype != torch.float32 or x.device != x0.device
+                    or not x.is_contiguous() or x.numel() == 0
+                    or x.numel() % (sub * LANE)
+                    or x.numel() != x_hi.numel()):
+                raise ValueError(
+                    f"walk sources must be contiguous float32 on "
+                    f"{x0.device}, whole {sub}-row chunks, the same in "
+                    f"each stream")
+        _check(src_hi[0].reshape(-1, LANE), level, n_chunks, sub, None)
+
+
+def _check_vector(t, n: int, device, what: str) -> None:
+    if (t.dtype != torch.float32 or t.device != device
+            or not t.is_contiguous() or t.numel() != n):
+        raise ValueError(f"{what} must be contiguous float32 ({n},) on "
+                         f"{device}")
+
+
+def _shard_args(walks, n_chunks: int, sub: int
+                ) -> tuple[_ShardArgs, torch.Tensor | None]:
+    """The kernel's arguments for ``walks`` (outputs left null) and, for
+    two walks, the call's own buffer of their partial sums (acc, err, lo
+    a cell and a walk) followed by their pair flags (one a block of a
+    walk, which the launch zeroes on its stream), which the caller keeps
+    until the launch is queued."""
+    x = walks[0][1][0]
+    args = _ShardArgs(n_walks=len(walks), n_chunks=n_chunks, sub=sub)
+    part = None
+    if len(walks) > 1:
+        n = n_chunks * sub * LANE
+        part = x.new_empty((2 * 3 * n + n // 256,))
+        args.part = part.data_ptr()
+        args.flags = part[2 * 3 * n:].data_ptr()
+    for w, (level, *srcs) in zip(args.walk, walks):
+        for ptrs, src in zip((w.x, w.lo), srcs):
+            ptrs[0] = src[0].data_ptr()
+            ptrs[1] = src[1].data_ptr() if len(src) > 1 else None
+        w.split = srcs[0][0].numel() // (sub * LANE)
+        for k in ("l1", "l2", "s_ids", "starts", "counts"):
+            setattr(w, k, level[k].data_ptr())
+    return args, part
+
+
+def run_shard_level_df(walks, n_chunks: int, sub: int, base=None,
+                       keep: bool = True, finish: bool = False,
+                       mask: torch.Tensor | None = None):
+    """A shard's df64 level in one launch of ``cpg_shard_level_df_kernel``
+    on CUDA tensors (float32 (hi, lo) sources), the plain version on CPU
+    ones: every walk's tiles read once for both streams, the folds, and
+    the finish, as ``run_shard_level_df_ref`` does them, bit for bit.
+    Precondition, as ``run_level_comp``'s: every source is +-0.0 in lane
+    127.  Launches on the current stream without syncing."""
+    global launches_shard_df
+    x = walks[0][1][0]
+    if x.device.type == "cpu":
+        return run_shard_level_df_ref(walks, n_chunks, sub, base, keep,
+                                      finish, mask)
+    if x.device.type != "cuda":
+        raise ValueError(f"no CPG SpMV for device {x.device}")
+    _df_outputs(keep, finish)
+    _check_shard(walks, n_chunks, sub)
+    n = n_chunks * sub * LANE
+    named = list(zip(base or (), ("base y", "base e")))
+    if mask is not None:
+        named.append((mask, "mask"))
+    for t, what in named:
+        _check_vector(t, n, x.device, what)
+    from tpu_lanczos_torch.kernels import _build
+
+    lib = _build.library()
+    args, part = _shard_args(walks, n_chunks, sub)
+    ye = (x.new_empty((n,)), x.new_empty((n,))) if keep else None
+    hl = (x.new_empty((n,)), x.new_empty((n,))) if finish else None
+    if base is not None:
+        args.base_y, args.base_e = base[0].data_ptr(), base[1].data_ptr()
+    if keep:
+        args.out_y, args.out_e = ye[0].data_ptr(), ye[1].data_ptr()
+    if finish:
+        args.out_hi, args.out_lo = hl[0].data_ptr(), hl[1].data_ptr()
+        args.mask = None if mask is None else mask.data_ptr()
+    err = lib.tlt_spmv_cpg_shard_df(
+        ctypes.addressof(args), walks[0][0]["l2"].element_size(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"spmv_cpg shard kernel launch failed: CUDA "
+                           f"error {err}")
+    launches_shard_df += 1
+    return ye, hl
