@@ -8,7 +8,8 @@ jax or of the JAX package.  Each phase prints one JSON line:
   0  toolchain: torch/CUDA versions, card, capability, nvcc, triton;
   1  build: the CUDA kernels (nvcc) and the native graph core (g++),
      from this checkout's sources, with their build seconds;
-  2  the SpMV kernels (plain and compensated, classic and slab layout)
+  2  the SpMV kernels (plain and compensated, classic and slab layout,
+     and the df level kernels that run a df SpMV's level in one launch)
      against their plain PyTorch versions on the card, on every level of
      small classic and slab packs (f32 and f64) and on whole SpMVs and df
      SpMVs: exact equality; the f64 and df64 SpMVs against scipy; and the
@@ -34,14 +35,18 @@ jax or of the JAX package.  Each phase prints one JSON line:
      f32 ``low_mem=True`` queries (alpha/beta bit-equal to stored-Q
      Lanczos, launch count, accuracy, top-20, peak memory) and the df64
      pipeline (``expm_action_df``, ``expm_action_ks_df``, the pass-1
-     checkpoint), each with its launch counts, accuracy and timings, and
-     row 5c at full size as row 5 in phase 3;
+     checkpoint), each with its launch counts (one df level launch a
+     level, none of kernels 1 and 1c), accuracy and timings, the df SpMV
+     through the df level kernel and composed of kernels 1c and 1 in
+     turns, each level beside its bound, and row 5c at full size as row
+     5 in phase 3;
   6  the slab layout on the same graph: its pack beside the classic one,
      the slab kernels == plain on every level, ``expm_action`` and
      ``expm_action_df`` on the slab pack (launch counts, accuracy, top-20)
-     and the slab SpMV, each level, the compensated main level and
-     Lanczos timed beside the classic, each beside its bound and the
-     plain version, with the cuSPARSE SpMV timed again;
+     and the slab SpMV, each level, the compensated main level, the df
+     SpMV (as in phase 5) and Lanczos timed beside the classic, each
+     beside its bound and the plain version, with the cuSPARSE SpMV timed
+     again;
   7  the CLI (``tpu_lanczos_torch.cli.main.main``) in process: the
      full-width slab --topk query with the device and the host
      eigensolve, and each single-device mode on a small graph against
@@ -98,8 +103,9 @@ jax or of the JAX package.  Each phase prints one JSON line:
  12  the eval harness (``tpu_lanczos_torch.eval``) on phase 3's graph,
      pack and phase 4's oracle answer: the stage breakdown (kernel 1's
      launches per Lanczos, the staged answer against ``expm_action``'s;
-     profiler traces, run after phase 9, of a bn1M Lanczos and of a
-     stencil_2600 Lanczos, the first profile of a mesh), fused serving
+     profiler traces, run after phase 9, of a bn1M Lanczos and df SpMV
+     and of a stencil_2600 Lanczos, the first profile of a mesh), fused
+     serving
      (top-20 overlap and
      values), the accuracy record (f32 and df64 against the oracle, the
      launches of kernels 1 and 1c), two bench-suite rows (copapers_540k
@@ -145,6 +151,15 @@ COMP_REPLACES = "tpu_lanczos/kernels/spmv_cpg.py:85 (compensated=True)"
 SLAB_REPLACES = "tpu_lanczos/kernels/spmv_cpg.py:85 (slab=True, :184-205)"
 COMP_SLAB_REPLACES = ("tpu_lanczos/kernels/spmv_cpg.py:85 (compensated=True,"
                       " slab=True)")
+# the single-device df64 level: kernels 1c (hi) and 1 (lo) of a level and
+# the eager folds between (spmv_cpg_df :450-483), one launch a level
+DF_SOURCE = "tpu_lanczos_torch/kernels/csrc/spmv_cpg_shard.cu"
+DF_REPLACES = ("tpu_lanczos/kernels/spmv_cpg.py:85 (pallas_call :342 "
+               "compensated=True on hi and plain on lo, a level of "
+               "spmv_cpg_df :419-483 with its two-sum folds)")
+DF_SLAB_REPLACES = ("tpu_lanczos/kernels/spmv_cpg.py:85 (slab=True; "
+                    "compensated=True on hi and plain on lo, a level of "
+                    "spmv_cpg_df :419-483 with its two-sum folds)")
 CST_SOURCE = "tpu_lanczos_torch/kernels/csrc/spmv_cst.cu"
 CST_REPLACES = "tpu_lanczos/kernels/spmv_pallas2.py:42 and :52"
 GPG_SOURCE = "tpu_lanczos_torch/kernels/csrc/spmv_gpg.cu"
@@ -169,7 +184,7 @@ BF16_OPS_PER_S = 989e12
 # launch
 COUNTERS = tuple(("tpu_lanczos_torch.kernels.spmv_cpg", c) for c in (
     "launches", "launches_slab", "launches_comp", "launches_comp_slab",
-    "launches_shard_df")) + (
+    "launches_shard_df", "launches_df", "launches_df_slab")) + (
     ("tpu_lanczos_torch.kernels.spmv_cst", "launches_cst"),
     ("tpu_lanczos_torch.kernels.spmv_gpg", "launches_gpg"),
     ("tpu_lanczos_torch.eval.mxu_probe", "launches_mxu"),
@@ -311,6 +326,34 @@ def spmv_cost(cg, value_bytes: int = 4):
     return nbytes + cg.n_pad * (4 + value_bytes), adds + cg.n_pad
 
 
+def df_level_cost(cg, i: int):
+    """(bytes, ops) of level i of a single-device df SpMV as its level
+    kernel runs it: the real tiles' l1 + l2 + s_ids and the chunk ranges
+    read once for both streams, the source pair read once (a broadcast or
+    a reduce level's base is that source), the output pair written once,
+    and on the last level the realmask read.  The two-sum's seven adds
+    and lo's one a tile cell; a cell's two base adds in a broadcast level,
+    one add on the main level, the fold's ten on a reduce level, and the
+    finish's six adds and two multiplies on the last
+    (``sharded_spmv_cost``'s counts)."""
+    sub, nb, n = cg.sub, cg.n_bcast, cg.n_pad
+    rows = 128 if cg.layout == "slab" else sub
+    t, l2b = cg.t_reals[i], cg.levels[i]["l2"].element_size()
+    last = int(i == len(cg.levels) - 1)
+    nbytes = (t * (rows * 128 + 128 * sub * l2b + 4) + 2 * cg.n_chunks * 4
+              + 2 * n * 8 + last * n * 4)
+    ops = (t * sub * 128 * 8 + n * (2 if i < nb else 1 if i == nb else 10)
+           + last * n * 8)
+    return nbytes, ops
+
+
+def df_spmv_cost(cg):
+    """(bytes, ops) of one single-device df SpMV: its levels'
+    ``df_level_cost``."""
+    costs = [df_level_cost(cg, i) for i in range(len(cg.levels))]
+    return sum(c[0] for c in costs), sum(c[1] for c in costs)
+
+
 def cst_spmv_cost(cg, value_bytes: int = 4, index_bytes=None):
     """(bytes, adds) of one CST SpMV: idx1 and idx3 read once (as stored,
     or ``index_bytes``), each level's source (a reduce level's source is
@@ -438,8 +481,8 @@ def lineage_level_ms(torch, spmv_mod, pack, x, kernel):
 
 def ptxas_report(log: str) -> list:
     """One entry per compiled kernel: its mangled name, whether it is a
-    slab-layout kernel (``cpg_slab_level_kernel`` and its compensated
-    twin) and ptxas's register line."""
+    slab-layout kernel (``cpg_slab_level_kernel``, its compensated twin
+    and the df level) and ptxas's register line."""
     out, name = [], None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
@@ -486,11 +529,29 @@ def level_chain(torch, spmv_cpg, cg, x):
 
 
 def df_level_chain(torch, spmv_cpg, cg, hi, lo):
-    """Run one df SpMV with every level through the kernels and their
-    plain versions on the same inputs (the inputs spmv_cpg_df gives each
-    level).  Returns the max |kernel - plain| of the compensated levels
-    (acc and err) and the df SpMV's (hi, lo)."""
-    err = 0.0
+    """Run one df SpMV with every level through the df level kernel
+    (``run_level_df``) and its plain version on the same inputs (the
+    inputs ``spmv_cpg_df`` gives each level), the kernel's outputs carried
+    on, and compared in int views; then the reference's composition
+    (``_spmv_df``) with kernels 1 and 1c held against their plain
+    versions on every level.  Returns the max |kernel - plain| of the df
+    levels and of the compensated levels (acc and err), and the df
+    SpMV's (hi, lo) through the df level kernel."""
+    df_err, err = 0.0, 0.0
+
+    def df_level(x_hi, x_lo, level, n_chunks, sub, **kw):
+        nonlocal df_err
+        got = spmv_cpg.run_level_df(x_hi, x_lo, level, n_chunks, sub, **kw)
+        want = spmv_cpg.run_level_df_ref(x_hi, x_lo, level, n_chunks, sub,
+                                         **kw)
+        for g_t, w_t in zip(got, want):
+            check(torch.equal(g_t.view(torch.int32), w_t.view(torch.int32)),
+                  f"df level kernel == plain (sub={sub}, {cg.layout}, "
+                  f"{kw['mode']})")
+            df_err = max(df_err, float((g_t - w_t).abs().max()))
+        return got
+
+    out = spmv_cpg._spmv_df_levels(cg, hi, lo, df_level)
 
     def plain(inp, level, n_chunks, sub, base=None, slab=False):
         got = spmv_cpg.run_level(inp, level, n_chunks, sub, base, slab)
@@ -510,7 +571,41 @@ def df_level_chain(torch, spmv_cpg, cg, hi, lo):
             err = max(err, float((g_t - w_t).abs().max()))
         return got
 
-    return err, spmv_cpg._spmv_df(cg, hi, lo, plain, comp)
+    want = spmv_cpg._spmv_df(cg, hi, lo, plain, comp)
+    check(all(torch.equal(a, b) for a, b in zip(out, want)),
+          f"df level chain == composed chain (sub={cg.sub}, {cg.layout})")
+    return df_err, err, out
+
+
+def df_spmv_turns(torch, spmv_cpg, cg, hi, lo) -> dict:
+    """CUDA-event samples of one df SpMV through the df level kernel
+    (``spmv_cpg_df``, "fused") and composed as the reference composes it,
+    kernels 1c and 1 a level with the eager folds between ("composed":
+    ``_spmv_df`` over ``run_level`` and ``run_level_comp``), in turns
+    composed, fused, fused, composed; REPS samples a turn."""
+    fns = {"fused": lambda: spmv_cpg.spmv_cpg_df(cg, hi, lo),
+           "composed": lambda: spmv_cpg._spmv_df(
+               cg, hi, lo, spmv_cpg.run_level, spmv_cpg.run_level_comp)}
+    out = {"fused": [], "composed": []}
+    for tag in ("composed", "fused", "fused", "composed"):
+        out[tag] += cuda_ms(torch, fns[tag])[1]
+    return out
+
+
+def df_levels_ms(torch, spmv_cpg, cg, hi, lo):
+    """CUDA-event medians of each df level kernel launch of one df SpMV
+    on the inputs ``spmv_cpg_df`` gives it, and each level's bound
+    (``df_level_cost``)."""
+    calls = []
+
+    def record(*a, **kw):
+        calls.append((a, kw))
+        return spmv_cpg.run_level_df(*a, **kw)
+
+    spmv_cpg._spmv_df_levels(cg, hi, lo, record)
+    ms = [cuda_ms(torch, lambda: spmv_cpg.run_level_df(*a, **kw))[0]
+          for a, kw in calls]
+    return ms, [bound(*df_level_cost(cg, i))[0] for i in range(len(calls))]
 
 
 def split_dev(torch, cg, x64, dev):
@@ -1952,17 +2047,17 @@ def suite_row(torch, name: str, cache_dir: str, dev) -> dict:
     # the f32 two-pass query and, past ORACLE_N_MAX, the df64 query; one
     # step (or df step) for each SpMV of the runs and queries
     plain = 2 * L + nb + (4 + REPS) * K * L + (2 * K - 1) * L
-    comp = L - nb
+    comp, df = L - nb, L
     steps, df_steps = (4 + REPS) * K + (2 * K - 1), 0
     if row["err_ref"] == "df64_selfcheck":
-        plain += (2 * K - 1) * (L + nb)
-        comp += (2 * K - 1) * (L - nb)
+        df += (2 * K - 1) * L
         df_steps = 2 * K - 1
     check_counts(counts, {"launches": plain, "launches_comp": comp,
-                          "launches_step": steps,
+                          "launches_df": df, "launches_step": steps,
                           "launches_step_df": df_steps},
                  f"bench_suite.run_one({name})")
-    check(row["levels_checked"] == {"plain": 2 * L + nb, "comp": L - nb},
+    check(row["levels_checked"] == {"plain": 2 * L + nb, "comp": L - nb,
+                                    "df": L},
           f"{name}: every level held against its plain version")
     check(row["rel_err"] is not None and row["rel_err"] < SUITE_F32_BAR,
           f"{name}: f32 rel_err {row['rel_err']} ({row['err_ref']}) < "
@@ -2026,6 +2121,23 @@ def traced_lanczos(torch, dg) -> dict:
     kernels, cats = traced_kernels(torch, lambda: lanczos(dg, x1, K))
     return dict(kernel_stats(kernels, ("cpg_level_kernel", *STEP_KERNELS)),
                 categories=cats)
+
+
+def traced_df_spmv(torch, dg) -> dict:
+    """One traced single-device ``spmv_cpg_df`` (``traced_kernels``): its
+    kernels by name, the df level kernel's launches and the elementwise
+    ops among them."""
+    from tpu_lanczos_torch.kernels.spmv_cpg import spmv_cpg_df
+
+    hi = dg.realmask.reshape(-1).clone()
+    lo = torch.full_like(hi, 2.0 ** -30) * hi
+    kernels, cats = traced_kernels(torch, lambda: spmv_cpg_df(dg, hi, lo))
+    by = kernel_stats(kernels, ("cpg_level_df_kernel",))["by_name"]
+    return {"kernels": len(kernels), "by_name": by, "categories": cats,
+            "df_level_kernels": by.get("cpg_level_df_kernel",
+                                       {}).get("launches", 0),
+            "elementwise": sum(r["launches"] for n, r in by.items()
+                               if "elementwise" in n)}
 
 
 # row 5d's pass kernels, three a shard a step
@@ -2131,15 +2243,20 @@ def trace_child(name: str, suite_cache: str) -> dict:
             g = bench_suite.build(cfg, suite_cache)
             pack, _ = bench_suite.load_or_pack(cfg, g, suite_cache, "cuda")
     del g
-    return dict(traced_lanczos(torch, pack), n_pad=pack.n_pad,
-                levels=len(pack.levels))
+    out = dict(traced_lanczos(torch, pack), n_pad=pack.n_pad,
+               levels=len(pack.levels))
+    if name == "bn1M":
+        out["df_spmv"] = traced_df_spmv(torch, pack)
+    return out
 
 
 def trace_part(suite_cache: str, t_all: float) -> None:
     """The traced Lanczos runs: phase 12's of bench.py's graph (the trace
     must name ``cpg_level_kernel`` k * levels times and the step kernel k
     times, one launch a step, and fewer than k other kernels: no
-    per-step realmask multiply) and of the suite's stencil_2600, a mesh's
+    per-step realmask multiply; and a traced df SpMV, whose kernels must
+    be the df level kernel once a level and nothing else) and of the
+    suite's stencil_2600, a mesh's
     profile (its graph and pack from phase 12's suite cache); and phase
     11's of bn1M on 4 shards of the card (k * shards launches of each of
     row 5d's three passes, and no kernel between a step's passes) and of
@@ -2175,6 +2292,13 @@ def trace_part(suite_cache: str, t_all: float) -> None:
               f"step kernels in a Lanczos of k={K}: one a step or more "
               f"(the realmask multiply is folded into the step)")
         step_ms = sum(t["by_name"][k]["ms"] for k in STEP_KERNELS)
+        if name == "bn1M":
+            d = t["df_spmv"]
+            check(d["kernels"] == d["df_level_kernels"] == L
+                  and d["elementwise"] == 0,
+                  f"bn1M traced df SpMV: {d['kernels']} kernels, "
+                  f"{d['df_level_kernels']} of the df level kernel, want "
+                  f"{L} and only those; {d['elementwise']} elementwise ops")
         emit({"phase": 12, "part": f"trace_{name}", **t,
               "step_kernels_ms": step_ms,
               "kernels_per_lanczos": t["kernel_events"],
@@ -2254,8 +2378,7 @@ def eval_phase(torch, g, dg, ref, ref_shift, t_all: float, suite_cache: str,
     counts = read_counts(torch)
     # two f32 two-pass queries and two df64 queries (a warm one each)
     check_counts(counts, {
-        "launches": 2 * (2 * K - 1) * L + 2 * (2 * K - 1) * (L + nb),
-        "launches_comp": 2 * (2 * K - 1) * (L - nb),
+        "launches": 2 * (2 * K - 1) * L, "launches_df": 2 * (2 * K - 1) * L,
         "launches_step": 2 * (2 * K - 1),
         "launches_step_df": 2 * (2 * K - 1)},
         "accuracy_gpu.run: as phase 5 counts each query")
@@ -2366,8 +2489,9 @@ def main() -> None:
     ptxas = ptxas_report(_build.build_log or "")
     emit({"phase": 1, "nvcc_build_s": nvcc_s, "gxx_build_s": gxx_s,
           "ptxas": ptxas})
-    check(sum(k["slab"] for k in ptxas) == 3,
-          "three slab instantiations built (plain f32, f64; compensated)")
+    check(sum(k["slab"] for k in ptxas) == 4,
+          "four slab instantiations built (plain f32, f64; compensated; "
+          "df)")
     for kernel in ("cpg_level_kernel", "cpg_level_comp_kernel",
                    "cst_level_kernel", "gpg_level_kernel", "probe_kernel",
                    "probe_reduce_kernel", *STEP_KERNELS,
@@ -2377,7 +2501,8 @@ def main() -> None:
                    "shard_dot_kernel", "shard_update_kernel",
                    "shard_sub_norm_kernel", "shard_normalize_kernel",
                    "df_update_kernel", "df_normalize_kernel",
-                   "cpg_shard_level_df_kernel"):
+                   "cpg_shard_level_df_kernel", "cpg_level_df_kernel",
+                   "cpg_slab_level_df_kernel"):
         check(any(kernel in k["kernel"] for k in ptxas), f"{kernel} built")
     os.makedirs(BUILD_DIR, exist_ok=True)
     cst_path = os.path.join(BUILD_DIR, f"cst_bn1M.{os.getpid()}.npz")
@@ -2403,6 +2528,7 @@ def main() -> None:
     ]
     max_err = {"classic": 0.0, "slab": 0.0}
     comp_err = {"classic": 0.0, "slab": 0.0}
+    df_err = {"classic": 0.0, "slab": 0.0}
     # rows 5 and 5c: the largest |kernel - plain| and relative alpha/beta
     # difference
     step_err = {"5": 0.0, "5c": 0.0}
@@ -2414,6 +2540,7 @@ def main() -> None:
         slab = layout == "slab"
         plain_c = "launches_slab" if slab else "launches"
         comp_c = "launches_comp_slab" if slab else "launches_comp"
+        df_c = "launches_df_slab" if slab else "launches_df"
         L, nb = len(cg.levels), cg.n_bcast
         reset_counts()
         xr = rng.standard_normal(cg.n)
@@ -2434,11 +2561,13 @@ def main() -> None:
               f"{name}: f64 kernel matches scipy ({err64})")
         check_counts(read_counts(torch), {plain_c: 4 * L},
                      f"{name}: f32 and f64 levels and SpMVs")
-        # df64: the compensated kernel == plain on every level, the df
-        # SpMV == its plain version and, in float64, scipy's
+        # df64: the df level kernel and the compensated kernel == plain
+        # on every level, the df SpMV == its plain version and, in
+        # float64, scipy's
         reset_counts()
         hi, lo = split_dev(torch, cg, xr, dev)
-        err_c, (yh, yl) = df_level_chain(torch, spmv_cpg, cg, hi, lo)
+        err_d, err_c, (yh, yl) = df_level_chain(torch, spmv_cpg, cg, hi, lo)
+        df_err[layout] = max(df_err[layout], err_d)
         comp_err[layout] = max(comp_err[layout], err_c)
         yh2, yl2 = spmv_cpg.spmv_cpg_df(cg, hi, lo)
         rh, rl = spmv_cpg.spmv_cpg_df_ref(cg, hi, lo)
@@ -2452,9 +2581,10 @@ def main() -> None:
                        / np.linalg.norm(want_df))
         check(df_rel < 1e-13, f"{name}: df64 SpMV matches scipy ({df_rel})")
         counts = read_counts(torch)
-        check_counts(counts, {comp_c: 2 * (L - nb),
-                              plain_c: 2 * (L + nb)},
-                     f"{name}: two df SpMVs")
+        check_counts(counts, {df_c: 2 * L, comp_c: L - nb,
+                              plain_c: L + nb},
+                     f"{name}: two df SpMVs, one composed of kernels 1 and "
+                     f"1c")
         # rows 5 and 5c on this pack's f32, f64 and df SpMV outputs
         reset_counts()
         for v_s, q_s, qp_s in step_inputs(torch, cg, xr, dev):
@@ -2466,14 +2596,15 @@ def main() -> None:
         step_err["5c"], step_rel["5c"] = (max(step_err["5c"], e),
                                           max(step_rel["5c"], r))
         check_counts(read_counts(torch), {
-            plain_c: 2 * L + (L + nb), comp_c: L - nb, "launches_step": 4,
+            plain_c: 2 * L, df_c: L, "launches_step": 4,
             "launches_step_df": 2}, f"{name}: rows 5 and 5c, twice each")
         rows.append({"pack": name, "layout": layout, "sub": cg.sub,
                      "levels": L, "n_bcast": nb, "tiles": list(cg.t_reals),
                      "l2": str(cg.levels[0]["l2"].dtype), "f64_err": err64,
                      "df64_rel_err": df_rel, "df_launches": counts})
     emit({"phase": 2, "equal": True, "max_abs_err": max_err,
-          "comp_max_abs_err": comp_err, "step_max_abs_err": step_err,
+          "comp_max_abs_err": comp_err, "df_max_abs_err": df_err,
+          "step_max_abs_err": step_err,
           "step_max_rel_alpha_beta": step_rel, "packs": rows})
 
     # ---- 3: main path at bench.py's size
@@ -2671,7 +2802,8 @@ def main() -> None:
     L, nb = len(dg.levels), dg.n_bcast
     C = dg.n_chunks
     hi_r, lo_r = split_dev(torch, dg, rng.standard_normal(N), dev)
-    err_c, _ = df_level_chain(torch, spmv_cpg, dg, hi_r, lo_r)
+    err_d, err_c, _ = df_level_chain(torch, spmv_cpg, dg, hi_r, lo_r)
+    df_err["classic"] = max(df_err["classic"], err_d)
     comp_err["classic"] = max(comp_err["classic"], err_c)
 
     def rel_to_oracle(r):
@@ -2746,14 +2878,13 @@ def main() -> None:
     torch.cuda.synchronize()
     df_first_s = time.time() - t0
     counts = read_counts(torch)
-    df_plain_launches = counts["launches"]
+    df_launches = counts["launches_df"]
     df_comp_launches = counts["launches_comp"]
     df_steps = counts["launches_step_df"]
-    check_counts(counts, {"launches_comp": (2 * K - 1) * (L - nb),
-                          "launches": (2 * K - 1) * (L + nb),
+    check_counts(counts, {"launches_df": (2 * K - 1) * L,
                           "launches_step_df": 2 * K - 1},
-                 "expm_action_df: (2k-1)(L-n_bcast) compensated and "
-                 "(2k-1)(L+n_bcast) plain, 2k-1 df steps")
+                 "expm_action_df: (2k-1)L df level launches (one a level), "
+                 "none of kernels 1 and 1c, 2k-1 df steps")
     rel_df = rel_to_oracle(res_df)
     top_df = set(np.argsort(res_df.ans)[-TOPK:].tolist())
     check(rel_df < 1e-10, f"df64 rel_error {rel_df} < 1e-10 against the "
@@ -2776,10 +2907,16 @@ def main() -> None:
 
     x2d_r = hi_r.reshape(dg.n_sub, 128)
     main = dg.levels[nb]
-    df_spmv_ms, df_spmv_samples = cuda_ms(
-        torch, lambda: spmv_cpg.spmv_cpg_df(dg, hi_r, lo_r))
+    # the df SpMV through the df level kernel and composed of kernels 1c
+    # and 1 with the eager folds (the reference's structure), in turns
+    df_turns = df_spmv_turns(torch, spmv_cpg, dg, hi_r, lo_r)
+    df_spmv_ms = float(np.median(df_turns["fused"]))
+    df_spmv_samples = df_turns["fused"]
     df_spmv_plain_ms, df_spmv_plain_samples = cuda_ms(
         torch, lambda: spmv_cpg.spmv_cpg_df_ref(dg, hi_r, lo_r))
+    df_bound = bound(*df_spmv_cost(dg))
+    df_level_ms, df_level_bound_ms = df_levels_ms(torch, spmv_cpg, dg, hi_r,
+                                                  lo_r)
     comp_ms, comp_samples = cuda_ms(
         torch, lambda: spmv_cpg.run_level_comp(x2d_r, main, C, SUB))
     comp_plain_ms, comp_plain_samples = cuda_ms(
@@ -2838,14 +2975,20 @@ def main() -> None:
     df_plan = ls.df_plan_for(dev, dg.n_pad)
     del v_d, q_d, qp_d, v_k
     emit({"phase": 5, "part": "df64", "k": K, "levels": L, "n_bcast": nb,
-          "launches_comp": df_comp_launches,
-          "launches_plain": df_plain_launches, "rel_error": rel_df,
+          "launches_df": df_launches, "launches_comp": df_comp_launches,
+          "rel_error": rel_df,
           "shift": res_df.log_scale, "oracle_shift": ref_shift,
           "top20_equal": top_df == top_ref, "ks": list(KS),
           "ks_diffs": {str(k): v for k, v in diffs.items()},
           "ks_vs_single": ks_rel, "checkpoint_equal": True,
           "comp_max_abs_err": comp_err["classic"],
+          "df_max_abs_err": df_err["classic"],
           "df_spmv_ms": df_spmv_ms, "df_spmv_samples": df_spmv_samples,
+          "df_spmv_turns": df_turns,
+          "df_spmv_composed_ms": float(np.median(df_turns["composed"])),
+          "df_spmv_bound_ms": df_bound[0], "df_spmv_bound_by": df_bound[1],
+          "df_spmv_bound_share": df_bound[0] / df_spmv_ms,
+          "df_level_ms": df_level_ms, "df_level_bound_ms": df_level_bound_ms,
           "df_spmv_plain_ms": df_spmv_plain_ms,
           "df_spmv_plain_samples": df_spmv_plain_samples,
           "comp_level_ms": comp_ms, "comp_level_samples": comp_samples,
@@ -2892,7 +3035,8 @@ def main() -> None:
     check(slab_vs_classic == 0.0, f"bn1M: slab A.1 == classic A.1 (integer "
           f"sums are exact in f32; max diff {slab_vs_classic})")
     hi_s, lo_s = split_dev(torch, ds, rng.standard_normal(N), dev)
-    err_cs, _ = df_level_chain(torch, spmv_cpg, ds, hi_s, lo_s)
+    err_ds, err_cs, _ = df_level_chain(torch, spmv_cpg, ds, hi_s, lo_s)
+    df_err["slab"] = max(df_err["slab"], err_ds)
     comp_err["slab"] = max(comp_err["slab"], err_cs)
 
     reset_counts()
@@ -2910,10 +3054,11 @@ def main() -> None:
     res_sdf = expm_action_df(g, k=K, dg=ds, log_scale=True)
     counts = read_counts(torch)
     comp_slab_launches = counts["launches_comp_slab"]
-    check_counts(counts, {"launches_comp_slab": (2 * K - 1) * (Ls - nbs),
-                          "launches_slab": (2 * K - 1) * (Ls + nbs),
+    df_slab_launches = counts["launches_df_slab"]
+    check_counts(counts, {"launches_df_slab": (2 * K - 1) * Ls,
                           "launches_step_df": 2 * K - 1},
-                 "expm_action_df on the slab pack")
+                 "expm_action_df on the slab pack: (2k-1)L slab df level "
+                 "launches, none of the slab kernels 1 and 1c")
     rel_sdf = rel_to_oracle(res_sdf)
     top_sdf = set(np.argsort(res_sdf.ans)[-TOPK:].tolist())
     check(rel_sdf < 1e-10, f"slab df64 rel_error {rel_sdf} < 1e-10")
@@ -2953,6 +3098,13 @@ def main() -> None:
         hs2d, main_s, ds.n_chunks, SUB, slab=True))[0]
     comp_slab_plain_ms = cuda_ms(torch, lambda: spmv_cpg.run_level_comp_ref(
         hs2d, main_s, ds.n_chunks, SUB, slab=True), reps=3)[0]
+    df_slab_turns = df_spmv_turns(torch, spmv_cpg, ds, hi_s, lo_s)
+    df_slab_ms = float(np.median(df_slab_turns["fused"]))
+    df_slab_plain_ms = cuda_ms(
+        torch, lambda: spmv_cpg.spmv_cpg_df_ref(ds, hi_s, lo_s), reps=3)[0]
+    df_slab_bound = bound(*df_spmv_cost(ds))
+    df_slab_level_ms, df_slab_level_bound_ms = df_levels_ms(
+        torch, spmv_cpg, ds, hi_s, lo_s)
     lanczos_slab_ms, lanczos_slab_samples = cuda_ms(
         torch, lambda: lanczos(ds, x1s, K))
     lanczos_classic_ms = cuda_ms(torch, lambda: lanczos(dg, x1, K))[0]
@@ -2968,8 +3120,8 @@ def main() -> None:
           "index_bytes": {"slab": ds.index_bytes(),
                           "classic": dg.index_bytes()},
           "launches_expm": slab_launches,
-          "launches_df": {"comp_slab": comp_slab_launches,
-                          "slab": (2 * K - 1) * (Ls + nbs)},
+          "launches_df": {"df_slab": df_slab_launches,
+                          "comp_slab": comp_slab_launches},
           "rel_error": rel_s, "df64_rel_error": rel_sdf,
           "top20_equal": top_s == top_ref, "df64_top20_equal":
           top_sdf == top_ref, "max_abs_err": max_err["slab"],
@@ -2987,6 +3139,15 @@ def main() -> None:
           "comp_slab_main_level_plain_ms": comp_slab_plain_ms,
           "comp_slab_main_level_bound_ms": comp_slab_bound[0],
           "comp_slab_bound_share": comp_slab_bound[0] / comp_slab_ms,
+          "df_max_abs_err": df_err["slab"],
+          "df_spmv_slab_ms": df_slab_ms, "df_spmv_slab_turns": df_slab_turns,
+          "df_spmv_slab_composed_ms": float(np.median(
+              df_slab_turns["composed"])),
+          "df_spmv_slab_plain_ms": df_slab_plain_ms,
+          "df_spmv_slab_bound_ms": df_slab_bound[0],
+          "df_spmv_slab_bound_share": df_slab_bound[0] / df_slab_ms,
+          "df_slab_level_ms": df_slab_level_ms,
+          "df_slab_level_bound_ms": df_slab_level_bound_ms,
           "lanczos_k50_ms": {"slab": lanczos_slab_ms,
                              "classic": lanczos_classic_ms},
           "lanczos_slab_samples": lanczos_slab_samples,
@@ -3072,8 +3233,9 @@ def main() -> None:
             check(rel_c < bar, f"CLI {name}: device vs serial {rel_c} < {bar}")
             row["rel_vs_serial"] = rel_c
         cli_small[name] = row
-    check(cli_small["df64_slab"]["launches"]["launches_comp_slab"] > 0,
-          "CLI df64 slab ran the compensated slab kernel")
+    check(cli_small["df64_slab"]["launches"]["launches_df_slab"] > 0
+          and cli_small["df64_slab"]["launches"]["launches_comp_slab"] == 0,
+          "CLI df64 slab ran the slab df level kernel, not kernel 1c")
     # a mesh of 2 GPUs on a machine with one fails as the reference's
     # does on one TPU chip
     try:
@@ -3381,6 +3543,19 @@ def main() -> None:
         "launches": comp_slab_launches, "max_abs_err": comp_err["slab"],
         "ms": comp_slab_ms, "plain_ms": comp_slab_plain_ms,
         "bound_ms": comp_slab_bound[0], "bound_by": comp_slab_bound[1],
+        "library_ms": None,
+    }, {
+        "name": "spmv_cpg_level_df", "route": "cuda", "source": DF_SOURCE,
+        "replaces": DF_REPLACES, "launches": df_launches,
+        "max_abs_err": df_err["classic"], "ms": df_spmv_ms,
+        "plain_ms": df_spmv_plain_ms, "bound_ms": df_bound[0],
+        "bound_by": df_bound[1], "library_ms": None,
+    }, {
+        "name": "spmv_cpg_level_df_slab", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": DF_SLAB_REPLACES,
+        "launches": df_slab_launches, "max_abs_err": df_err["slab"],
+        "ms": df_slab_ms, "plain_ms": df_slab_plain_ms,
+        "bound_ms": df_slab_bound[0], "bound_by": df_slab_bound[1],
         "library_ms": None,
     }, {
         "name": "spmv_cst_level", "route": "cuda", "source": CST_SOURCE,

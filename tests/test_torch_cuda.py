@@ -298,6 +298,148 @@ def test_slab_walk_bit_for_bit(dev, name):
             spmv_cpg.launches_comp_slab - before[1]) == (4 * n, n)
 
 
+def _ring_hub(n: int = 1_200_000, hub: int = 4000):
+    """A ring of n nodes and a hub joined to ``hub`` of them at random:
+    96 dest chunks at sub 128, a broadcast level and two reduce levels."""
+    ring = np.stack([np.arange(n - 1), np.arange(1, n)], axis=1)
+    leaves = np.random.default_rng(0).choice(np.arange(1, n), hub,
+                                             replace=False)
+    star = np.stack([np.zeros(hub, dtype=np.int64), leaves], axis=1)
+    return CSRGraph.from_edges(n, np.concatenate([ring, star]))
+
+
+# name -> (graph, sub, layout) of the df level kernels' packs: the walk
+# cases of both layouts, and a pack of more than 64 dest chunks in each
+# (heavy_first_chunk orders 64 at most; past that blockIdx.y is the chunk)
+_DF_CASES = dict(
+    [(f"{name}_classic", (build, sub, "classic"))
+     for name, (build, sub) in _WALK_CASES.items()]
+    + [(f"{name}_slab", (build, sub, "slab"))
+       for name, (build, sub) in _SLAB_WALK_CASES.items()]
+    + [("ring_hub_sub128_classic", (_ring_hub, 128, "classic")),
+       ("ring_hub_sub128_slab", (_ring_hub, 128, "slab"))])
+
+
+def _df_pair(cg, dev, seed):
+    """A permuted (hi, lo) float32 pair on dev, -0.0 in every lane-127
+    slot and on every other real zero of lo."""
+    from tpu_lanczos_torch.core.lanczos_df import split_f64
+
+    xr = np.random.default_rng(seed).standard_normal(cg.n)
+    xr[::7] *= 1e8  # hi terms that cancel, lo terms that do not
+    hi, lo = (torch.from_numpy(t).to(dev)
+              for t in split_f64(cg.permute_in(xr, np.float64)))
+    hi.view(-1, cpg.LANE)[:, cpg.LANE - 1] = -0.0
+    lo.view(-1, cpg.LANE)[:, cpg.LANE - 1] = -0.0
+    lo[(lo == 0) & (torch.arange(lo.numel(), device=dev) % 2 == 0)] = -0.0
+    return hi, lo
+
+
+@pytest.mark.parametrize("name", list(_DF_CASES))
+def test_df_level_kernels_bit_for_bit(dev, name):
+    """The single-device df64 level kernels (classic and slab) against
+    ``run_level_df_ref``, bit for bit (int views): every level of one df
+    SpMV in its mode on the inputs the loop gives it, the main and reduce
+    levels also finished with and without the mask; the df SpMV ==
+    ``spmv_cpg_df_ref`` masked and not; exactly one launch a level, and
+    none of kernels 1 and 1c."""
+    build, sub, layout = _DF_CASES[name]
+    cg = cpg.pack_cpg(build(), sub=sub, layout=layout, device=dev)
+    assert cg.layout == layout
+    if name.startswith("ring_hub"):
+        assert cg.n_chunks > 64 and cg.n_bcast == 1 and len(cg.levels) == 4
+    slab = layout == "slab"
+    C, nb = cg.n_chunks, cg.n_bcast
+    mask = cg.realmask
+    hi, lo = _df_pair(cg, dev, 8)
+    pair = (hi.reshape(-1, cpg.LANE), lo.reshape(-1, cpg.LANE))
+    calls = 0
+    for i, level in enumerate(cg.levels):
+        mode = "bcast" if i < nb else "main" if i == nb else "reduce"
+        finishes = [(False, None)] + ([] if mode == "bcast" else [
+            (True, None), (True, mask)])
+        for finish, m in finishes:
+            got = spmv_cpg.run_level_df(*pair, level, C, cg.sub, mode,
+                                        finish, m, slab)
+            want = spmv_cpg.run_level_df_ref(*pair, level, C, cg.sub, mode,
+                                             finish, m, slab)
+            assert all(torch.equal(_bits(a), _bits(b))
+                       for a, b in zip(got, want)), (i, mode, finish)
+            calls += 1
+            if not finish:
+                nxt = got
+        pair = nxt
+    before = (spmv_cpg.launches_df, spmv_cpg.launches_df_slab,
+              spmv_cpg.launches, spmv_cpg.launches_slab,
+              spmv_cpg.launches_comp, spmv_cpg.launches_comp_slab)
+    for masked in (True, False):
+        got = spmv_cpg.spmv_cpg_df(cg, hi, lo, masked=masked)
+        want = (spmv_cpg.spmv_cpg_df_ref(cg, hi, lo) if masked
+                else spmv_cpg._spmv_df(cg, hi, lo, spmv_cpg.run_level_ref,
+                                       spmv_cpg.run_level_comp_ref,
+                                       masked=False))
+        assert all(torch.equal(_bits(a), _bits(b))
+                   for a, b in zip(got, want)), masked
+    torch.cuda.synchronize()
+    after = (spmv_cpg.launches_df, spmv_cpg.launches_df_slab,
+             spmv_cpg.launches, spmv_cpg.launches_slab,
+             spmv_cpg.launches_comp, spmv_cpg.launches_comp_slab)
+    L = len(cg.levels)
+    # the two composed df SpMVs ran kernels 1 and 1c only through their
+    # plain versions
+    assert [a - b for a, b in zip(after, before)] == (
+        [0, 2 * L, 0, 0, 0, 0] if slab else [2 * L, 0, 0, 0, 0, 0])
+    assert calls == nb + 3 * (L - nb)
+
+
+def test_df_spmvs_on_two_streams(dev):
+    """Two single-device df SpMVs queued on two streams of the card at
+    once, classic and slab packs: every result equals the plain version,
+    bit for bit (a reduce level writes fresh buffers, never the source
+    another stream's level still reads)."""
+    g = generators.barabasi_albert(40000, 4, seed=1)
+    for layout in ("classic", "slab"):
+        cg = cpg.pack_cpg(g, sub=512, layout=layout, device=dev)
+        ins = [_df_pair(cg, dev, seed) for seed in (2, 3)]
+        wants = [spmv_cpg.spmv_cpg_df_ref(cg, hi, lo) for hi, lo in ins]
+        streams = [torch.cuda.Stream(device=dev) for _ in ins]
+        torch.cuda.synchronize()
+        outs = [[], []]
+        for _ in range(8):
+            for i, (st, (hi, lo)) in enumerate(zip(streams, ins)):
+                with torch.cuda.stream(st):
+                    outs[i].append(spmv_cpg.spmv_cpg_df(cg, hi, lo))
+        torch.cuda.synchronize()
+        for got_all, want in zip(outs, wants):
+            for got in got_all:
+                assert all(torch.equal(_bits(a), _bits(b))
+                           for a, b in zip(got, want)), layout
+
+
+def test_df64_queries_launch_the_df_level_kernels_only(dev):
+    """``expm_action_df`` on a classic and a slab pack: (2k-1)·L launches
+    of the df level kernel of its layout (one a level of every df SpMV),
+    none of kernels 1 and 1c, 2k-1 df steps; the answer against the
+    oracle at the df64 bar."""
+    from tpu_lanczos_torch.kernels import lanczos_step
+
+    g = generators.barabasi_albert(2000, 8, seed=2)
+    want = oracle.expm_action(g, np.ones(g.n), 30)
+    for layout in ("classic", "slab"):
+        cg = cpg.pack_cpg(g, layout=layout, device=dev)
+        names = ("launches_df", "launches_df_slab", "launches",
+                 "launches_slab", "launches_comp", "launches_comp_slab")
+        before = [getattr(spmv_cpg, n) for n in names]
+        steps = lanczos_step.launches_step_df
+        res = expm_action_df(g, k=30, dg=cg)
+        torch.cuda.synchronize()
+        got = [getattr(spmv_cpg, n) - b for n, b in zip(names, before)]
+        n_df = (2 * 30 - 1) * len(cg.levels)
+        assert got == ([0, n_df] if layout == "slab" else [n_df, 0]) + [0] * 4
+        assert lanczos_step.launches_step_df - steps == 2 * 30 - 1
+        assert oracle.rel_error(res.ans, want) < 1e-12
+
+
 def _checked(kernel, plain):
     def level(*args):
         got = kernel(*args)

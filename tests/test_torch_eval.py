@@ -151,7 +151,8 @@ def test_run_one_row(tmp_path, capsys, monkeypatch):
     dg = pack_cpg(bench_suite.build(cfg, str(tmp_path)), device="cpu",
                   **cfg["pack"])
     L, nb = len(dg.levels), dg.n_bcast
-    assert row["levels_checked"] == {"plain": L + (L + nb), "comp": L - nb}
+    assert row["levels_checked"] == {"plain": L + (L + nb), "comp": L - nb,
+                                     "df": L}
     assert row["tiles"] == dg.total_tiles
     assert row["err_ref"] == "oracle_f64" and row["rel_err"] < 1e-5
     # the df64 self-check branch past ORACLE_N_MAX

@@ -2,8 +2,9 @@
 
 The port of ``tpu_lanczos/core/lanczos_df.py``.  The whole recurrence
 runs in df64 arithmetic (core/df64.py): the SpMV is exact routing plus
-the compensated level kernel (kernels/spmv_cpg.py ``spmv_cpg_df``, CPG
-packs only), dots and norms are exact two-products with a two-sum tree,
+compensated tile sums (kernels/spmv_cpg.py ``spmv_cpg_df``, CPG packs
+only; on the card one launch of the df level kernel a level), dots and
+norms are exact two-products with a two-sum tree,
 and the updates are elementwise df ops on (hi, lo) vectors.
 
 It is the same two-pass Q-free scheme as core/lanczos.py: an alpha/beta

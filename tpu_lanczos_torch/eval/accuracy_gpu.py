@@ -11,7 +11,7 @@ on, the end-to-end relative error of
 - the f32 two-pass pipeline (``expm_action(..., low_mem=True)``, kernel
   1), and
 - the df64 double-word pipeline (``core.lanczos_df.expm_action_df``,
-  kernels 1 and 1c)
+  the df level kernel, one launch a level)
 
 against the host float64 oracle (eval/oracle.py), on the oracle's
 shifted scale, plus the wall of each.

@@ -268,13 +268,16 @@ def check_levels(dg, seed: int = 0) -> dict:
     device, on the inputs one float32 SpMV and one df SpMV of a seeded
     random vector give each level: ``run_level`` must equal
     ``run_level_ref`` and ``run_level_comp`` ``run_level_comp_ref`` bit
-    for bit.  Raises RuntimeError at the first difference.  Returns the
-    number of level calls checked, plain and compensated."""
+    for bit (the df SpMV composed as the reference composes it), and
+    ``run_level_df`` ``run_level_df_ref`` (the df SpMV as ``spmv_cpg_df``
+    runs it, a level a call).  Raises RuntimeError at the first
+    difference.  Returns the number of level calls checked, plain,
+    compensated and df."""
     from tpu_lanczos_torch.core.lanczos_df import split_f64
     from tpu_lanczos_torch.kernels import spmv_cpg
 
     xr = np.random.default_rng(seed).standard_normal(dg.n)
-    counts = {"plain": 0, "comp": 0}
+    counts = {"plain": 0, "comp": 0, "df": 0}
 
     def plain(inp, level, n_chunks, sub, base=None, slab=False):
         got = spmv_cpg.run_level(inp, level, n_chunks, sub, base, slab)
@@ -296,11 +299,23 @@ def check_levels(dg, seed: int = 0) -> dict:
         counts["comp"] += 1
         return got
 
+    def df_level(x_hi, x_lo, level, n_chunks, sub, **kw):
+        got = spmv_cpg.run_level_df(x_hi, x_lo, level, n_chunks, sub, **kw)
+        want = spmv_cpg.run_level_df_ref(x_hi, x_lo, level, n_chunks, sub,
+                                         **kw)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise RuntimeError(
+                f"df level kernel != plain version (sub={sub}, "
+                f"{dg.n_chunks} chunks, {kw['mode']})")
+        counts["df"] += 1
+        return got
+
     x = torch.from_numpy(dg.permute_in(xr, np.float32)).to(dg.device)
     spmv_cpg._spmv(dg, x, plain)
-    hi, lo = split_f64(dg.permute_in(xr, np.float64))
-    spmv_cpg._spmv_df(dg, torch.from_numpy(hi).to(dg.device),
-                      torch.from_numpy(lo).to(dg.device), plain, comp)
+    hi, lo = (torch.from_numpy(t).to(dg.device)
+              for t in split_f64(dg.permute_in(xr, np.float64)))
+    spmv_cpg._spmv_df(dg, hi, lo, plain, comp)
+    spmv_cpg._spmv_df_levels(dg, hi, lo, df_level)
     return counts
 
 

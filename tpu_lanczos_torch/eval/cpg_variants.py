@@ -3,19 +3,22 @@ on one CUDA GPU.
 
     python -m tpu_lanczos_torch.eval.cpg_variants \\
         [--n 1000000] [--m 10] [--seed 0] [--sub 512] \\
-        [--layout classic|slab] [--source NAME=PATH ...]
+        [--layout classic|slab] [--source NAME=PATH[,PATH...] ...]
 
-Builds ``kernels/csrc/spmv_cpg.cu`` (as "package") and each ``--source``
-file, which must have the same C interface (an earlier version of the
-kernel, for example the parent commit's, from ``git archive``), each into
-its own library.  On the graph (Barabasi-Albert, native generator)
-packed at ``--sub`` in ``--layout``, it prints one JSON line with each
-level's per-chunk tile counts, then one line per build: its ptxas
-report, equality with the package's kernel on every level (plain in f32
-and f64, and compensated), CUDA-event medians of each level, the whole
-SpMV and the compensated main level, and the host's time to launch the
-main level (``host_us``), the builds timed in turns (forward, then
-backward).  Last, one line with
+Builds ``kernels/csrc/spmv_cpg.cu`` and ``spmv_cpg_shard.cu`` (as
+"package") and each ``--source`` (one or more files with the same C
+interfaces, built together: an earlier version of the kernels, for
+example the parent commit's, from ``git archive``), each into its own
+library.  On the graph (Barabasi-Albert, native generator) packed at
+``--sub`` in ``--layout``, it prints one JSON line with each level's
+per-chunk tile counts, then one line per build: its ptxas report, and
+for each kernel the build has, equality with the package's kernel on
+every level (plain in f32 and f64, and compensated; the df64 level of
+the layout, ``run_level_df``'s C entry, on every level of one df SpMV),
+CUDA-event medians of each level, the whole SpMV and the compensated
+main level, the host's time to launch the main level (``host_us``), and
+the df SpMV and its main level, the builds timed in turns (forward,
+then backward).  Last, one line with
 the device time by kernel of one ``lanczos`` run of ``--k`` steps
 through the package's kernel (torch.profiler), its wall time and the
 device's idle share.  Needs a CUDA GPU and nvcc.
@@ -46,15 +49,16 @@ def lib_path(name: str, prefix: str = "cpg") -> str:
 
 
 def build(builds: dict, prefix: str = "cpg") -> dict:
-    """``builds``: name -> source (which may include the package's
-    csrc/ headers).  One nvcc per build, all at once, into
-    ``lib_path(name, prefix)``; returns name -> ptxas report lines."""
+    """``builds``: name -> source, or list of sources built into one
+    library (which may include the package's csrc/ headers).  One nvcc per
+    build, all at once, into ``lib_path(name, prefix)``; returns name ->
+    ptxas report lines."""
     nvcc = _build.nvcc_path()
     os.makedirs(os.path.dirname(lib_path("x")), exist_ok=True)
     procs = {name: subprocess.Popen(
         [nvcc] + _build.NVCC_FLAGS + [
-            "-I", _build.CSRC_DIR, "-shared", "-o", lib_path(name, prefix),
-            src],
+            "-I", _build.CSRC_DIR, "-shared", "-o", lib_path(name, prefix)]
+        + ([src] if isinstance(src, str) else list(src)),
         stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
         for name, src in builds.items()}
     logs = {name: p.communicate(timeout=600)[1] for name, p in procs.items()}
@@ -66,9 +70,10 @@ def build(builds: dict, prefix: str = "cpg") -> dict:
             for name, log in logs.items()}
 
 
-def level_fns(name: str):
-    """(plain level, compensated level) of one build, with
-    ``spmv_cpg.run_level``'s and ``run_level_comp``'s signatures."""
+def level_fns(name: str, slab: bool = False):
+    """(plain level, compensated level, df64 level of the layout) of one
+    build, with ``spmv_cpg.run_level``'s, ``run_level_comp``'s and
+    ``run_level_df``'s signatures; None for a kernel the build lacks."""
     lib = _build.bind_cpg(ctypes.CDLL(lib_path(name)))
 
     def plain(x2d, level, n_chunks, sub, base=None, slab=False):
@@ -96,7 +101,29 @@ def level_fns(name: str):
             raise RuntimeError(f"{name}: comp launch failed: CUDA error {err}")
         return out, e
 
-    return plain, comp
+    df_entry = getattr(lib, "tlt_spmv_cpg_slab_level_df" if slab
+                       else "tlt_spmv_cpg_level_df", None)
+
+    def df(x_hi, x_lo, level, n_chunks, sub, mode="main", finish=False,
+           mask=None, slab=False):
+        from tpu_lanczos_torch.kernels.spmv_cpg import _DF_MODES
+
+        a, b = torch.empty_like(x_hi), torch.empty_like(x_hi)
+        err = df_entry(
+            x_hi.data_ptr(), x_lo.data_ptr(), level["l1"].data_ptr(),
+            level["l2"].data_ptr(), level["s_ids"].data_ptr(),
+            level["starts"].data_ptr(), level["counts"].data_ptr(),
+            None if mask is None else mask.data_ptr(), a.data_ptr(),
+            b.data_ptr(), n_chunks, sub, level["l2"].element_size(),
+            _DF_MODES[mode], int(finish),
+            torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{name}: df launch failed: CUDA error {err}")
+        return a, b
+
+    has = hasattr(lib, "tlt_spmv_cpg_level")
+    return (plain if has else None, comp if has else None,
+            df if df_entry is not None else None)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -196,12 +223,13 @@ def main(argv=None) -> int:
     from tpu_lanczos_torch.kernels import spmv_cpg
     from tpu_lanczos_torch.kernels.cpg import LANE, pack_cpg
 
-    builds = {"package": _build.SOURCES[0]}
+    builds = {"package": _build.SOURCES[:2]}  # spmv_cpg.cu, _shard.cu
     for item in args.source:
-        name, path = item.split("=", 1)
-        builds[name] = os.path.abspath(path)
+        name, paths = item.split("=", 1)
+        builds[name] = [os.path.abspath(p) for p in paths.split(",")]
     ptxas = build(builds)
-    fns = {name: level_fns(name) for name in builds}
+    slab = args.layout == "slab"
+    fns = {name: level_fns(name, slab) for name in builds}
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -210,7 +238,6 @@ def main(argv=None) -> int:
                                    use_native=True)
     cg = pack_cpg(g, sub=args.sub, layout=args.layout, device="cuda")
     C, sub, nb = cg.n_chunks, cg.sub, cg.n_bcast
-    slab = cg.layout == "slab"
     print(json.dumps({"nvidia_smi": smi, "n": args.n, "m": args.m,
                       "sub": sub, "layout": cg.layout, "n_chunks": C,
                       "n_bcast": nb, "index_bytes": cg.index_bytes(),
@@ -244,45 +271,81 @@ def main(argv=None) -> int:
                                                     slab=slab), wc))
     print(json.dumps({"package_kernel_equals_plain_version": plain_equal}),
           flush=True)
+    # every df64 level's inputs as spmv_cpg_df gives them (hi, lo: the
+    # random vector split), and the package kernel's outputs
+    from tpu_lanczos_torch.core.lanczos_df import split_f64
+
+    hi, lo = (torch.from_numpy(t).cuda() for t in split_f64(
+        cg.permute_in(rng.standard_normal(cg.n), np.float64)))
+    df_calls = []
+
+    def record(*a, **kw):
+        df_calls.append((a, kw, spmv_cpg.run_level_df(*a, **kw)))
+        return df_calls[-1][2]
+
+    spmv_cpg._spmv_df_levels(cg, hi, lo, record)
 
     rows = {}
-    for name, (plain, comp) in fns.items():
-        equal = all(torch.equal(plain(xi, lv, C, sub, base=b, slab=slab), w)
-                    for (xi, lv, b), w in zip(inputs, want))
-        equal_comp = all(
-            torch.equal(a, b) for lv, wc in zip(cg.levels, want_comp)
-            for a, b in zip(comp(main_in, lv, C, sub, slab=slab), wc))
-        rows[name] = {"build": name, "source": builds[name],
-                      "ptxas": ptxas[name], "equal": equal,
-                      "equal_comp": equal_comp, "level_ms": [],
-                      "spmv_ms": [], "comp_main_ms": [], "host_us": []}
+    for name, (plain, comp, df) in fns.items():
+        row = rows[name] = {"build": name, "source": builds[name],
+                            "ptxas": ptxas[name]}
+        if plain is not None:
+            row["equal"] = all(
+                torch.equal(plain(xi, lv, C, sub, base=b, slab=slab), w)
+                for (xi, lv, b), w in zip(inputs, want))
+            row["equal_comp"] = all(
+                torch.equal(a, b) for lv, wc in zip(cg.levels, want_comp)
+                for a, b in zip(comp(main_in, lv, C, sub, slab=slab), wc))
+            row.update(level_ms=[], spmv_ms=[], comp_main_ms=[],
+                       host_us=[])
+        if df is not None:
+            row["equal_df"] = all(
+                torch.equal(g.view(torch.int32), w.view(torch.int32))
+                for a, kw, out in df_calls for g, w in zip(df(*a, **kw),
+                                                           out))
+            row.update(df_spmv_ms=[], df_main_ms=[])
     x1 = cg.realmask.clone()
     f32_inputs = inputs[:len(cg.levels)]
     order = list(fns) + list(fns)[::-1]
     for name in order:
-        plain, comp = fns[name]
+        plain, comp, df = fns[name]
         row = rows[name]
-        row["level_ms"].append([cuda_ms(
-            lambda: plain(xi, lv, C, sub, base=b, slab=slab), args.reps)
-            for xi, lv, b in f32_inputs])
-        row["spmv_ms"].append(cuda_ms(
-            lambda: spmv_cpg._spmv(cg, x1, plain), args.reps))
-        row["comp_main_ms"].append(cuda_ms(
-            lambda: comp(main_in, cg.levels[nb], C, sub, slab=slab),
-            args.reps))
-        xi, lv, b = f32_inputs[nb]
-        row["host_us"].append(host_us(
-            lambda: plain(xi, lv, C, sub, base=b, slab=slab)))
+        if plain is not None:
+            row["level_ms"].append([cuda_ms(
+                lambda: plain(xi, lv, C, sub, base=b, slab=slab), args.reps)
+                for xi, lv, b in f32_inputs])
+            row["spmv_ms"].append(cuda_ms(
+                lambda: spmv_cpg._spmv(cg, x1, plain), args.reps))
+            row["comp_main_ms"].append(cuda_ms(
+                lambda: comp(main_in, cg.levels[nb], C, sub, slab=slab),
+                args.reps))
+            xi, lv, b = f32_inputs[nb]
+            row["host_us"].append(host_us(
+                lambda: plain(xi, lv, C, sub, base=b, slab=slab)))
+        if df is not None:
+            row["df_spmv_ms"].append(cuda_ms(
+                lambda: spmv_cpg._spmv_df_levels(cg, hi, lo, df), args.reps))
+            a, kw, _ = df_calls[nb]
+            row["df_main_ms"].append(cuda_ms(lambda: df(*a, **kw),
+                                             args.reps))
     for row in rows.values():
-        row["level_ms_median"] = np.median(row["level_ms"], axis=0).tolist()
-        row["spmv_ms_median"] = float(np.median(row["spmv_ms"]))
-        row["comp_main_ms_median"] = float(np.median(row["comp_main_ms"]))
-        row["host_us_median"] = float(np.median(row["host_us"]))
-        row["index_GBps"] = cg.index_bytes() / row["spmv_ms_median"] / 1e6
+        if "level_ms" in row:
+            row["level_ms_median"] = np.median(row["level_ms"],
+                                               axis=0).tolist()
+            row["spmv_ms_median"] = float(np.median(row["spmv_ms"]))
+            row["comp_main_ms_median"] = float(np.median(
+                row["comp_main_ms"]))
+            row["host_us_median"] = float(np.median(row["host_us"]))
+            row["index_GBps"] = (cg.index_bytes() / row["spmv_ms_median"]
+                                 / 1e6)
+        if "df_spmv_ms" in row:
+            row["df_spmv_ms_median"] = float(np.median(row["df_spmv_ms"]))
+            row["df_main_ms_median"] = float(np.median(row["df_main_ms"]))
         print(json.dumps(row), flush=True)
     print(json.dumps(lanczos_profile(cg, args.k)), flush=True)
-    return 0 if plain_equal and all(r["equal"] and r["equal_comp"]
-                                    for r in rows.values()) else 1
+    return 0 if plain_equal and all(
+        row.get(k, True) for row in rows.values()
+        for k in ("equal", "equal_comp", "equal_df")) else 1
 
 
 if __name__ == "__main__":

@@ -4,7 +4,7 @@ The port of ``tpu_lanczos/eval/df_accuracy_suite.py``.  The reference
 CUDA code committed an f64 CUDA-vs-serial rel-norm for EVERY graph it
 benchmarked (parallel-final/output/final_output1.txt:31,63,95,127,223,
 255,287: 3e-16..9e-13).  The suite's rel_err column is f32; this runner
-gives the f64-grade twin for every class, on kernels 1 and 1c:
+gives the f64-grade twin for every class, on the df level kernel:
 
 - n <= bench_suite.ORACLE_N_MAX: the df64 pipeline
   (core/lanczos_df.expm_action_df) against the host f64 oracle, on the

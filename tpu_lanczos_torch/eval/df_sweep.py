@@ -5,7 +5,7 @@ signature accuracy artifact is its k-sweep on NotreDame_yeast (n=2114,
 E=2277): rel error 2.14 at k=5 -> 9.3e-4 at k=10 -> 3.5e-11 at k=20 ->
 ~4e-15 plateau at k>=25 (serial/output/numerical_test_output.txt; grid in
 tests/numerical_test.sh:5).  This reproduces the study with the df64
-(two-float32) pipeline on kernels 1 and 1c: a same-scale generated graph,
+(two-float32) pipeline on the df level kernel: a same-scale generated graph,
 ground truth by dense f64 eigendecomposition of A itself (the data/
 eigenpairs are not redistributable), every k answered from ONE
 decomposition (expm_action_ks_df's multi-answer recombine).  The f32

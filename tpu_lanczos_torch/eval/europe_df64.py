@@ -5,7 +5,7 @@ code's largest run was EuropeOSM (n=50,893,956) at k=20 only, double
 precision, via the 2-column streaming-Q design after the full-Q version
 spilled host RAM into swap (writeup §9.1-9.2).  This runs the SAME scale
 (a 7134 x 7134 stencil) at k=50 in df64 through the two-pass Q-free
-pipeline (kernels 1 and 1c, O(n) device memory), plus:
+pipeline (the df level kernel, O(n) device memory), plus:
 
 - df64 k-self-consistency ||ans_50 - ans_60|| / ||ans_60|| from one
   multi-answer decomposition (the reference's Table-5 metric);

@@ -10,7 +10,8 @@ n=1M, m=10, seed 0, native generator; sub=512) and times what chip_smoke
 phase 3 times on it: one SpMV and ``lanczos(dg, realmask, 50)`` (CUDA
 events) and the top-20 query ``expm_action_summary`` with the host and
 the device eigensolve (host wall, synchronised); medians of 5 after one
-warm run; the df64 query ``expm_action_df`` (median of 3); and the
+warm run; the df64 query ``expm_action_df`` (median of 3) and one
+single-device df SpMV ``spmv_cpg_df`` (CUDA events, median of 5); and the
 Lanczos step alone (rows 5 and 5c, device microseconds a step queued
 behind a sleeping kernel) at bn1M's n_pad, at 2^23 (stencil_2600's) and,
 for df64, at Europe's size, with and without the pack's realmask
@@ -103,6 +104,9 @@ if not only_sharded:
                                     eig_impl="device"))
     row["df64_query_s"], row["df64_query_samples"] = wall_s(
         lambda: expm_action_df(g, k=50, dg=dg, log_scale=True), reps=3)
+    lo1 = torch.full_like(x1, 2.0 ** -30) * x1
+    row["df_spmv_ms"], row["df_spmv_samples"] = cuda_ms(
+        lambda: spmv_cpg.spmv_cpg_df(dg, x1, lo1))
 
 # the row-sharded path, 4 shards in turn on the card
 from tpu_lanczos_torch.dist import make_mesh

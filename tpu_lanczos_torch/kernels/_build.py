@@ -24,7 +24,7 @@ SOURCES = [os.path.join(CSRC_DIR, name) for name in (
     "spmv_cpg.cu", "spmv_cpg_shard.cu", "spmv_cst.cu", "spmv_gpg.cu",
     "mxu_probe.cu", "lanczos_step.cu")]
 HEADERS = [os.path.join(CSRC_DIR, name) for name in (
-    "tma.cuh", "heavy_first.cuh")]
+    "tma.cuh", "heavy_first.cuh", "df_level.cuh")]
 LIB_PATH = os.path.join(BUILD_DIR, "libtlt_kernels.so")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -48,14 +48,20 @@ def nvcc_path() -> str:
 
 
 def bind_cpg(lib):
-    """Argument types of spmv_cpg.cu's two entry points on ``lib``."""
+    """Argument types of the single-device CPG entry points on ``lib``
+    (whichever it has): spmv_cpg.cu's levels (plain, compensated, the
+    slab df64 level) and spmv_cpg_shard.cu's classic df64 level."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tlt_spmv_cpg_level.restype = i
-    lib.tlt_spmv_cpg_level.argtypes = [p, p, p, p, p, p, p, p,
-                                       i, i, i, i, i, p]
-    lib.tlt_spmv_cpg_level_comp.restype = i
-    lib.tlt_spmv_cpg_level_comp.argtypes = [p, p, p, p, p, p, p, p,
-                                            i, i, i, i, p]
+    df = [p] * 10 + [i] * 5 + [p]
+    for name, args in (
+            ("tlt_spmv_cpg_level", [p] * 8 + [i] * 5 + [p]),
+            ("tlt_spmv_cpg_level_comp", [p] * 8 + [i] * 4 + [p]),
+            ("tlt_spmv_cpg_level_df", df),
+            ("tlt_spmv_cpg_slab_level_df", df)):
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.restype = i
+            fn.argtypes = args
     return lib
 
 

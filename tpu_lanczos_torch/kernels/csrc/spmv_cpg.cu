@@ -32,6 +32,14 @@
 // A ghost adds +0.0 (no skipped add), as the Pallas body's
 // where(idx < LANE, part, zero) does, so the sum is bit-identical too.
 //
+// The single-device df64 SpMV (tpu_lanczos/kernels/spmv_cpg.py::
+// spmv_cpg_df, :419-483: kernels 1c and 1 a level, on hi and on lo, with
+// XLA's two-sum folds between) runs a level of a slab pack as one launch
+// of cpg_slab_level_df_kernel: the slab walk of both streams at once, the
+// folds in the writing threads (df_level.cuh); a classic pack's level is
+// spmv_cpg_shard.cu's cpg_level_df_kernel.  The compensated kernels stay
+// the one-to-one counterparts of _run_level(compensated=True).
+//
 // Design of the classic walk, as measured on the H100 (PERF.md, PR 5).
 // - What bounds it.  The index bytes are read once per SpMV (~2,200 tiles
 //   of 64 KB of l1 and 128 KB of l2 at bn1M, ~440 MB, ~0.13 ms at 3.35
@@ -100,6 +108,9 @@
 // - Lost (PERF.md): the whole l1 tile by bulk copies multicast across
 //   the lane groups, l1 rows by the producer warp's cp.async, L2 evict
 //   hints, 2 blocks an SM by launch bounds, 4 or 16 cells a thread.
+// - The df walk (cpg_slab_level_df_kernel) gathers x_hi and x_lo at each
+//   real cell's place, 3 tiles ahead (kSlabAhead): one index stream for
+//   both, and twice the values a tile in flight.
 
 // Index types: l2 is uint8 for sub <= 256 and int16 above in the classic
 // layout, uint8 always in the slab layout; l1 is int8 with values 0..127.
@@ -112,6 +123,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "df_level.cuh"
 #include "heavy_first.cuh"
 #include "tma.cuh"
 
@@ -284,9 +296,11 @@ constexpr int kSlabL1Bytes = kLane * kSlabGroup;  // the (128, 16) l1 box
 constexpr int kSlabStageBytes =
     kSlabL1Bytes + tlt::align128(kSlabGroup * kSlabRows);
 // tiles of x loads in flight: 4 for double, whose values take twice the
-// registers (6 spill to local memory)
-template <typename T>
-constexpr int kSlabAhead = sizeof(T) == 8 ? 4 : 6;
+// registers (6 spill to local memory); 3 for the df walk's two streams
+// (at 4 it spilled 280 bytes a thread, and its main level took 0.92 ms
+// against 0.71 at 3 and 0.72 at 2: PERF.md, section 6)
+template <typename T, bool kDf = false>
+constexpr int kSlabAhead = sizeof(T) == 8 ? 4 : kDf ? 3 : 6;
 static_assert(tlt::kHeavyFirstMax <= kSlabThreads,
               "one thread ranks one chunk");
 static_assert(kSlabStages * kSlabStageBytes >=
@@ -326,7 +340,9 @@ __device__ __forceinline__ SlabBlock slab_block(
 }
 
 // The walk of one block: acc (and, kComp, err) of its consumer thread's
-// cells, summed over dest chunk d's tiles in order from +0.0.
+// cells, summed over dest chunk d's tiles in order from +0.0; with kDf
+// (and kComp) also lo, the plain sum of the lo stream x_lo, gathered at
+// the same places as x.
 //
 // Ghosts.  A ghost cell (bit 7 of L2) adds +0.0 without a load.  In the
 // plain sum that is exact as it stands.  In the two-sum, g = +0.0 leaves
@@ -336,21 +352,27 @@ __device__ __forceinline__ SlabBlock slab_block(
 // after it changes nothing either.  Neither sum is ever -0.0.  So a warp
 // whose cells are all ghosts in a tile skips the tile's adds, and both
 // walks stay bit-identical to the plain versions.
-template <typename T, bool kComp>
+template <typename T, bool kComp, bool kDf = false>
 struct SlabWalk {
-  static constexpr int kAhead = kSlabAhead<T>;
+  static_assert(kComp || !kDf, "the df walk two-sums the hi stream");
+  static constexpr int kAhead = kSlabAhead<T, kDf>;
+  static constexpr int kLoCells = kDf ? kSlabCells : 1;
   T acc[kSlabCells];
   T err[kSlabCells];
+  T lo[kLoCells];
 
   __device__ __forceinline__ void run(const CUtensorMap* l1_map,
                                       const CUtensorMap* l2_map,
                                       const T* __restrict__ x,
+                                      const T* __restrict__ x_lo,
                                       const int32_t* __restrict__ s_ids,
                                       int64_t start, int count,
                                       const SlabBlock& k, uint8_t* smem,
                                       uint64_t* full, uint64_t* empty) {
 #pragma unroll
     for (int b = 0; b < kSlabCells; ++b) acc[b] = err[b] = T(0);
+#pragma unroll
+    for (int b = 0; b < kLoCells; ++b) lo[b] = T(0);
     const int tid = static_cast<int>(threadIdx.x);
     if (tid == kSlabConsumers) {  // the producer
       const int rank = static_cast<int>(tlt::cluster_rank());
@@ -380,28 +402,36 @@ struct SlabWalk {
     if (tid >= k.consumers) return;
     const int lane = tid % 32;
     const int cl = tid / (k.rows / kSlabCells);  // the cells' lane
-    // tile i's values for this thread's cells, +0.0 for a ghost and past
-    // the chunk's tiles; true if any cell of the warp is real.  The tile's
-    // stage is released in every CTA of the cluster once read.
-    auto fetch = [&](int i, T (&v)[kSlabCells]) -> bool {
+    // tile i's values for this thread's cells (v; vl of the lo stream),
+    // +0.0 for a ghost and past the chunk's tiles; true if any cell of the
+    // warp is real.  The tile's stage is released in every CTA of the
+    // cluster once read.
+    auto fetch = [&](int i, T (&v)[kSlabCells], T (&vl)[kLoCells]) -> bool {
 #pragma unroll
       for (int b = 0; b < kSlabCells; ++b) v[b] = T(0);
+#pragma unroll
+      for (int b = 0; b < kLoCells; ++b) vl[b] = T(0);
       if (i >= count) return false;
-      const T* xs = x + static_cast<int64_t>(__ldg(s_ids + start + i)) *
-                            (kLane * kLane);
+      const int64_t slab =
+          static_cast<int64_t>(__ldg(s_ids + start + i)) * (kLane * kLane);
+      const T* xs = x + slab;
       const int s = i % kSlabStages;
       tlt::mbar_wait(&full[s], (i / kSlabStages) & 1);
       const uint8_t* buf = smem + s * kSlabStageBytes;
       // this thread's 8 bytes of the (16, rows) l2 box
-      const uint2 w = *reinterpret_cast<const uint2*>(buf + kSlabL1Bytes +
-                                                      tid * kSlabCells);
-      const uint32_t real = (~w.x | ~w.y) & 0x80808080u;
+      const uint2 l2w = *reinterpret_cast<const uint2*>(
+          buf + kSlabL1Bytes + tid * kSlabCells);
+      const uint32_t real = (~l2w.x | ~l2w.y) & 0x80808080u;
       const bool any = __any_sync(0xffffffffu, real != 0);
       if (any) {
 #pragma unroll
         for (int b = 0; b < kSlabCells; ++b) {
-          const int r = ((b < 4 ? w.x : w.y) >> (8 * (b % 4))) & 0xff;
-          if (r < kLane) v[b] = xs[r * kLane + buf[r * kSlabGroup + cl]];
+          const int r = ((b < 4 ? l2w.x : l2w.y) >> (8 * (b % 4))) & 0xff;
+          if (r < kLane) {
+            const int at = r * kLane + buf[r * kSlabGroup + cl];
+            v[b] = xs[at];
+            if constexpr (kDf) vl[b] = x_lo[slab + at];
+          }
         }
       }
       __syncwarp();
@@ -413,9 +443,12 @@ struct SlabWalk {
     // in tile order; a tile all of whose warp's cells are ghosts adds
     // nothing
     T v[kAhead][kSlabCells];
+    T v_lo[kAhead][kLoCells];
     uint32_t live = 0;
 #pragma unroll
-    for (int u = 0; u < kAhead; ++u) live |= uint32_t{fetch(u, v[u])} << u;
+    for (int u = 0; u < kAhead; ++u) {
+      live |= uint32_t{fetch(u, v[u], v_lo[u])} << u;
+    }
     for (int i = 0; i < count; i += kAhead) {
 #pragma unroll
       for (int u = 0; u < kAhead; ++u) {
@@ -431,10 +464,11 @@ struct SlabWalk {
             } else {
               acc[b] += g;
             }
+            if constexpr (kDf) lo[b] += v_lo[u][b];
           }
         }
         live = (live & ~(1u << u)) |
-               uint32_t{fetch(i + u + kAhead, v[u])} << u;
+               uint32_t{fetch(i + u + kAhead, v[u], v_lo[u])} << u;
       }
     }
   }
@@ -504,8 +538,8 @@ cpg_slab_level_kernel(const __grid_constant__ CUtensorMap l1_map,
   const SlabBlock k = slab_block(counts, n_chunks, sub);
   slab_ring_init(full, empty, k);
   SlabWalk<T, false> w;
-  w.run(&l1_map, &l2_map, x, s_ids, starts[k.d], counts[k.d], k, smem, full,
-        empty);
+  w.run(&l1_map, &l2_map, x, static_cast<const T*>(nullptr), s_ids,
+        starts[k.d], counts[k.d], k, smem, full, empty);
   slab_store(w.acc, smem, k, sub, base, out);
   // no CTA leaves while a peer may still arrive on its barriers
   tlt::cluster_sync();
@@ -527,10 +561,74 @@ cpg_slab_level_comp_kernel(const __grid_constant__ CUtensorMap l1_map,
   const SlabBlock k = slab_block(counts, n_chunks, sub);
   slab_ring_init(full, empty, k);
   SlabWalk<float, true> w;
-  w.run(&l1_map, &l2_map, x, s_ids, starts[k.d], counts[k.d], k, smem, full,
-        empty);
+  w.run(&l1_map, &l2_map, x, static_cast<const float*>(nullptr), s_ids,
+        starts[k.d], counts[k.d], k, smem, full, empty);
   slab_store(w.acc, smem, k, sub, static_cast<const float*>(nullptr), out);
   slab_store(w.err, smem, k, sub, static_cast<const float*>(nullptr), err);
+  tlt::cluster_sync();
+}
+
+// The df level's shared memory: the ring, or the three transpose tiles of
+// its output (acc, err, lo), whichever is larger.
+constexpr int kSlabDfTile = kSlabRows * (kSlabGroup + 1);
+constexpr int kSlabDfSmemBytes =
+    kSlabStages * kSlabStageBytes > 3 * kSlabDfTile * 4
+        ? kSlabStages * kSlabStageBytes
+        : 3 * kSlabDfTile * 4;
+
+// The single-device df64 slab level (float only): one slab walk of both
+// streams, x_hi two-summed as by cpg_slab_level_comp_kernel and x_lo
+// summed as by cpg_slab_level_kernel, gathered at the same places, and
+// the level's folds in the writing threads (tlt::df_level_cell, in
+// `mode`, finished where `finish`).  The outputs are other buffers than
+// the source.
+__global__ void __launch_bounds__(kSlabThreads)
+cpg_slab_level_df_kernel(const __grid_constant__ CUtensorMap l1_map,
+                         const __grid_constant__ CUtensorMap l2_map,
+                         const float* __restrict__ x_hi,
+                         const float* __restrict__ x_lo,
+                         const int32_t* __restrict__ s_ids,
+                         const int32_t* __restrict__ starts,
+                         const int32_t* __restrict__ counts,
+                         const float* __restrict__ mask,
+                         float* __restrict__ out_a, float* __restrict__ out_b,
+                         int n_chunks, int sub, int mode, int finish) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ uint64_t full[kSlabStages], empty[kSlabStages];
+  const SlabBlock k = slab_block(counts, n_chunks, sub);
+  slab_ring_init(full, empty, k);
+  SlabWalk<float, true, true> w;
+  w.run(&l1_map, &l2_map, x_hi, x_lo, s_ids, starts[k.d], counts[k.d], k,
+        smem, full, empty);
+  // the three sums through transpose tiles in the ring's shared memory
+  // (read out by then), as slab_store does one
+  constexpr int kPitch = kSlabGroup + 1;
+  float* tr = reinterpret_cast<float*>(smem);
+  const int tid = static_cast<int>(threadIdx.x);
+  __syncthreads();  // every thread is past its last read of the ring
+  if (tid < k.consumers) {
+    const int per_lane = k.rows / kSlabCells;
+    const int cl = tid / per_lane;
+    const int r0 = tid % per_lane * kSlabCells;
+#pragma unroll
+    for (int b = 0; b < kSlabCells; ++b) {
+      const int at = (r0 + b) * kPitch + cl;
+      tr[at] = w.acc[b];
+      tr[kSlabDfTile + at] = w.err[b];
+      tr[2 * kSlabDfTile + at] = w.lo[b];
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < k.rows * kSlabGroup; e += kSlabThreads) {
+    const int at = e / kSlabGroup * kPitch + e % kSlabGroup;
+    const int64_t o =
+        (static_cast<int64_t>(k.d) * sub + k.rd0 + e / kSlabGroup) * kLane +
+        k.ld0 + e % kSlabGroup;
+    tlt::df_level_cell(mode, finish != 0, tr[at], tr[kSlabDfTile + at],
+                       tr[2 * kSlabDfTile + at], x_hi, x_lo, mask, o, out_a,
+                       out_b);
+  }
+  // no CTA leaves while a peer may still arrive on its barriers
   tlt::cluster_sync();
 }
 
@@ -544,41 +642,58 @@ uint64_t slab_map_rows(uint64_t row_bytes) {
   return by_coord < by_bytes ? by_coord : by_bytes;
 }
 
+// A slab level's launch: the l1 and l2 tensor maps, and the grid, block,
+// shared memory and cluster of a launch on `stream`.
+struct SlabLaunch {
+  CUtensorMap l1_map, l2_map;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute cluster;
+
+  // False where the index buffers cannot be read by TMA.
+  bool init(const void* l1, const void* l2, int n_chunks, int sub, int smem,
+            cudaStream_t stream) {
+    if (!tlt::aligned16(l1) || !tlt::aligned16(l2)) return false;
+    const int rows = slab_rows(sub);
+    const int row_parts = sub / rows;
+    const int cs = slab_cluster(row_parts);
+    // l1 (tiles*128, 128) int8 in (128/cs, 16) boxes; l2 (tiles*128, sub)
+    // uint8 in (16, rows) boxes
+    if (!tlt::encode_2d(&l1_map, l1, 1, kLane, slab_map_rows(kLane), kLane,
+                        kSlabGroup, kLane / cs) ||
+        !tlt::encode_2d(&l2_map, l2, 1, sub, slab_map_rows(sub), sub, rows,
+                        kSlabGroup)) {
+      return false;
+    }
+    cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>(kLane / kSlabGroup * row_parts),
+                       static_cast<unsigned>(n_chunks));
+    cfg.blockDim = dim3(kSlabThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cluster.id = cudaLaunchAttributeClusterDimension;
+    cluster.val.clusterDim.x = static_cast<unsigned>(cs);
+    cluster.val.clusterDim.y = 1;
+    cluster.val.clusterDim.z = 1;
+    cfg.attrs = &cluster;
+    cfg.numAttrs = 1;
+    return true;
+  }
+};
+
 // Launches one slab level (kComp: the compensated one, out2 = err).
 template <typename T, bool kComp>
 int launch_slab(const void* x, const void* l1, const void* l2,
                 const void* s_ids, const void* starts, const void* counts,
                 const void* base, void* out, void* out2, int n_chunks,
                 int sub, cudaStream_t stream) {
-  if (!tlt::aligned16(l1) || !tlt::aligned16(l2)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int rows = slab_rows(sub);
-  const int row_parts = sub / rows;
-  const int cs = slab_cluster(row_parts);
-  CUtensorMap l1_map, l2_map;
-  // l1 (tiles*128, 128) int8 in (128/cs, 16) boxes; l2 (tiles*128, sub)
-  // uint8 in (16, rows) boxes
-  if (!tlt::encode_2d(&l1_map, l1, 1, kLane, slab_map_rows(kLane), kLane,
-                      kSlabGroup, kLane / cs) ||
-      !tlt::encode_2d(&l2_map, l2, 1, sub, slab_map_rows(sub), sub, rows,
-                      kSlabGroup)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   const int smem = kSlabStages * kSlabStageBytes;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(kLane / kSlabGroup * row_parts),
-                     static_cast<unsigned>(n_chunks));
-  cfg.blockDim = dim3(kSlabThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute cluster;
-  cluster.id = cudaLaunchAttributeClusterDimension;
-  cluster.val.clusterDim.x = static_cast<unsigned>(cs);
-  cluster.val.clusterDim.y = 1;
-  cluster.val.clusterDim.z = 1;
-  cfg.attrs = &cluster;
-  cfg.numAttrs = 1;
+  SlabLaunch sl;
+  if (!sl.init(l1, l2, n_chunks, sub, smem, stream)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaLaunchConfig_t& cfg = sl.cfg;
+  const CUtensorMap& l1_map = sl.l1_map;
+  const CUtensorMap& l2_map = sl.l2_map;
   static std::atomic<uint64_t> smem_raised{0};
   cudaError_t err;
   if constexpr (kComp) {
@@ -761,5 +876,41 @@ extern "C" int tlt_spmv_cpg_level_comp(const void* x, const void* l1,
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches one single-device df64 level in the slab layout on `stream`:
+// arguments as spmv_cpg_shard.cu's tlt_spmv_cpg_level_df (l2_bytes must
+// be 1, l1 and l2 16-byte aligned).  Returns the CUDA error (0 =
+// launched).
+extern "C" int tlt_spmv_cpg_slab_level_df(
+    const void* x_hi, const void* x_lo, const void* l1, const void* l2,
+    const void* s_ids, const void* starts, const void* counts,
+    const void* mask, void* out_a, void* out_b, int n_chunks, int sub,
+    int l2_bytes, int mode, int finish, void* stream) {
+  if (bad_shape(n_chunks, sub) || l2_bytes != 1 || mode < tlt::kDfBcast ||
+      mode > tlt::kDfReduce || (mode == tlt::kDfBcast && finish != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  SlabLaunch sl;
+  if (!sl.init(l1, l2, n_chunks, sub, kSlabDfSmemBytes,
+               static_cast<cudaStream_t>(stream))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static std::atomic<uint64_t> smem_raised{0};
+  cudaError_t err = tlt::once_per_device(smem_raised, [] {
+    return cudaFuncSetAttribute(cpg_slab_level_df_kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                kSlabDfSmemBytes);
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaLaunchKernelEx(
+      &sl.cfg, cpg_slab_level_df_kernel, sl.l1_map, sl.l2_map,
+      static_cast<const float*>(x_hi), static_cast<const float*>(x_lo),
+      static_cast<const int32_t*>(s_ids), static_cast<const int32_t*>(starts),
+      static_cast<const int32_t*>(counts), static_cast<const float*>(mask),
+      static_cast<float*>(out_a), static_cast<float*>(out_b), n_chunks, sub,
+      mode, finish);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,13 +1,23 @@
-// One shard's df64 level of the row-sharded CPG SpMV on Hopper (sm_90a),
-// bound through ctypes.
+// One df64 level of the CPG SpMV on Hopper (sm_90a), bound through
+// ctypes: a shard's (cpg_shard_level_df_kernel) and a single device's in
+// the classic layout (cpg_level_df_kernel).
 //
-// Replaces kernels 1 and 1c of spmv_cpg.cu as the row-sharded df64 SpMV
-// ran them, one launch a pass and a stream with eager folds between:
-// tpu_lanczos/dist/lanczos_df.py::_local_spmv_df (:64; every level
-// compensated on hi, plain on lo, folded by two-sums :121-166), each
-// level there a call of the Pallas kernel tpu_lanczos/kernels/
-// spmv_cpg.py::_run_level (pallas_call :342).  The f32/f64 sharded SpMV
-// runs kernel 1 itself, a launch a pass (spmv_cpg.cu).
+// cpg_shard_level_df_kernel replaces kernels 1 and 1c of spmv_cpg.cu as
+// the row-sharded df64 SpMV ran them, one launch a pass and a stream with
+// eager folds between: tpu_lanczos/dist/lanczos_df.py::_local_spmv_df
+// (:64; every level compensated on hi, plain on lo, folded by two-sums
+// :121-166), each level there a call of the Pallas kernel tpu_lanczos/
+// kernels/spmv_cpg.py::_run_level (pallas_call :342).  The f32/f64
+// sharded SpMV runs kernel 1 itself, a launch a pass (spmv_cpg.cu).
+//
+// cpg_level_df_kernel replaces them likewise on one device: tpu_lanczos/
+// kernels/spmv_cpg.py::spmv_cpg_df (:419-483), two Pallas calls a level
+// (_run_level :320, compensated=True on hi) and XLA's folds between.  A
+// level is one walk over all n_chunks dest chunks of the pack, with the
+// level's folds (df_level.cuh): the broadcast levels' plain adds, the main
+// level's e = err + lo, the reduce levels' two-sums onto their source, and
+// the last level's finish.  The slab layout's df level is spmv_cpg.cu's
+// cpg_slab_level_df_kernel.
 //
 // A walk is one pass's tiles on the shard (a level dict of the sharded
 // pack: l1, l2, s_ids, starts, counts over the shard's c_loc dest chunks)
@@ -34,7 +44,8 @@
 //   once, x_hi and x_lo gathered at the same place; the folds of the
 //   levels and the finish run in the writing threads, so no elementwise
 //   op is left between launches (the per-pass composition read the index
-//   bytes twice and ran ~150 eager ops a 4-shard df SpMV).
+//   bytes twice and ran ~150 eager ops a 4-shard df SpMV, the single
+//   device's ~15 a df SpMV).
 // - The main level's own and cross passes in one launch: a block owns 256
 //   dest cells of one (walk, chunk) pair, one thread a cell, as kernel 1;
 //   the pairs run heaviest first.  Of the two blocks of a cell range the
@@ -43,15 +54,23 @@
 //   range's flag (zeroed on the launch's stream before it, in the call's
 //   own buffer, so launches on other streams never share one); the
 //   second reads the first's.  No block waits on another.
+// - One device: the grid of kernel 1, a block a 256-cell range of a dest
+//   chunk, heaviest chunks first (blockIdx.y's place past 64 chunks, as
+//   heavy_first_chunk orders them), one launch a level.  A reduce level
+//   reads its (y, e) as the walk's source and as the fold's base and
+//   writes fresh buffers: a block writing in place would race the blocks
+//   still gathering from them.
 // - Ghost cells (~86% of bench.py's tile cells) add +0.0 without a load,
-//   as kernel 1c (exact: spmv_cpg.cu, "Ghost cells").
+//   as kernel 1c (exact: spmv_cpg.cu, "Ghost cells"); in the plain sums
+//   too, whose accumulators start at +0.0 and so are never -0.0.
 // - No flag that contracts or reassociates adds may build this file: the
 //   two-sums hold only as written (the folds use the _rn intrinsics).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "heavy_first.cuh"  // kHeavyFirstMax
+#include "df_level.cuh"
+#include "heavy_first.cuh"
 
 namespace tlt {
 
@@ -258,15 +277,13 @@ __device__ __forceinline__ bool later_of_pair(const ShardArgs& a, int d) {
   return later;
 }
 
-// One block an SM at least, said outright: the compiler then takes 64
-// registers a thread for the walk's two gathers, where it took 32 left to
-// itself, and the df SpMV ran faster (PERF.md, section 6).
-template <typename L2T, bool kTwoSrc>
-__global__ void __launch_bounds__(kCells, 1)
-    cpg_shard_level_df_kernel(const __grid_constant__ ShardArgs a) {
-  const int2 wd = shard_block(a);
-  const Cell k = cell_of(a.sub);
-  const DfSum s = walk_sum<L2T, kTwoSrc>(a, wd.x, wd.y, k);
+// This thread's cell of the block's outputs after a transpose through
+// shared memory (each row's kCols values contiguous in y): the walk sums
+// (acc, err, lo) of that cell into c, and its offset in the untransposed
+// (n_chunks*sub, 128) layout.  Every thread must call it.
+__device__ __forceinline__ int64_t transposed_sums(const DfSum& s,
+                                                  const Cell& k, int d,
+                                                  int sub, float (&c)[3]) {
   __shared__ float tr[3][kRows][kCols + 1];
   const int tr_r = static_cast<int>(threadIdx.x) % kRows;
   const int tr_c = static_cast<int>(threadIdx.x) / kRows;
@@ -276,13 +293,23 @@ __global__ void __launch_bounds__(kCells, 1)
   __syncthreads();
   const int r = static_cast<int>(threadIdx.x) / kCols;
   const int col = static_cast<int>(threadIdx.x) % kCols;
-  // the cell's offset in the untransposed (n_chunks*sub, 128) layout
-  const int64_t o =
-      (static_cast<int64_t>(wd.y) * a.sub + k.rd0 + r) * kLane + k.ld0 + col;
+#pragma unroll
+  for (int q = 0; q < 3; ++q) c[q] = tr[q][r][col];
+  return (static_cast<int64_t>(d) * sub + k.rd0 + r) * kLane + k.ld0 + col;
+}
+
+// One block an SM at least, said outright: the compiler then takes 64
+// registers a thread for the walk's two gathers, where it took 32 left to
+// itself, and the df SpMV ran faster (PERF.md, section 6).
+template <typename L2T, bool kTwoSrc>
+__global__ void __launch_bounds__(kCells, 1)
+    cpg_shard_level_df_kernel(const __grid_constant__ ShardArgs a) {
+  const int2 wd = shard_block(a);
+  const Cell k = cell_of(a.sub);
+  const DfSum s = walk_sum<L2T, kTwoSrc>(a, wd.x, wd.y, k);
   // the walks' (acc, err, lo) in walk order
   float c[kMaxWalks][3];
-#pragma unroll
-  for (int q = 0; q < 3; ++q) c[0][q] = tr[q][r][col];
+  const int64_t o = transposed_sums(s, k, wd.y, a.sub, c[0]);
   if (a.n_walks > 1) {
     const int64_t n = static_cast<int64_t>(a.n_chunks) * a.sub * kLane;
 #pragma unroll
@@ -306,30 +333,46 @@ __global__ void __launch_bounds__(kCells, 1)
     first = 1;
   }
   for (int v = first; v < a.n_walks; ++v) {
-    const float sy = __fadd_rn(y, c[v][0]);
-    const float z = __fsub_rn(sy, y);
-    const float t =
-        __fadd_rn(__fsub_rn(y, __fsub_rn(sy, z)), __fsub_rn(c[v][0], z));
-    y = sy;
-    e = __fadd_rn(__fadd_rn(__fadd_rn(e, t), c[v][1]), c[v][2]);
+    tlt::df_fold(y, e, c[v][0], c[v][1], c[v][2]);
   }
   if (a.out_y != nullptr) {
     a.out_y[o] = y;
     a.out_e[o] = e;
   }
-  if (a.out_hi != nullptr) {
-    // two_sum, not fast_two_sum: after cancellation |e| can exceed |y|
-    float hi = __fadd_rn(y, e);
-    const float z = __fsub_rn(hi, y);
-    float lo = __fadd_rn(__fsub_rn(y, __fsub_rn(hi, z)), __fsub_rn(e, z));
-    if (a.mask != nullptr) {  // exact 0/1
-      const float m = a.mask[o];
-      hi = __fmul_rn(hi, m);
-      lo = __fmul_rn(lo, m);
-    }
-    a.out_hi[o] = hi;
-    a.out_lo[o] = lo;
-  }
+  if (a.out_hi != nullptr) tlt::df_finish(y, e, a.mask, o, a.out_hi, a.out_lo);
+}
+
+// One single-device df64 level in the classic layout (mirrored by the C
+// entry tlt_spmv_cpg_level_df): one walk over all dest chunks, its source
+// the pair (walk.x[0], walk.lo[0]); mode and finish as df_level_cell
+// takes them.
+struct LevelDfArgs {
+  Walk walk;
+  const float* mask;  // finish: the realmask, or null
+  float* out_a;       // the level's outputs, never its source
+  float* out_b;
+  int n_chunks;
+  int sub;
+  int mode;           // tlt::DfMode
+  int finish;
+};
+
+// One block an SM at least, as the shard kernel says it: 66 registers, 3
+// blocks an SM.  Bounds of 4, 5 and 6 blocks an SM (64, 48 and 40
+// registers) made bn1M's main level 4%, 19% and 11% slower (PERF.md,
+// section 6): the walk's loads in flight matter more than warps.
+template <typename L2T>
+__global__ void __launch_bounds__(kCells, 1)
+    cpg_level_df_kernel(const __grid_constant__ LevelDfArgs a) {
+  const int d = tlt::heavy_first_chunk(a.walk.counts, a.n_chunks);
+  const Cell k = cell_of(a.sub);
+  const DfSum s = walk_sum_of<L2T, false>(a.walk, d, k, a.sub);
+  float c[3];
+  const int64_t o = transposed_sums(s, k, d, a.sub, c);
+  tlt::df_level_cell(a.mode, a.finish != 0, c[0], c[1], c[2],
+                     static_cast<const float*>(a.walk.x[0]),
+                     static_cast<const float*>(a.walk.lo[0]), a.mask, o,
+                     a.out_a, a.out_b);
 }
 
 // (sub*128/256, n_walks*n_chunks) blocks of 256 cells.
@@ -388,6 +431,51 @@ extern "C" int tlt_spmv_cpg_shard_df(const tlt::ShardArgs* args, int l2_bytes,
     launch_df<uint8_t>(a, s);
   } else {
     launch_df<int16_t>(a, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches one single-device df64 level in the classic layout on `stream`:
+// the walk of (x_hi, x_lo) over the level's tiles (l2_bytes 1 or 2) into
+// all n_chunks dest chunks, written in `mode` (tlt::DfMode) to out_a and
+// out_b, which must not overlap the source; `finish` (main and reduce
+// levels) writes the finished pair, times `mask` where it is not null.
+// Returns the CUDA error (0 = launched).
+extern "C" int tlt_spmv_cpg_level_df(const void* x_hi, const void* x_lo,
+                                     const void* l1, const void* l2,
+                                     const void* s_ids, const void* starts,
+                                     const void* counts, const void* mask,
+                                     void* out_a, void* out_b, int n_chunks,
+                                     int sub, int l2_bytes, int mode,
+                                     int finish, void* stream) {
+  if (n_chunks <= 0 || n_chunks > 65535 || sub <= 0 || sub % kLane != 0 ||
+      (l2_bytes != 1 && l2_bytes != 2) || mode < tlt::kDfBcast ||
+      mode > tlt::kDfReduce || (mode == tlt::kDfBcast && finish != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  LevelDfArgs a = {};
+  a.walk.x[0] = x_hi;
+  a.walk.lo[0] = x_lo;
+  a.walk.l1 = static_cast<const int8_t*>(l1);
+  a.walk.l2 = l2;
+  a.walk.s_ids = static_cast<const int32_t*>(s_ids);
+  a.walk.starts = static_cast<const int32_t*>(starts);
+  a.walk.counts = static_cast<const int32_t*>(counts);
+  a.walk.split = n_chunks;
+  a.mask = static_cast<const float*>(mask);
+  a.out_a = static_cast<float*>(out_a);
+  a.out_b = static_cast<float*>(out_b);
+  a.n_chunks = n_chunks;
+  a.sub = sub;
+  a.mode = mode;
+  a.finish = finish;
+  const dim3 grid(static_cast<unsigned>(sub * kLane / kCells),
+                  static_cast<unsigned>(n_chunks));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (l2_bytes == 1) {
+    cpg_level_df_kernel<uint8_t><<<grid, kCells, 0, s>>>(a);
+  } else {
+    cpg_level_df_kernel<int16_t><<<grid, kCells, 0, s>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,6 +16,15 @@ another number of chunks than the dest, or lies in two buffers
 (``run_level(..., halo=)``).  ``run_shard_level_df`` launches the
 row-sharded path's df64 level (``csrc/spmv_cpg_shard.cu``), its plain
 version ``run_shard_level_df_ref``.
+
+``spmv_cpg_df`` runs each level of a single device's df64 SpMV as one
+launch of ``run_level_df`` (``csrc/spmv_cpg_shard.cu``'s classic and
+``csrc/spmv_cpg.cu``'s slab kernel: both streams walked together, the
+reference's two-sum folds in the kernel), whose plain version
+``run_level_df_ref`` is the reference's level: ``run_level_comp_ref`` on
+hi, ``run_level_ref`` on lo, and the folds as eager ops.
+``spmv_cpg_df_ref`` stays the whole composition, level by level as the
+reference runs it (``_spmv_df``).
 """
 
 from __future__ import annotations
@@ -37,6 +46,15 @@ launches_comp_slab = 0
 # the row-sharded df64 level kernel (csrc/spmv_cpg_shard.cu,
 # run_shard_level_df)
 launches_shard_df = 0
+# the single-device df64 level kernels (run_level_df): classic
+# (csrc/spmv_cpg_shard.cu) and slab layout (csrc/spmv_cpg.cu)
+launches_df = 0
+launches_df_slab = 0
+
+# what a single-device df64 level writes (csrc/df_level.cuh, DfMode): a
+# broadcast level's (hi, lo), the main level's (y, e), a reduce level's
+# (y, e) folded onto its source
+_DF_MODES = {"bcast": 0, "main": 1, "reduce": 2}
 
 # the slab kernel's TMA row coordinates are int32 (csrc/spmv_cpg.cu,
 # slab_map_rows)
@@ -225,8 +243,9 @@ def run_level_comp(x2d: torch.Tensor, level: dict, n_chunks: int,
     walk adds +0.0 for a ghost cell without loading x
     (csrc/spmv_cpg.cu:61-72, :155-156), while the plain version and the
     reference's kernel add x[..., 127]; they agree bit for bit only where
-    that lane holds zeros.  Every level input that ``spmv_cpg_df`` gives
-    it does (the pack keeps lane 127 empty), and so does every buffer a
+    that lane holds zeros.  Every level input of the df SpMV does (the
+    pack keeps lane 127 empty; ``run_level_df`` walks its sources under
+    the same precondition), and so does every buffer a
     shard's level reads in the row-sharded df SpMV
     (``dist/lanczos_df.py``): its own rows, the gathered vector, its rows
     followed by the halo, and the compact reduce buffer, each made of
@@ -303,6 +322,31 @@ def spmv_cpg_ref(cg: CPGGraph, x: torch.Tensor) -> torch.Tensor:
     return _spmv(cg, x, run_level_ref)
 
 
+def _check_mode(mode: str, finish: bool) -> None:
+    if mode not in _DF_MODES or (mode == "bcast" and finish):
+        raise ValueError(f"a df64 level is a broadcast, main or reduce "
+                         f"level, finished only past a broadcast, got "
+                         f"mode={mode!r}, finish={finish}")
+
+
+def _df_fold(y, e, acc, err, lo):
+    """A reduce level's fold of its walk's sums onto (y, e), in the
+    reference's order: ``y, t = two_sum(y, acc); e = ((e + t) + err) +
+    lo``."""
+    y, t = two_sum(y, acc)
+    return y, ((e + t) + err) + lo
+
+
+def _df_finish(y, e, mask):
+    """hi, lo = two_sum(y, e), times ``mask`` (exact 0/1) where given.
+    two_sum, not fast_two_sum: after cancellation in the hi stream a
+    cell's |e| can exceed |y|, where the fast form is inexact."""
+    hi, lo = two_sum(y, e)
+    if mask is not None:
+        hi, lo = hi * mask, lo * mask
+    return hi, lo
+
+
 def _spmv_df(cg: CPGGraph, x_hi: torch.Tensor, x_lo: torch.Tensor,
              level_fn, comp_fn,
              masked: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
@@ -326,28 +370,148 @@ def _spmv_df(cg: CPGGraph, x_hi: torch.Tensor, x_lo: torch.Tensor,
     for level in cg.levels[nb + 1:]:
         yt, et = comp_fn(y2d, level, C, sub, slab=slab)
         lt = level_fn(e2d, level, C, sub, slab=slab)
-        y2d, t = two_sum(y2d, yt)
-        e2d = ((e2d + t) + et) + lt
-    # two_sum, not fast_two_sum: after cancellation in the hi stream a
-    # cell's |e| can exceed |y|, where the fast form is inexact
-    hi, lo = two_sum(y2d.reshape(-1), e2d.reshape(-1))
-    if not masked:
-        return hi, lo
-    mask = cg.realmask.to(x_hi.dtype)  # exact 0/1 multiply
-    return hi * mask, lo * mask
+        y2d, e2d = _df_fold(y2d, e2d, yt, et, lt)
+    return _df_finish(y2d.reshape(-1), e2d.reshape(-1),
+                      cg.realmask.to(x_hi.dtype) if masked else None)
+
+
+def run_level_df_ref(x_hi: torch.Tensor, x_lo: torch.Tensor, level: dict,
+                     n_chunks: int, sub: int, mode: str = "main",
+                     finish: bool = False, mask: torch.Tensor | None = None,
+                     slab: bool = False
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of one level of a single device's df64 SpMV, as the
+    reference's level loop (spmv_cpg.py:450-483) runs it on the
+    (n_chunks*sub, 128) source pair (x_hi, x_lo):
+
+    - ``mode="bcast"``: ``run_level_ref`` with the source as base on each
+      stream: (hi + sum(hi), lo + sum(lo)), plain adds;
+    - ``"main"``: (y, e) = (acc, err + sum(lo)), (acc, err) the
+      compensated level (``run_level_comp_ref``) of hi;
+    - ``"reduce"``: the same walk of the source (y, e), folded onto it
+      (``_df_fold``).
+
+    ``finish`` (main and reduce levels) returns hi, lo = two_sum(y, e)
+    instead, times ``mask`` where given (``_df_finish``)."""
+    _check_mode(mode, finish)
+    if mode == "bcast":
+        return (run_level_ref(x_hi, level, n_chunks, sub, base=x_hi,
+                              slab=slab),
+                run_level_ref(x_lo, level, n_chunks, sub, base=x_lo,
+                              slab=slab))
+    acc, err = run_level_comp_ref(x_hi, level, n_chunks, sub, slab)
+    lo = run_level_ref(x_lo, level, n_chunks, sub, slab=slab)
+    if mode == "main":
+        y, e = acc, err + lo
+    else:
+        y, e = _df_fold(x_hi, x_lo, acc, err, lo)
+    if not finish:
+        return y, e
+    if mask is not None:
+        mask = mask.reshape(y.shape)
+    return _df_finish(y, e, mask)
+
+
+def _check_df(x_hi, x_lo, level, n_chunks, sub, mode, finish, mask,
+              slab) -> None:
+    """``run_level_df``'s checks: float32 sources of exactly the level's
+    ``n_chunks * sub`` rows (the base of a broadcast and a reduce level
+    is its source), the level's arrays as ``_check`` takes them, a
+    mode the kernel knows, a float32 mask of the output's size only with
+    ``finish``."""
+    _check_mode(mode, finish)
+    shape = (n_chunks * sub, LANE)
+    for x in (x_hi, x_lo):
+        if (x.dtype != torch.float32 or tuple(x.shape) != shape
+                or x.device != x_hi.device or not x.is_contiguous()):
+            raise ValueError(f"df64 level sources must be contiguous "
+                             f"float32 {shape} on one device, got "
+                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    _check(x_hi, level, n_chunks, sub, None, slab)
+    if mask is not None:
+        if not finish:
+            raise ValueError("a df64 level multiplies by the mask only "
+                             "where it finishes the pair")
+        _check_vector(mask, n_chunks * sub * LANE, x_hi.device, "mask")
+
+
+def run_level_df(x_hi: torch.Tensor, x_lo: torch.Tensor, level: dict,
+                 n_chunks: int, sub: int, mode: str = "main",
+                 finish: bool = False, mask: torch.Tensor | None = None,
+                 slab: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """One level of a single device's df64 SpMV in one launch, classic
+    (``cpg_level_df_kernel``, csrc/spmv_cpg_shard.cu) or slab layout
+    (``cpg_slab_level_df_kernel``, csrc/spmv_cpg.cu), on CUDA tensors;
+    the plain version ``run_level_df_ref`` on CPU ones, bit for bit.  Each
+    tile's indices are read once for both streams, and the level's folds
+    run in the kernel.  Returns two new (n_chunks*sub, 128) tensors: the
+    kernel never writes its source, which a reduce level folds onto.
+    Precondition, as ``run_level_comp``'s: both sources are +-0.0 in lane
+    127 (the classic walk skips a ghost's loads).  Launches on the current
+    stream without syncing."""
+    global launches_df, launches_df_slab
+    if x_hi.device.type == "cpu":
+        return run_level_df_ref(x_hi, x_lo, level, n_chunks, sub, mode,
+                                finish, mask, slab)
+    if x_hi.device.type != "cuda":
+        raise ValueError(f"no CPG SpMV for device {x_hi.device}")
+    _check_df(x_hi, x_lo, level, n_chunks, sub, mode, finish, mask, slab)
+    from tpu_lanczos_torch.kernels import _build
+
+    lib = _build.library()
+    out_a, out_b = torch.empty_like(x_hi), torch.empty_like(x_hi)
+    entry = (lib.tlt_spmv_cpg_slab_level_df if slab
+             else lib.tlt_spmv_cpg_level_df)
+    err = entry(x_hi.data_ptr(), x_lo.data_ptr(), level["l1"].data_ptr(),
+                level["l2"].data_ptr(), level["s_ids"].data_ptr(),
+                level["starts"].data_ptr(), level["counts"].data_ptr(),
+                None if mask is None else mask.data_ptr(), out_a.data_ptr(),
+                out_b.data_ptr(), n_chunks, sub,
+                level["l2"].element_size(), _DF_MODES[mode], int(finish),
+                torch.cuda.current_stream(x_hi.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"spmv_cpg df64 level kernel launch failed: "
+                           f"CUDA error {err}")
+    if slab:
+        launches_df_slab += 1
+    else:
+        launches_df += 1
+    return out_a, out_b
+
+
+def _spmv_df_levels(cg: CPGGraph, x_hi: torch.Tensor, x_lo: torch.Tensor,
+                    level_fn, masked: bool = True
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's double-word level loop (spmv_cpg.py:450-483) with
+    each level one call of ``level_fn`` (``run_level_df``'s signature):
+    the broadcast levels, the main level and the reduce levels, the last
+    of them finishing the pair (times the realmask unless
+    ``masked=False``)."""
+    C, sub = cg.n_chunks, cg.sub
+    slab = cg.layout == "slab"
+    pair = (x_hi.reshape(cg.n_sub, LANE), x_lo.reshape(cg.n_sub, LANE))
+    nb, last = cg.n_bcast, len(cg.levels) - 1
+    mask = cg.realmask.to(x_hi.dtype) if masked else None  # exact 0/1
+    for i, level in enumerate(cg.levels):
+        mode = "bcast" if i < nb else "main" if i == nb else "reduce"
+        pair = level_fn(*pair, level, C, sub, mode=mode, finish=i == last,
+                        mask=mask if i == last else None, slab=slab)
+    return pair[0].reshape(-1), pair[1].reshape(-1)
 
 
 def spmv_cpg_df(cg: CPGGraph, x_hi: torch.Tensor, x_lo: torch.Tensor, *,
                 masked: bool = True):
     """Double-word SpMV: y = A @ (x_hi + x_lo) as a (hi, lo) float32 pair.
-    Every level goes through ``run_level`` and ``run_level_comp``.
-    ``masked=False`` as in ``spmv_cpg``: the df64 step folds the mask."""
-    return _spmv_df(cg, x_hi, x_lo, run_level, run_level_comp, masked)
+    Every level is one call of ``run_level_df``: on a CUDA pack one
+    launch a level and no elementwise op between.  ``masked=False`` as
+    in ``spmv_cpg``: the df64 step folds the mask."""
+    return _spmv_df_levels(cg, x_hi, x_lo, run_level_df, masked)
 
 
 def spmv_cpg_df_ref(cg: CPGGraph, x_hi: torch.Tensor, x_lo: torch.Tensor):
-    """The same double-word SpMV through the plain versions on any
-    device."""
+    """The same double-word SpMV as the reference composes it, through
+    the plain level versions on any device (what the kernels are held
+    against)."""
     return _spmv_df(cg, x_hi, x_lo, run_level_ref, run_level_comp_ref)
 
 
@@ -409,16 +573,11 @@ def run_shard_level_df_ref(walks, n_chunks: int, sub: int, base=None,
         if y is None:
             y, e = c0, c1 + b
         else:
-            y, t = two_sum(y, c0)
-            e = ((e + t) + c1) + b
+            y, e = _df_fold(y, e, c0, c1, b)
     y, e = y.reshape(-1), e.reshape(-1)
     if not finish:
         return (y, e), None
-    # two_sum, not fast_two_sum: after cancellation |e| can exceed |y|
-    hi, lo = two_sum(y, e)
-    if mask is not None:
-        hi, lo = hi * mask, lo * mask  # exact 0/1
-    return ((y, e) if keep else None), (hi, lo)
+    return ((y, e) if keep else None), _df_finish(y, e, mask)
 
 
 def _check_shard(walks, n_chunks: int, sub: int) -> None:
