@@ -497,9 +497,23 @@ def _main(args) -> int:
         t_serial = time.time() - t0
         print(f"serial (numpy f64) pipeline: {t_serial:.4f}s")
 
-    # ---------------- device pass
+    # ---------------- device pass; -v records its spans and prints them
+    if not args.verbose:
+        return _device_pass(args, g, k, t_serial, ans_serial)
+    from tpu_lanczos_torch import obs
+
+    with obs.recording() as rec:
+        rc = _device_pass(args, g, k, t_serial, ans_serial)
+    print("device pass spans (ms; card ms read by CUDA events):")
+    print(obs.table(rec.take()))
+    return rc
+
+
+def _device_pass(args, g, k: int, t_serial, ans_serial) -> int:
+    """The device pass: e^A.x, or its top-k, on one device or a mesh."""
     from tpu_lanczos_torch.core.pipeline import expm_action
 
+    device = args.device
     t0 = time.time()
     if args.shards:
         out = _sharded(args, g, k)

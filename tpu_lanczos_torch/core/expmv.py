@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpu_lanczos_torch import obs
 from tpu_lanczos_torch.core import tridiag
 from tpu_lanczos_torch.core.lanczos import LanczosState
 from tpu_lanczos_torch.utils import numpy_dtype
@@ -34,16 +35,17 @@ def fetch_tridiag(alpha: torch.Tensor, beta: torch.Tensor,
     """alpha (k,), beta[:k-1] (numpy) and x_norm (float) in ONE
     device->host copy; ``beta`` may carry the unused slot k-1."""
     k = alpha.shape[0]
-    h = torch.cat([alpha, beta[: k - 1], x_norm.reshape(1)])
-    h = h.cpu().numpy()
+    with obs.span("fetch_tridiag", obs.SYNC):
+        h = obs.fetch(torch.cat([alpha, beta[: k - 1], x_norm.reshape(1)]))
     return h[:k], h[k:2 * k - 1], float(h[-1])
 
 
 def host_coefficients(alpha, beta, x_norm):
     """Host LAPACK eigensolve of T (float64), then ``coefficients``:
     returns (tmp, shift)."""
-    evals, evecs = tridiag.eigh_host(alpha, beta)
-    return coefficients(evals, evecs, x_norm)
+    with obs.span("eigh", obs.HOST):
+        evals, evecs = tridiag.eigh_host(alpha, beta)
+        return coefficients(evals, evecs, x_norm)
 
 
 def unshift(ans_scaled: torch.Tensor, shift: float) -> torch.Tensor:
@@ -59,13 +61,14 @@ def multiply_out_host_eig(state: LanczosState, log_scale: bool = False):
     Returns ``ans`` (n_pad,) or ``(ans_scaled, shift)``."""
     tmp, shift = host_coefficients(
         *fetch_tridiag(state.alpha, state.beta, state.x_norm))
-    q_basis = state.q_basis
-    np_dtype = numpy_dtype(q_basis.dtype)
-    coeff = torch.from_numpy(tmp.astype(np_dtype)).to(q_basis.device)
-    ans_scaled = coeff @ q_basis
-    if log_scale:
-        return ans_scaled, float(shift)
-    return unshift(ans_scaled, shift)
+    with obs.span("multiply_out", obs.DEVICE):
+        q_basis = state.q_basis
+        np_dtype = numpy_dtype(q_basis.dtype)
+        coeff = torch.from_numpy(tmp.astype(np_dtype)).to(q_basis.device)
+        ans_scaled = coeff @ q_basis
+        if log_scale:
+            return ans_scaled, float(shift)
+        return unshift(ans_scaled, shift)
 
 
 def multiply_out(state: LanczosState, log_scale: bool = False):
@@ -76,12 +79,14 @@ def multiply_out(state: LanczosState, log_scale: bool = False):
     With ``log_scale=False`` the final ``* exp(shift)`` runs in the
     working dtype and overflows to inf past lambda_max ~ 88 (f32), as
     the reference's does."""
-    evals, evecs = tridiag.eigh_device(state.alpha, state.beta)
-    tmp, shift = coefficients(evals, evecs, state.x_norm)
-    ans_scaled = tmp @ state.q_basis  # (n_pad,); Q stored (k, n_pad)
-    if log_scale:
-        return ans_scaled, shift
-    return ans_scaled * torch.exp(shift)
+    with obs.span("eigh", obs.DEVICE):
+        evals, evecs = tridiag.eigh_device(state.alpha, state.beta)
+    with obs.span("multiply_out", obs.DEVICE):
+        tmp, shift = coefficients(evals, evecs, state.x_norm)
+        ans_scaled = tmp @ state.q_basis  # (n_pad,); Q stored (k, n_pad)
+        if log_scale:
+            return ans_scaled, shift
+        return ans_scaled * torch.exp(shift)
 
 
 def fa_multiply_out_host_eig(state: LanczosState, f):

@@ -15,7 +15,9 @@ and then ``kernels/lanczos_step.py::lanczos_step_df`` (on the card one
 cooperative launch of a hand-written kernel, which also does the df
 SpMV's realmask multiply as it loads v and folds the answer's
 accumulation into its last phase); breakdown is a select on the device,
-never a Python branch on a device value.
+never a Python branch on a device value.  ``expm_action_df`` is a
+``query`` span of ``tpu_lanczos_torch.obs`` (``pass1``, ``fetch_tridiag``,
+``eigh``, ``pass2``, ``fetch``, ``to_f64``, ``permute_out``).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpu_lanczos_torch import obs
 from tpu_lanczos_torch.core import df64 as df
 from tpu_lanczos_torch.core import expmv
 from tpu_lanczos_torch.core.pipeline import LanczosResult
@@ -134,8 +137,8 @@ def _fetch_df(alpha, beta, x_norm):
     """Pass 1's df pairs as float64 host values, in one device->host
     copy: alpha (k,), beta (k,) and x_norm (float)."""
     k = alpha[0].shape[0]
-    h = torch.cat([*alpha, *beta, x_norm[0].reshape(1),
-                   x_norm[1].reshape(1)]).cpu().numpy()
+    h = obs.fetch(torch.cat([*alpha, *beta, x_norm[0].reshape(1),
+                             x_norm[1].reshape(1)]))
     ah, al, bh, bl = h[:4 * k].reshape(4, k)
     return (df.df_to_f64((ah, al)), df.df_to_f64((bh, bl)),
             float(df.df_to_f64((h[-2], h[-1]))))
@@ -161,30 +164,40 @@ def expm_action_df(graph, x: np.ndarray | None = None, k: int = 50, *,
     k = int(max(min(k, graph.n - 1), 1))
     if dg is None:
         dg = pack_cpg(graph, device=device)
-    x_hi, x_lo = _start_df(dg, x)
-    if checkpoint_path is not None:
-        from tpu_lanczos_torch.core.checkpoint import (
-            lanczos_alphabeta_df_checkpointed)
+    with obs.query("expm_action_df", dg.device):
+        with obs.span("start", obs.DEVICE):
+            x_hi, x_lo = _start_df(dg, x)
+        with obs.span("pass1", obs.DEVICE):
+            if checkpoint_path is not None:
+                from tpu_lanczos_torch.core.checkpoint import (
+                    lanczos_alphabeta_df_checkpointed)
 
-        alpha, beta, x_norm = lanczos_alphabeta_df_checkpointed(
-            dg, x_hi, x_lo, k, checkpoint_path=checkpoint_path,
-            chunk=checkpoint_chunk)
-    else:
-        alpha, beta, x_norm = lanczos_alphabeta_df(dg, x_hi, x_lo, k)
-    alpha64, beta64, xn64 = _fetch_df(alpha, beta, x_norm)
-    beta64 = beta64[: k - 1]
+                alpha, beta, x_norm = lanczos_alphabeta_df_checkpointed(
+                    dg, x_hi, x_lo, k, checkpoint_path=checkpoint_path,
+                    chunk=checkpoint_chunk)
+            else:
+                alpha, beta, x_norm = lanczos_alphabeta_df(dg, x_hi, x_lo, k)
+        with obs.span("fetch_tridiag", obs.SYNC):
+            alpha64, beta64, xn64 = _fetch_df(alpha, beta, x_norm)
+        beta64 = beta64[: k - 1]
 
-    coeff, shift = expmv.host_coefficients(alpha64, beta64, xn64)
-    ansh, ansl = lanczos_recombine_df(dg, x_hi, x_lo,
-                                      *_coeff_df(coeff, dg.device), k)
-    ans64 = df.df_to_f64((ansh, ansl))
-    if not log_scale:
-        ans64 = ans64 * np.exp(shift)
-    return LanczosResult(
-        ans=dg.permute_out(ans64),
-        log_scale=float(shift) if log_scale else None,
-        alpha=alpha64, beta=beta64, x_norm=xn64, k=k,
-    )
+        coeff, shift = expmv.host_coefficients(alpha64, beta64, xn64)
+        with obs.span("pass2", obs.DEVICE):
+            ansh, ansl = lanczos_recombine_df(dg, x_hi, x_lo,
+                                              *_coeff_df(coeff, dg.device), k)
+        # both halves of the answer, then their sum in float64
+        with obs.span("fetch", obs.SYNC):
+            ansh, ansl = obs.fetch(ansh), obs.fetch(ansl)
+        with obs.span("to_f64", obs.HOST):
+            ans64 = df.df_to_f64((ansh, ansl))
+            if not log_scale:
+                ans64 = ans64 * np.exp(shift)
+        with obs.span("permute_out", obs.HOST):
+            ans64 = dg.permute_out(ans64)
+        return LanczosResult(
+            ans=ans64, log_scale=float(shift) if log_scale else None,
+            alpha=alpha64, beta=beta64, x_norm=xn64, k=k,
+        )
 
 
 def expm_action_ks_df(graph, ks, x: np.ndarray | None = None, *,

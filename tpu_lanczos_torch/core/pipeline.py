@@ -27,6 +27,10 @@ the reference.  ``expm_action`` and ``expm_action_summary`` default to
 reference's default, "auto".  ``device`` ("cuda" by default) is where a
 pack is built when ``dg`` is None; a given ``dg`` runs on its own
 device.
+
+``expm_action`` and ``expm_action_summary`` are each a ``query`` span of
+``tpu_lanczos_torch.obs`` with a span a stage, and read the device only
+through ``obs.fetch``.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from tpu_lanczos_torch import obs
 from tpu_lanczos_torch.graphs.csr import CSRGraph
 from tpu_lanczos_torch.kernels.cpg import CPGGraph, pack_cpg
 from tpu_lanczos_torch.kernels.cst import CSTGraph, pack_cst
@@ -144,11 +149,12 @@ def _real_mask(dg) -> torch.Tensor:
 
 def _map_nodes(dg, idx: np.ndarray) -> np.ndarray:
     """Padded positions -> original vertex ids."""
-    if isinstance(dg, DeviceGraph):  # identity layout
-        return idx.astype(np.int64)
-    old_of_new = np.full(dg.n_pad, -1, dtype=np.int64)
-    old_of_new[dg.new_of_old] = np.arange(dg.n)
-    return old_of_new[idx]
+    with obs.span("map_nodes", obs.HOST):
+        if isinstance(dg, DeviceGraph):  # identity layout
+            return idx.astype(np.int64)
+        old_of_new = np.full(dg.n_pad, -1, dtype=np.int64)
+        old_of_new[dg.new_of_old] = np.arange(dg.n)
+        return old_of_new[idx]
 
 
 def _host_coeff(tmp: np.ndarray, like: torch.Tensor) -> torch.Tensor:
@@ -160,10 +166,12 @@ def _two_pass(dg, x_dev: torch.Tensor, k: int):
     """The Q-free answer: alpha/beta pass, host eigh, recombine pass.
     Returns (ans_scaled (n_pad,), shift, alpha, beta, x_norm), the last
     three on the host."""
-    alpha, beta, x_norm = lanczos_alphabeta(dg, x_dev, k)
+    with obs.span("pass1", obs.DEVICE):
+        alpha, beta, x_norm = lanczos_alphabeta(dg, x_dev, k)
     alpha_h, beta_h, x_norm_h = expmv.fetch_tridiag(alpha, beta, x_norm)
     tmp, shift = expmv.host_coefficients(alpha_h, beta_h, x_norm_h)
-    ans = lanczos_recombine(dg, x_dev, _host_coeff(tmp, x_dev), k)
+    with obs.span("pass2", obs.DEVICE):
+        ans = lanczos_recombine(dg, x_dev, _host_coeff(tmp, x_dev), k)
     return ans, float(shift), alpha_h, beta_h, x_norm_h
 
 
@@ -173,7 +181,8 @@ def expm_action_device(dg, x: torch.Tensor, k: int,
     """Lanczos and the multiply-out with the device eigensolve, all on
     the device.  Returns (ans_or_pair, state); with ``log_scale`` the
     pair's shift is a 0-d device tensor."""
-    state = lanczos(dg, x, k, reorthogonalize=reorthogonalize)
+    with obs.span("lanczos", obs.DEVICE):
+        state = lanczos(dg, x, k, reorthogonalize=reorthogonalize)
     return expmv.multiply_out(state, log_scale=log_scale), state
 
 
@@ -202,29 +211,41 @@ def expm_action(
         raise ValueError(f"eig_impl must be host or device, got {eig_impl!r}")
     k = int(max(min(k, graph.n - 1), 1))
     dg = _graph_pack(graph, dg, fmt, ell_pct, device)
-    x_dev = _start_vector(dg, torch_dtype(dtype), x)
-    if low_mem:
-        ans, shift, alpha, beta, x_norm = _two_pass(dg, x_dev, k)
-        if not log_scale:
-            ans = expmv.unshift(ans, shift)
-        return LanczosResult(
-            ans=dg.permute_out(ans), log_scale=shift if log_scale else None,
-            alpha=alpha, beta=beta, x_norm=x_norm, k=k)
-    if eig_impl == "host":
-        state = lanczos(dg, x_dev, k, reorthogonalize=reorthogonalize)
-        out = expmv.multiply_out_host_eig(state, log_scale=log_scale)
-    else:
-        out, state = expm_action_device(dg, x_dev, k, reorthogonalize,
-                                        log_scale)
-    if log_scale:
-        ans, shift = out
-        shift_val = float(shift)
-    else:
-        ans, shift_val = out, None
-    alpha, beta, x_norm = expmv.fetch_tridiag(state.alpha, state.beta,
-                                              state.x_norm)
-    return LanczosResult(ans=dg.permute_out(ans), log_scale=shift_val,
-                         alpha=alpha, beta=beta, x_norm=x_norm, k=k)
+    with obs.query("expm_action", dg.device):
+        with obs.span("start", obs.DEVICE):
+            x_dev = _start_vector(dg, torch_dtype(dtype), x)
+        if low_mem:
+            ans, shift, alpha, beta, x_norm = _two_pass(dg, x_dev, k)
+            if not log_scale:
+                ans = expmv.unshift(ans, shift)
+            return LanczosResult(
+                ans=_answer(dg, ans), log_scale=shift if log_scale else None,
+                alpha=alpha, beta=beta, x_norm=x_norm, k=k)
+        if eig_impl == "host":
+            with obs.span("lanczos", obs.DEVICE):
+                state = lanczos(dg, x_dev, k, reorthogonalize=reorthogonalize)
+            out = expmv.multiply_out_host_eig(state, log_scale=log_scale)
+        else:
+            out, state = expm_action_device(dg, x_dev, k, reorthogonalize,
+                                            log_scale)
+        ans, shift = out if log_scale else (out, None)
+        if isinstance(shift, torch.Tensor):
+            with obs.span("fetch", obs.SYNC):
+                shift = obs.fetch(shift)
+        alpha, beta, x_norm = expmv.fetch_tridiag(state.alpha, state.beta,
+                                                  state.x_norm)
+        return LanczosResult(ans=_answer(dg, ans),
+                             log_scale=None if shift is None else float(shift),
+                             alpha=alpha, beta=beta, x_norm=x_norm, k=k)
+
+
+def _answer(dg, ans: torch.Tensor) -> np.ndarray:
+    """The whole answer on the host in the graph's vertex order: its
+    fetch, then ``permute_out``."""
+    with obs.span("fetch", obs.SYNC):
+        ans = obs.fetch(ans)
+    with obs.span("permute_out", obs.HOST):
+        return dg.permute_out(ans)
 
 
 def _masked_topk(ans: torch.Tensor, mask: torch.Tensor, topk: int):
@@ -269,43 +290,53 @@ def expm_action_summary(
             "(CST's 2-D mask layout doesn't fit the masked top-k)")
     k = int(max(min(k, graph.n - 1), 1))
     dg = _graph_pack(graph, dg, fmt, ell_pct, device)
-    x_dev = _start_vector(dg, torch_dtype(dtype), x)
-    mask = _real_mask(dg)
-    if low_mem:
-        ans, shift, alpha_h, beta_h, x_norm_h = _two_pass(dg, x_dev, k)
-    elif eig_impl == "device":
-        (ans, shift_d), state = expm_action_device(dg, x_dev, k,
-                                                   log_scale=True)
-        nrm, vals, idx = _masked_topk(ans, mask, topk)
-        # the one O(topk) fetch: values, norm, shift and T in one copy
-        small = torch.cat([vals, nrm.reshape(1), shift_d.reshape(1),
-                           state.alpha, state.beta,
-                           state.x_norm.reshape(1)]).cpu().numpy()
+    with obs.query("expm_action_summary", dg.device):
+        with obs.span("start", obs.DEVICE):
+            x_dev = _start_vector(dg, torch_dtype(dtype), x)
+            mask = _real_mask(dg)
+        if low_mem:
+            ans, shift, alpha_h, beta_h, x_norm_h = _two_pass(dg, x_dev, k)
+        elif eig_impl == "device":
+            (ans, shift_d), state = expm_action_device(dg, x_dev, k,
+                                                       log_scale=True)
+            with obs.span("topk", obs.DEVICE):
+                nrm, vals, idx = _masked_topk(ans, mask, topk)
+            # the one O(topk) fetch: values, norm, shift and T in one copy
+            with obs.span("fetch", obs.SYNC):
+                small = obs.fetch(torch.cat([
+                    vals, nrm.reshape(1), shift_d.reshape(1), state.alpha,
+                    state.beta, state.x_norm.reshape(1)]))
+                idx = obs.fetch(idx)
+            return SummaryResult(
+                top_values=small[:topk], top_nodes=_map_nodes(dg, idx),
+                ans_norm=float(small[topk]),
+                log_scale=float(small[topk + 1]),
+                alpha=small[topk + 2:topk + 2 + k],
+                beta=small[topk + 2 + k:-1], x_norm=float(small[-1]), k=k)
+        else:
+            with obs.span("lanczos", obs.DEVICE):
+                state = lanczos(dg, x_dev, k)
+            # one host sync for alpha, beta and x_norm together
+            alpha_h, beta_h, x_norm_h = expmv.fetch_tridiag(
+                state.alpha, state.beta, state.x_norm)
+            tmp, shift = expmv.host_coefficients(alpha_h, beta_h, x_norm_h)
+            with obs.span("multiply_out", obs.DEVICE):
+                ans = _host_coeff(tmp, x_dev) @ state.q_basis
+        with obs.span("topk", obs.DEVICE):
+            nrm, vals, idx = _masked_topk(ans, mask, topk)
+        # tiny D2H: topk values + indices + one norm
+        with obs.span("fetch", obs.SYNC):
+            vals, idx, nrm = obs.fetch(vals), obs.fetch(idx), obs.fetch(nrm)
         return SummaryResult(
-            top_values=small[:topk], top_nodes=_map_nodes(
-                dg, idx.cpu().numpy()),
-            ans_norm=float(small[topk]), log_scale=float(small[topk + 1]),
-            alpha=small[topk + 2:topk + 2 + k],
-            beta=small[topk + 2 + k:-1], x_norm=float(small[-1]), k=k)
-    else:
-        state = lanczos(dg, x_dev, k)
-        # one host sync for alpha, beta and x_norm together
-        alpha_h, beta_h, x_norm_h = expmv.fetch_tridiag(
-            state.alpha, state.beta, state.x_norm)
-        tmp, shift = expmv.host_coefficients(alpha_h, beta_h, x_norm_h)
-        ans = _host_coeff(tmp, x_dev) @ state.q_basis
-    nrm, vals, idx = _masked_topk(ans, mask, topk)
-    # tiny D2H: topk values + indices + one norm
-    return SummaryResult(
-        top_values=vals.cpu().numpy(),
-        top_nodes=_map_nodes(dg, idx.cpu().numpy()),
-        ans_norm=float(nrm),
-        log_scale=float(shift),
-        alpha=alpha_h,
-        beta=beta_h,
-        x_norm=x_norm_h,
-        k=k,
-    )
+            top_values=vals,
+            top_nodes=_map_nodes(dg, idx),
+            ans_norm=float(nrm),
+            log_scale=float(shift),
+            alpha=alpha_h,
+            beta=beta_h,
+            x_norm=x_norm_h,
+            k=k,
+        )
 
 
 def expm_action_ks(

@@ -34,6 +34,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from tpu_lanczos_torch import obs
 from tpu_lanczos_torch.graphs.csr import CSRGraph
 from tpu_lanczos_torch.kernels.cst import _greedy_slots, _round_up, _split_rows
 
@@ -663,10 +664,17 @@ def pack_cpg(
     the entry dealing from global round-robin to block-aware
     (_group_deal); "auto" (None) follows the same dichotomy.
     """
+    del seed  # orderings are deterministic; kept for API stability
+    with obs.span("pack", obs.HOST, device):
+        return _pack_cpg(graph, theta, sub, order, theta_s, redeal, layout,
+                         device)
+
+
+def _pack_cpg(graph, theta, sub, order, theta_s, redeal, layout,
+              device) -> CPGGraph:
     # NOTE: like the reference, the library flips no process-global
     # allocator setting (mallopt) for big packs' temporaries.
     n = graph.n
-    del seed  # orderings are deterministic; kept for API stability
     if sub is None:
         sub = 256 if n >= 200_000 else LANE
     if sub % LANE:
@@ -752,10 +760,10 @@ def _pack_legacy(graph, rows, cols, n, theta, sub, order, layout,
     pos_of = _pos_of_unit(rank, sub)
 
     build = _build_cpg_level_slab if layout == "slab" else _build_cpg_level
-    levels = []
-    levels.append(build(pos_of[cols], pos_of[unit], sub))
-    for s_arr, d_arr in reduce_edges:
-        levels.append(build(pos_of[s_arr], pos_of[d_arr], sub))
+    with obs.span("build_levels", obs.HOST):
+        levels = [build(pos_of[cols], pos_of[unit], sub)]
+        for s_arr, d_arr in reduce_edges:
+            levels.append(build(pos_of[s_arr], pos_of[d_arr], sub))
     return _finalize(graph, n, n_units, theta, sub, pos_of, levels,
                      n_bcast=0, layout=layout, device=device)
 
@@ -880,12 +888,13 @@ def _pack_split(graph, rows, cols, n, theta, theta_s, sub, order,
     build = _build_cpg_level_slab if layout == "slab" else _build_cpg_level
     levels = []
     n_bcast = 0
-    if n_copies:
-        levels.append(build(pos_of[bc_src], pos_of[bc_dst], sub))
-        n_bcast = 1
-    levels.append(build(pos_of[sunit], pos_of[dunit], sub))
-    for s_arr, d_arr in reduce_edges:
-        levels.append(build(pos_of[s_arr], pos_of[d_arr], sub))
+    with obs.span("build_levels", obs.HOST):
+        if n_copies:
+            levels.append(build(pos_of[bc_src], pos_of[bc_dst], sub))
+            n_bcast = 1
+        levels.append(build(pos_of[sunit], pos_of[dunit], sub))
+        for s_arr, d_arr in reduce_edges:
+            levels.append(build(pos_of[s_arr], pos_of[d_arr], sub))
     return _finalize(graph, n, n_units, theta, sub, pos_of, levels,
                      n_bcast=n_bcast, layout=layout, device=device)
 
@@ -935,14 +944,17 @@ def _finalize(graph, n, n_units, theta, sub, pos_of, levels,
         mask_sparse.append(_mask_is_sparse(pm_dens, sub, layout))
         pair_mask = ids_pad.copy()
         pair_mask[:T] = pm_dens
-        dev_levels.append(_to_device(dict(
-            l1=l1, l2=l2, s_ids=s_ids, d_ids=d_ids, run_ids=run_ids,
-            pair_mask=pair_mask, starts=starts, counts=counts,
-        ), device))
+        with obs.span("to_device", obs.DEVICE):
+            dev_levels.append(_to_device(dict(
+                l1=l1, l2=l2, s_ids=s_ids, d_ids=d_ids, run_ids=run_ids,
+                pair_mask=pair_mask, starts=starts, counts=counts,
+            ), device))
+    with obs.span("to_device", obs.DEVICE):
+        realmask = torch.from_numpy(realmask).to(device)
     return CPGGraph(
         n=n, n_chunks=n_chunks, nnz=graph.nnz, theta=theta, sub=sub,
         levels=tuple(dev_levels),
-        realmask=torch.from_numpy(realmask).to(device),
+        realmask=realmask,
         new_of_old=new_of_old, n_bcast=n_bcast, layout=layout,
         t_reals=tuple(lv.s_ids.shape[0] for lv in levels),
         mask_sparse=tuple(mask_sparse),
