@@ -30,6 +30,13 @@ jax or of the JAX package.  Each phase prints one JSON line:
      step kernel against its plain version, its device time per step
      beside the eager step's and its bound, and Lanczos k=50 through the
      kernel and through the eager step in turns;
+  3b the same graph packed as the main path packs it
+     (``best_device_pack``: sub 256, the benchmark's pack): every level
+     against its plain version in f32 and f64, the main level by the
+     staged walk and the small ones by the one-thread walk
+     (``spmv_cpg.staged_walk``), ``expm_action``'s launches of each walk,
+     and the staged main level timed beside the one-thread walk on the
+     same level, its plain version and its bound;
   4  accuracy of the f32 answer against the float64 numpy oracle;
   5  the two-pass paths on the same graph, pack and oracle answer: the
      f32 ``low_mem=True`` queries (alpha/beta bit-equal to stored-Q
@@ -148,6 +155,8 @@ REPS = 5
 KERNEL_SOURCE = "tpu_lanczos_torch/kernels/csrc/spmv_cpg.cu"
 KERNEL_REPLACES = "tpu_lanczos/kernels/spmv_cpg.py:85"
 COMP_REPLACES = "tpu_lanczos/kernels/spmv_cpg.py:85 (compensated=True)"
+STAGED_REPLACES = ("tpu_lanczos/kernels/spmv_cpg.py:85 (a classic level "
+                   "that spmv_cpg.staged_walk routes to the staged walk)")
 SLAB_REPLACES = "tpu_lanczos/kernels/spmv_cpg.py:85 (slab=True, :184-205)"
 COMP_SLAB_REPLACES = ("tpu_lanczos/kernels/spmv_cpg.py:85 (compensated=True,"
                       " slab=True)")
@@ -174,6 +183,8 @@ STEP_DF_REPLACES = ("tpu_lanczos/core/lanczos_df.py:30-40 (_body_core after "
 # the step kernel of a float32 Lanczos, counted by the trace
 # (csrc/lanczos_step.cu: one launch a step)
 STEP_KERNELS = ("lanczos_step_kernel",)
+# kernel 1's two classic walks (spmv_cpg.staged_walk picks one a level)
+LEVEL_KERNELS = ("cpg_level_kernel", "cpg_staged_level_kernel")
 KS = (10, 30, 50)
 CKPT_CHUNK = 16
 # the H100 SXM's published peaks (700 W)
@@ -2111,15 +2122,80 @@ def kernel_stats(kernels: list, keys) -> dict:
             "idle_share": 1 - busy / span if span else None}
 
 
+def main_pack_phase(torch, g, spmv_cpg) -> dict:
+    """Phase 3b: ``g`` packed by ``best_device_pack`` (sub 256), the pack
+    the main path and the benchmark run.  Holds every level against
+    ``run_level_ref`` in f32 and f64 (``level_chain``: the main level by
+    the staged walk, the rest by the one-thread walk), counts
+    ``expm_action``'s launches (the staged walk once a SpMV, counted
+    from 0 just before), and times the staged main level beside the
+    one-thread walk on the same level (in turns) and the plain
+    version."""
+    from tpu_lanczos_torch import best_device_pack, expm_action
+    from tpu_lanczos_torch.eval.cpg_variants import chunk_counts
+
+    dg = best_device_pack(g, device="cuda")
+    C, sub, nb, L = dg.n_chunks, dg.sub, dg.n_bcast, len(dg.levels)
+    route = [spmv_cpg.staged_walk(lv, sub) for lv in dg.levels]
+    check(sub == 256 and route == [i == nb for i in range(L)],
+          f"main-path pack: sub {sub}, staged route {route}, want sub 256 "
+          f"and the main level ({nb}) alone")
+    x1 = dg.realmask.clone()
+    err = max(level_chain(torch, spmv_cpg, dg, x1),
+              level_chain(torch, spmv_cpg, dg, x1.double()))
+    check(torch.equal(spmv_cpg.spmv_cpg(dg, x1),
+                      spmv_cpg.spmv_cpg_ref(dg, x1)),
+          "main-path pack: spmv_cpg == plain")
+    reset_counts()
+    spmv_cpg.launches_staged = 0
+    expm_action(g, k=K, log_scale=True, dg=dg)
+    counts = read_counts(torch)
+    staged = spmv_cpg.launches_staged
+    check_counts(counts, {"launches": K * L, "launches_step": K},
+                 "main-path pack: k*levels and k steps")
+    check(staged == K, f"main-path pack: {staged} staged launches, want "
+          f"k = {K}, one a SpMV")
+    x2d = x1.reshape(dg.n_sub, 128)
+    x64 = x2d.double()
+    main = dg.levels[nb]
+    walks = {
+        "staged": lambda x: spmv_cpg.run_level(x, main, C, sub),
+        "thread": lambda x: spmv_cpg._run_level_cuda(
+            x, main, C, sub, None, False, None, False)}
+    turns = {}
+    for tag in ("staged_1", "thread_1", "thread_2", "staged_2"):
+        walk = walks[tag.split("_")[0]]
+        turns[tag] = [cuda_ms(torch, lambda: walk(x2d))[0],
+                      cuda_ms(torch, lambda: walk(x64))[0]]
+    ms = {w: np.median([turns[f"{w}_{i}"] for i in (1, 2)], axis=0).tolist()
+          for w in walks}
+    plain_ms = cuda_ms(torch, lambda: spmv_cpg.run_level_ref(
+        x2d, main, C, sub), reps=3)[0]
+    spmv_ms = cuda_ms(torch, lambda: spmv_cpg.spmv_cpg(dg, x1))[0]
+    level_bound = [bound(*level_cost(dg, nb, vb, 1, False))
+                   for vb in (4, 8)]
+    return {"phase": "3b", "sub": sub, "n_chunks": C, "levels": L,
+            "n_bcast": nb, "tiles": list(dg.t_reals), "route": route,
+            "level_tile_counts": chunk_counts(dg), "max_abs_err": err,
+            "launches": counts["launches"], "launches_staged": staged,
+            "main_level_ms": {"staged_f32_f64": ms["staged"],
+                              "one_thread_f32_f64": ms["thread"],
+                              "plain_f32": plain_ms, "turns": turns},
+            "main_level_bound_ms": [b[0] for b in level_bound],
+            "main_level_bound_by": [b[1] for b in level_bound],
+            "spmv_ms": spmv_ms, "spmv_bound_ms": bound(*spmv_cost(dg))[0],
+            "index_bytes": dg.index_bytes()}
+
+
 def traced_lanczos(torch, dg) -> dict:
     """One traced ``lanczos(dg, realmask, k)`` (``traced_kernels``): the
-    level kernel, each step kernel and the rest by name
+    level kernel's walks, each step kernel and the rest by name
     (``kernel_stats``)."""
     from tpu_lanczos_torch.core.lanczos import lanczos
 
     x1 = dg.realmask.reshape(-1).clone()
     kernels, cats = traced_kernels(torch, lambda: lanczos(dg, x1, K))
-    return dict(kernel_stats(kernels, ("cpg_level_kernel", *STEP_KERNELS)),
+    return dict(kernel_stats(kernels, (*LEVEL_KERNELS, *STEP_KERNELS)),
                 categories=cats)
 
 
@@ -2144,7 +2220,7 @@ def traced_df_spmv(torch, dg) -> dict:
 SHARD_PASS_KERNELS = ("shard_dot_kernel", "shard_update_kernel",
                       "shard_normalize_kernel")
 # the sharded SpMV's kernels (kernel 1 on a reduce level)
-SHARD_SPMV_KERNELS = ("cpg_shard_level_df_kernel", "cpg_level_kernel")
+SHARD_SPMV_KERNELS = ("cpg_shard_level_df_kernel", *LEVEL_KERNELS)
 
 
 def sharded_bn1m():
@@ -2203,7 +2279,7 @@ def traced_sharded_lanczos(torch) -> dict:
     between = ([at[i + per_step - 1] - at[i] + 1 - per_step
                 for i in range(0, len(at), per_step)]
                if at and len(at) % per_step == 0 else [-1])
-    stats = kernel_stats(kernels, ("cpg_level_kernel", *SHARD_PASS_KERNELS))
+    stats = kernel_stats(kernels, (*LEVEL_KERNELS, *SHARD_PASS_KERNELS))
     return dict(stats, categories=cats, n_pad=sg.n_pad,
                 levels=len(sg.levels), pass_kernels=len(at),
                 kernels_per_step=stats["kernel_events"] / K,
@@ -2252,8 +2328,8 @@ def trace_child(name: str, suite_cache: str) -> dict:
 
 def trace_part(suite_cache: str, t_all: float) -> None:
     """The traced Lanczos runs: phase 12's of bench.py's graph (the trace
-    must name ``cpg_level_kernel`` k * levels times and the step kernel k
-    times, one launch a step, and fewer than k other kernels: no
+    must name kernel 1 (``LEVEL_KERNELS``) k * levels times and the step
+    kernel k times, one launch a step, and fewer than k other kernels: no
     per-step realmask multiply; and a traced df SpMV, whose kernels must
     be the df level kernel once a level and nothing else) and of the
     suite's stencil_2600, a mesh's
@@ -2282,8 +2358,10 @@ def trace_part(suite_cache: str, t_all: float) -> None:
         t = child(name)
         L = t["levels"]
         got = {k: t["by_name"].get(k, {}).get("launches", 0)
-               for k in ("cpg_level_kernel", *STEP_KERNELS)}
-        want = {"cpg_level_kernel": K * L, **{k: K for k in STEP_KERNELS}}
+               for k in STEP_KERNELS}
+        got["kernel 1"] = sum(t["by_name"].get(k, {}).get("launches", 0)
+                              for k in LEVEL_KERNELS)
+        want = {"kernel 1": K * L, **{k: K for k in STEP_KERNELS}}
         check(got == want, f"{name}: the trace names the level and step "
               f"kernels {got} times, want {want} (categories "
               f"{t['categories']})")
@@ -2492,7 +2570,7 @@ def main() -> None:
     check(sum(k["slab"] for k in ptxas) == 4,
           "four slab instantiations built (plain f32, f64; compensated; "
           "df)")
-    for kernel in ("cpg_level_kernel", "cpg_level_comp_kernel",
+    for kernel in (*LEVEL_KERNELS, "cpg_level_comp_kernel",
                    "cst_level_kernel", "gpg_level_kernel", "probe_kernel",
                    "probe_reduce_kernel", *STEP_KERNELS,
                    "lanczos_step_df_kernel", "step_dot_kernel",
@@ -2780,6 +2858,11 @@ def main() -> None:
           "lanczos_k50_turns_ms": {t: v[0] for t, v in lanczos_turns.items()},
           "lanczos_k50_turn_samples": {t: v[1]
                                        for t, v in lanczos_turns.items()}})
+
+    # ---- 3b: the same graph in the main path's pack (sub 256)
+    p3b = main_pack_phase(torch, g, spmv_cpg)
+    max_err["classic"] = max(max_err["classic"], p3b["max_abs_err"])
+    emit(dict(p3b, total_s=time.time() - t_all))
 
     # ---- 4: accuracy against the float64 oracle, same graph
     t0 = time.time()
@@ -3523,6 +3606,15 @@ def main() -> None:
         "max_abs_err": max_err["classic"], "ms": spmv_ms,
         "plain_ms": plain_ms, "bound_ms": spmv_bound_ms,
         "bound_by": spmv_bound_by, "library_ms": csr_ms,
+    }, {
+        "name": "spmv_cpg_level_staged", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": STAGED_REPLACES,
+        "launches": p3b["launches_staged"],
+        "max_abs_err": p3b["max_abs_err"],
+        "ms": p3b["main_level_ms"]["staged_f32_f64"][0],
+        "plain_ms": p3b["main_level_ms"]["plain_f32"],
+        "bound_ms": p3b["main_level_bound_ms"][0],
+        "bound_by": p3b["main_level_bound_by"][0], "library_ms": None,
     }, {
         "name": "spmv_cpg_level_comp", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": COMP_REPLACES,

@@ -231,6 +231,89 @@ def test_classic_walk_bit_for_bit(dev, name):
     torch.cuda.synchronize()
 
 
+def _one_tile_chunk(level: dict) -> dict:
+    """The level with its longest chunk cut to its first tile (the sum of
+    that chunk's cells is that tile's values)."""
+    out = dict(level)
+    out["counts"] = level["counts"].clone()
+    out["counts"][int(level["counts"].argmax())] = 1
+    return out
+
+
+# name -> (graph, pack arguments) of the staged walk's packs, all at its
+# sub of 256: a power-law pack in degree order with the theta split (a
+# broadcast level, a main level of 403 tiles, a reduce level; empty
+# chunks; 212 of the tiles in one of 8 chunks, so the route keeps the
+# one-thread walk and the test forces the staged one), a locality
+# (stencil) pack, and the ring-and-hub pack of 96 dest
+# chunks (past tlt::kHeavyFirstMax = 64)
+_STAGED_CASES = {
+    "ba100000_degree_sub256": (
+        lambda: generators.barabasi_albert(100000, 10, seed=3),
+        dict(sub=256, order="degree")),
+    "stencil600_locality_sub256": (
+        lambda: generators.stencil_2d(600), dict(sub=256, order="locality")),
+    "ring_hub_sub256": (lambda: _ring_hub(2_400_000), dict(sub=256)),
+}
+
+
+@pytest.mark.parametrize("name", list(_STAGED_CASES))
+def test_staged_walk_bit_for_bit(dev, name):
+    """The staged classic walk against the plain version, bit for bit
+    (int views, so -0.0 != +0.0), on every level of the pack and on a
+    copy of its main level with a one-tile chunk; f32 and f64; base given
+    and absent; x holding -0.0 in every lane-127 slot, where the plain
+    version adds x's -0.0 and the walk skips the ghost's load.  The walk
+    is forced on every level, the route's small ones too; its counter
+    moves by exactly the launches made."""
+    build, kw = _STAGED_CASES[name]
+    g = build()
+    cg = cpg.pack_cpg(g, device=dev, **kw)
+    C, sub, LANE = cg.n_chunks, cg.sub, cpg.LANE
+    counts = [lv["counts"] for lv in cg.levels]
+    assert any(bool((c == 0).any()) for c in counts)
+    if name.startswith("ring_hub"):
+        assert C > 64
+    if name.startswith("ba"):
+        assert cg.n_bcast == 1 and len(cg.levels) == 3 and C == 8
+    levels = list(cg.levels) + [_one_tile_chunk(cg.levels[cg.n_bcast])]
+    xr = np.random.default_rng(6).standard_normal(g.n)
+    before = (spmv_cpg.launches, spmv_cpg.launches_staged)
+    for np_dtype in (np.float32, np.float64):
+        x2d = torch.from_numpy(cg.permute_in(xr, np_dtype)).to(dev).reshape(
+            cg.n_sub, LANE)
+        x2d[:, LANE - 1] = -0.0
+        for level in levels:
+            for base in (None, x2d):
+                got = spmv_cpg._run_level_cuda(x2d, level, C, sub, base,
+                                               False, None, staged=True)
+                want = spmv_cpg.run_level_ref(x2d, level, C, sub, base=base)
+                assert torch.equal(_bits(got), _bits(want))
+    torch.cuda.synchronize()
+    n = 2 * 2 * len(levels)
+    assert (spmv_cpg.launches - before[0],
+            spmv_cpg.launches_staged - before[1]) == (n, n)
+
+
+def test_expm_action_runs_the_staged_walk_once_a_spmv(dev):
+    """``expm_action`` at k=50 on a power-law pack at sub 256 whose main
+    level the route gives the staged walk (BA n=1.05M, m=2), in f32 and
+    f64: the main level of each SpMV by the staged walk (k launches),
+    every level by kernel 1 (k·L launches, the bar of the launch
+    counters); the f64 answer within 1e-12 of the oracle."""
+    g = generators.barabasi_albert(1_050_000, 2, seed=3, use_native=True)
+    cg = cpg.pack_cpg(g, sub=256, device=dev)
+    k, L = 50, len(cg.levels)
+    for dtype in ("float32", "float64"):
+        before = (spmv_cpg.launches, spmv_cpg.launches_staged)
+        res = expm_action(g, k=k, dg=cg, dtype=dtype)
+        torch.cuda.synchronize()
+        assert (spmv_cpg.launches - before[0],
+                spmv_cpg.launches_staged - before[1]) == (k * L, k)
+    ref = oracle.expm_action(g, np.ones(g.n), k)
+    assert oracle.rel_error(res.ans, ref) < 1e-12
+
+
 # name -> (graph, sub): slab packs whose main level has a chunk longer
 # than the walk's ring (8 stages) and chunks with 0 tiles, at sub 128,
 # 256 and 512; the star's four levels hold chunks of 2 to 23 tiles

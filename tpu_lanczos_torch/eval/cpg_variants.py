@@ -2,23 +2,33 @@
 on one CUDA GPU.
 
     python -m tpu_lanczos_torch.eval.cpg_variants \\
-        [--n 1000000] [--m 10] [--seed 0] [--sub 512] \\
-        [--layout classic|slab] [--source NAME=PATH[,PATH...] ...]
+        [--n 1000000] [--m 10] [--seed 0] [--stencil SIDE | --suite NAME] \\
+        [--sub 512] [--layout classic|slab] \\
+        [--source NAME=PATH[,PATH...] ...]
 
 Builds ``kernels/csrc/spmv_cpg.cu`` and ``spmv_cpg_shard.cu`` (as
 "package") and each ``--source`` (one or more files with the same C
 interfaces, built together: an earlier version of the kernels, for
 example the parent commit's, from ``git archive``), each into its own
-library.  On the graph (Barabasi-Albert, native generator) packed at
-``--sub`` in ``--layout``, it prints one JSON line with each level's
+library.  On the graph (Barabasi-Albert, native generator; with
+``--stencil`` the 5-point SIDE x SIDE mesh in its own order; with
+``--suite`` a ``bench_suite`` config's graph and pack options) packed at
+``--sub`` (the suite config's own where not given, else 512) in
+``--layout``, it prints one JSON line with each level's
 per-chunk tile counts, then one line per build: its ptxas report, and
 for each kernel the build has, equality with the package's kernel on
 every level (plain in f32 and f64, and compensated; the df64 level of
 the layout, ``run_level_df``'s C entry, on every level of one df SpMV),
-CUDA-event medians of each level, the whole SpMV and the compensated
-main level, the host's time to launch the main level (``host_us``), and
+CUDA-event medians of each level (``level_ms`` in f32, ``level_ms_f64``),
+the whole SpMV and the compensated main level, the host's time to launch the main level (``host_us``), and
 the df SpMV and its main level, the builds timed in turns (forward,
-then backward).  Last, one line with
+then backward).  A build with the staged classic walk
+(``tlt_spmv_cpg_level_staged``, sub 256) also has it held against
+the package's kernel and timed on every level (``staged_level_ms``,
+``staged_level_ms_f64``), its
+main level's launch (``staged_host_us``), and the SpMV as ``spmv_cpg``
+routes it (``routed_spmv_ms``: ``spmv_cpg.staged_walk`` picks the walk of
+each level).  Last, one line with
 the device time by kernel of one ``lanczos`` run of ``--k`` steps
 through the package's kernel (torch.profiler), its wall time and the
 device's idle share.  Needs a CUDA GPU and nvcc.
@@ -71,10 +81,26 @@ def build(builds: dict, prefix: str = "cpg") -> dict:
 
 
 def level_fns(name: str, slab: bool = False):
-    """(plain level, compensated level, df64 level of the layout) of one
-    build, with ``spmv_cpg.run_level``'s, ``run_level_comp``'s and
-    ``run_level_df``'s signatures; None for a kernel the build lacks."""
+    """(plain level, compensated level, df64 level of the layout, staged
+    classic level) of one build, with ``spmv_cpg.run_level``'s,
+    ``run_level_comp``'s and ``run_level_df``'s signatures; None for a
+    kernel the build lacks."""
     lib = _build.bind_cpg(ctypes.CDLL(lib_path(name)))
+    staged_entry = getattr(lib, "tlt_spmv_cpg_level_staged", None)
+
+    def staged(x2d, level, n_chunks, sub, base=None, slab=False):
+        out = torch.empty_like(x2d)
+        err = staged_entry(
+            x2d.data_ptr(), level["l1"].data_ptr(), level["l2"].data_ptr(),
+            level["s_ids"].data_ptr(), level["starts"].data_ptr(),
+            level["counts"].data_ptr(),
+            None if base is None else base.data_ptr(), out.data_ptr(),
+            n_chunks, sub, x2d.element_size(),
+            torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{name}: staged launch failed: CUDA error "
+                               f"{err}")
+        return out
 
     def plain(x2d, level, n_chunks, sub, base=None, slab=False):
         out = torch.empty_like(x2d)
@@ -123,7 +149,8 @@ def level_fns(name: str, slab: bool = False):
 
     has = hasattr(lib, "tlt_spmv_cpg_level")
     return (plain if has else None, comp if has else None,
-            df if df_entry is not None else None)
+            df if df_entry is not None else None,
+            staged if staged_entry is not None and not slab else None)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -210,7 +237,9 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--m", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--sub", type=int, default=512)
+    ap.add_argument("--stencil", type=int, default=0)
+    ap.add_argument("--suite", default="")
+    ap.add_argument("--sub", type=int, default=None)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--k", type=int, default=50)
     ap.add_argument("--source", action="append", default=[])
@@ -234,11 +263,26 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
-    g = generators.barabasi_albert(args.n, args.m, seed=args.seed,
-                                   use_native=True)
-    cg = pack_cpg(g, sub=args.sub, layout=args.layout, device="cuda")
+    pack_kw = {"sub": 512}
+    if args.suite:
+        from tpu_lanczos_torch.eval import bench_suite
+
+        cfg = next(c for c in bench_suite.CONFIGS if c["name"] == args.suite)
+        graph = f"bench_suite {args.suite}"
+        g = bench_suite._generate(cfg)
+        pack_kw = dict(cfg.get("pack") or {})
+    elif args.stencil:
+        graph = f"stencil_2d({args.stencil})"
+        g = generators.stencil_2d(args.stencil)
+    else:
+        graph = f"ba({args.n}, {args.m}, seed={args.seed}, native)"
+        g = generators.barabasi_albert(args.n, args.m, seed=args.seed,
+                                       use_native=True)
+    if args.sub is not None:
+        pack_kw["sub"] = args.sub
+    cg = pack_cpg(g, layout=args.layout, device="cuda", **pack_kw)
     C, sub, nb = cg.n_chunks, cg.sub, cg.n_bcast
-    print(json.dumps({"nvidia_smi": smi, "n": args.n, "m": args.m,
+    print(json.dumps({"nvidia_smi": smi, "graph": graph, "n": g.n,
                       "sub": sub, "layout": cg.layout, "n_chunks": C,
                       "n_bcast": nb, "index_bytes": cg.index_bytes(),
                       "counts": chunk_counts(cg)}), flush=True)
@@ -286,7 +330,7 @@ def main(argv=None) -> int:
     spmv_cpg._spmv_df_levels(cg, hi, lo, record)
 
     rows = {}
-    for name, (plain, comp, df) in fns.items():
+    for name, (plain, comp, df, staged) in fns.items():
         row = rows[name] = {"build": name, "source": builds[name],
                             "ptxas": ptxas[name]}
         if plain is not None:
@@ -296,24 +340,39 @@ def main(argv=None) -> int:
             row["equal_comp"] = all(
                 torch.equal(a, b) for lv, wc in zip(cg.levels, want_comp)
                 for a, b in zip(comp(main_in, lv, C, sub, slab=slab), wc))
-            row.update(level_ms=[], spmv_ms=[], comp_main_ms=[],
-                       host_us=[])
+            row.update(level_ms=[], level_ms_f64=[], spmv_ms=[],
+                       comp_main_ms=[], host_us=[])
         if df is not None:
             row["equal_df"] = all(
                 torch.equal(g.view(torch.int32), w.view(torch.int32))
                 for a, kw, out in df_calls for g, w in zip(df(*a, **kw),
                                                            out))
             row.update(df_spmv_ms=[], df_main_ms=[])
+        if staged is not None and sub == spmv_cpg.STAGED_SUB:
+            row["equal_staged"] = all(
+                torch.equal(staged(xi, lv, C, sub, base=b), w)
+                for (xi, lv, b), w in zip(inputs, want))
+            row["staged_route"] = [spmv_cpg.staged_walk(lv, sub)
+                                   for lv in cg.levels]
+            row.update(staged_level_ms=[], staged_level_ms_f64=[],
+                       routed_spmv_ms=[], staged_host_us=[])
     x1 = cg.realmask.clone()
     f32_inputs = inputs[:len(cg.levels)]
+
+    def time_levels(row, fn, key):
+        # each level's median, f32 under ``key``, f64 under key + "_f64"
+        ms = [cuda_ms(lambda: fn(xi, lv, b), args.reps)
+              for xi, lv, b in inputs]
+        row[key].append(ms[:len(cg.levels)])
+        row[key + "_f64"].append(ms[len(cg.levels):])
+
     order = list(fns) + list(fns)[::-1]
     for name in order:
-        plain, comp, df = fns[name]
+        plain, comp, df, staged = fns[name]
         row = rows[name]
         if plain is not None:
-            row["level_ms"].append([cuda_ms(
-                lambda: plain(xi, lv, C, sub, base=b, slab=slab), args.reps)
-                for xi, lv, b in f32_inputs])
+            time_levels(row, lambda xi, lv, b: plain(
+                xi, lv, C, sub, base=b, slab=slab), "level_ms")
             row["spmv_ms"].append(cuda_ms(
                 lambda: spmv_cpg._spmv(cg, x1, plain), args.reps))
             row["comp_main_ms"].append(cuda_ms(
@@ -322,6 +381,19 @@ def main(argv=None) -> int:
             xi, lv, b = f32_inputs[nb]
             row["host_us"].append(host_us(
                 lambda: plain(xi, lv, C, sub, base=b, slab=slab)))
+        if "staged_level_ms" in row:
+            time_levels(row, lambda xi, lv, b: staged(
+                xi, lv, C, sub, base=b), "staged_level_ms")
+
+            def routed(xi, lv, n_chunks, sub, base=None, slab=False):
+                walk = staged if spmv_cpg.staged_walk(lv, sub) else plain
+                return walk(xi, lv, n_chunks, sub, base=base)
+
+            row["routed_spmv_ms"].append(cuda_ms(
+                lambda: spmv_cpg._spmv(cg, x1, routed), args.reps))
+            xi, lv, b = f32_inputs[nb]
+            row["staged_host_us"].append(host_us(
+                lambda: staged(xi, lv, C, sub, base=b)))
         if df is not None:
             row["df_spmv_ms"].append(cuda_ms(
                 lambda: spmv_cpg._spmv_df_levels(cg, hi, lo, df), args.reps))
@@ -330,14 +402,21 @@ def main(argv=None) -> int:
                                              args.reps))
     for row in rows.values():
         if "level_ms" in row:
-            row["level_ms_median"] = np.median(row["level_ms"],
-                                               axis=0).tolist()
+            for key in ("level_ms", "level_ms_f64"):
+                row[key + "_median"] = np.median(row[key], axis=0).tolist()
             row["spmv_ms_median"] = float(np.median(row["spmv_ms"]))
             row["comp_main_ms_median"] = float(np.median(
                 row["comp_main_ms"]))
             row["host_us_median"] = float(np.median(row["host_us"]))
             row["index_GBps"] = (cg.index_bytes() / row["spmv_ms_median"]
                                  / 1e6)
+        if "staged_level_ms" in row:
+            for key in ("staged_level_ms", "staged_level_ms_f64"):
+                row[key + "_median"] = np.median(row[key], axis=0).tolist()
+            row["routed_spmv_ms_median"] = float(np.median(
+                row["routed_spmv_ms"]))
+            row["staged_host_us_median"] = float(np.median(
+                row["staged_host_us"]))
         if "df_spmv_ms" in row:
             row["df_spmv_ms_median"] = float(np.median(row["df_spmv_ms"]))
             row["df_main_ms_median"] = float(np.median(row["df_main_ms"]))
@@ -345,7 +424,7 @@ def main(argv=None) -> int:
     print(json.dumps(lanczos_profile(cg, args.k)), flush=True)
     return 0 if plain_equal and all(
         row.get(k, True) for row in rows.values()
-        for k in ("equal", "equal_comp", "equal_df")) else 1
+        for k in ("equal", "equal_comp", "equal_df", "equal_staged")) else 1
 
 
 if __name__ == "__main__":

@@ -49,12 +49,14 @@ def nvcc_path() -> str:
 
 def bind_cpg(lib):
     """Argument types of the single-device CPG entry points on ``lib``
-    (whichever it has): spmv_cpg.cu's levels (plain, compensated, the
-    slab df64 level) and spmv_cpg_shard.cu's classic df64 level."""
+    (whichever it has): spmv_cpg.cu's levels (plain, staged classic,
+    compensated, the slab df64 level) and spmv_cpg_shard.cu's classic
+    df64 level."""
     p, i = ctypes.c_void_p, ctypes.c_int
     df = [p] * 10 + [i] * 5 + [p]
     for name, args in (
             ("tlt_spmv_cpg_level", [p] * 8 + [i] * 5 + [p]),
+            ("tlt_spmv_cpg_level_staged", [p] * 8 + [i] * 3 + [p]),
             ("tlt_spmv_cpg_level_comp", [p] * 8 + [i] * 4 + [p]),
             ("tlt_spmv_cpg_level_df", df),
             ("tlt_spmv_cpg_slab_level_df", df)):

@@ -41,34 +41,34 @@
 // the one-to-one counterparts of _run_level(compensated=True).
 //
 // Design of the classic walk, as measured on the H100 (PERF.md, PR 5).
-// - What bounds it.  The index bytes are read once per SpMV (~2,200 tiles
-//   of 64 KB of l1 and 128 KB of l2 at bn1M, ~440 MB, ~0.13 ms at 3.35
-//   TB/s), but the time goes to the gathers: per real entry (~14% of the
-//   tile cells) one byte of l1 at a random row of the tile and four bytes
-//   of x at a random row of the source chunk, each a 32-byte sector of
-//   the L2 cache, read by latency-bound warps.
+// - What bounds it.  The index bytes are read once per SpMV (bn1M's sub
+//   256 pack, the benchmark's: 32 dest chunks, a main level of 5,856 tiles
+//   of 32 KB of l1 and 32 KB of l2, 108 to 436 a chunk, median 167, ~387
+//   MB with the small levels, ~0.12 ms at 3.35 TB/s), but the time goes
+//   to the gathers: per real entry (~10% of the tile cells) one byte of
+//   l1 at a random row of the tile and four bytes of x at a random row of
+//   the source chunk, each a 32-byte sector of the L2 cache, read by
+//   latency-bound warps.
 // - One thread per dest cell walks D's tiles in order with one register
 //   accumulator (32-40 registers, 48-64 warps per SM), which is what
 //   keeps the sum bit-identical and what hides the gather latency; the
 //   tile loop is unrolled 8 deep so that several tiles' l2 -> l1 -> x
-//   chains are in flight per thread.  Staging each tile's l1 columns (and
-//   l2 rows) in a shared-memory ring did not pay: with 16 dest chunks on
-//   132 SMs a CTA can own only ~1/8 of a chunk's cells, so a staged l1
-//   sector serves about one real lookup, as many as the gather it
-//   replaces, and the copies, barriers and the shared memory taken from
-//   the L1 cache cost more (0.57 to 1.3 ms for the bn1M main level
-//   against 0.42 ms here).
+//   chains are in flight per thread.  Shared-memory rings of l1
+//   columns did not pay at sub 512 (16 dest chunks): a CTA of 32 rows x
+//   8 lanes owned ~1/8 of a chunk's cells, so a staged l1 sector served
+//   about one real lookup, and thread copies, barriers and the shared
+//   memory taken from the L1 cache cost more (0.57 to 1.3 ms against
+//   0.42).  The staged walk below owns a lane group's rows whole.
 // - Coalesced output.  A block is 32 dest sublanes x 8 dest lanes, one
 //   lane per warp, so each warp's l2 read is one contiguous run; the
 //   block writes its cells (and reads base) through a shared-memory
 //   transpose, eight contiguous values per row, where a warp of the first
 //   port wrote 32 values 512 bytes apart.
-// - Heaviest chunks first.  Dest chunks hold very different tile counts
-//   (bn1M's main level: 93 to 340 a chunk, median 118).  With up to
-//   tlt::kHeavyFirstMax chunks, block row blockIdx.y walks the chunk of that
-//   place in the tile-count order, most first, so the longest walks start
-//   first and do not form the tail.
-// - Ghost cells.  ~86% of bn1M's tile cells are ghosts: L2 points at a
+// - Heaviest chunks first.  Dest chunks hold very different tile counts.
+//   With up to tlt::kHeavyFirstMax chunks, block row blockIdx.y walks the
+//   chunk of that place in the tile-count order, most first, so the
+//   longest walks start first and do not form the tail.
+// - Ghost cells.  ~90% of bn1M's tile cells are ghosts: L2 points at a
 //   staging sublane whose l1 entry is lane 127, a structural zero of x
 //   (the pack never places a unit there), and no real entry has lane 127.
 //   The compensated walk adds +0.0 for a ghost without loading x.  That
@@ -81,6 +81,40 @@
 //   warp share one cached address), and it made the compensated walk
 //   faster.
 //
+// Design of the staged classic walk (below, at "The staged classic
+// walk"), as measured on the H100 (PERF.md, section 6).
+// - Where it runs.  spmv_cpg.py::staged_walk gives it a classic level of
+//   one source buffer at sub 256 (uint8 l2; a tile's l1 rows one TMA box)
+//   of at least 512 padded tiles whose real tiles are at least 12 times
+//   its heaviest chunk's: bn1M's main level (5,856 and 436), the large
+//   stencil packs' one level.  Its time is about its heaviest chunk's
+//   serial chain (0.65-0.76 us a tile), the walk above's the level's
+//   tiles over the card (0.065-0.09 us a tile), so the walk above keeps
+//   the rest: small levels (bn1M's broadcast and reduce levels, 15 and 39
+//   tiles of one chunk: 0.03-0.05 ms staged against 0.025-0.04), levels
+//   with a heavier chunk (BA main levels of 1.9 to 11.1 times their
+//   heaviest chunk's tiles: +3% to +119% staged in f64, and in f32 +3%
+//   to +88% but at 7.7, -7%), sub 128 (BA 100k-600k: +9% to +105%; only
+//   the balanced copapers_540k pack was faster, 0.192 against 0.260 ms),
+//   the halo launch and int16 l2.
+// - Why it wins where those rings lost.  A block owns 32 dest lanes and
+//   128 rows; at sub 256 the two row halves form a cluster, and each
+//   brings half of the (256, 32) l1 box to both by multicast.  So a
+//   staged l1 box serves every real lookup of its lanes' 256 rows (~850
+//   a tile, ~3 a 32-byte sector), the boxes come by TMA with no copy
+//   instructions, and one ring of 8 stages (96 KB) leaves the rest of
+//   the SM's 256 KB to the L1 cache that the x gathers hit.  Only x is
+//   gathered; a ghost is skipped as in the compensated walk above.
+// - What bounds it: the index stream.  With consumers that only wait and
+//   release, bn1M's main level takes 0.23-0.24 ms of its ~0.28.  Boxes of
+//   16 lanes (TMA's least) streamed slower (0.26 ms; the walk 0.32 with
+//   rows = sub, 0.37 in a cluster of 2), 64 lanes in clusters of 4
+//   faster (0.16) but the walk slower (0.33-0.35: four CTAs in step).
+// - Lost: 12 stages (0.37: shared memory taken from the L1 cache), 2
+//   blocks an SM (0.49), an L2 prefetch of the boxes 8-32 tiles ahead
+//   (0.36-0.37), a ghost test by a sublane found twice among a thread's
+//   eight L2 bytes (+25%: one more dependent shared load a tile).
+
 // Design of the slab walk (below, at "The slab walk"), as measured on
 // the H100 (PERF.md, section 6).
 // - What bounds it.  A slab tile is 80 KB of indices (16 KB of l1, 64 KB
@@ -727,6 +761,246 @@ int launch_slab(const void* x, const void* l1, const void* l2,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- The staged classic walk (cpg_staged_level_kernel)
+//
+// A block owns dest chunk d (heaviest first), a group of kStagedGroup
+// dest lanes and kRows = min(sub, kStagedRows) dest rows; the sub / kRows
+// row parts of a lane group form a cluster.  One producer thread brings
+// each tile's (sub, group) l1 box (its source sublanes' bytes of the
+// group's lanes) and (group, kRows) l2 box into a ring of kStagedStages
+// stages by 2-D TMA boxes, each CTA of the cluster bringing its share of
+// the l1 box's rows to all of them by multicast.  Each consumer thread
+// owns kStagedCells consecutive rows of one lane (one 8-byte piece of the
+// l2 box), reads L2 and then L1 from shared memory, and gathers x only
+// where L1 is not lane 127.  A warp walks 64 rows of 4 lanes a quarter of
+// the group apart, the four lanes' row blocks rotated, so its l2 pieces
+// take the least wavefronts.
+constexpr int kStagedGroup = 32;
+constexpr int kStagedRows = 128;
+constexpr int kStagedCells = 8;
+constexpr int kStagedStages = 8;
+constexpr int kStagedSub = 256;  // one TMA box of l1 rows; uint8 l2
+// tiles of x loads in flight: 2 for double (76 registers; at 3 and 4 its
+// main level took 0.39-0.41 ms against 0.38 at 2), 6 for float
+template <typename T>
+constexpr int kStagedAhead = sizeof(T) == 8 ? 2 : 6;
+
+template <int kSub>
+struct Staged {
+  static constexpr int kRows = kSub < kStagedRows ? kSub : kStagedRows;
+  static constexpr int kCluster = kSub / kRows;
+  static constexpr int kConsumers = kStagedGroup * kRows / kStagedCells;
+  static constexpr int kThreads = kConsumers + 32;  // + one producer warp
+  static constexpr int kL1Bytes = kSub * kStagedGroup;
+  static constexpr int kL2Bytes = kStagedGroup * kRows;
+  static constexpr int kStageBytes =
+      tlt::align128(kL1Bytes) + tlt::align128(kL2Bytes);
+  // the ring, and the output's transpose tile after it is read out
+  static constexpr int kRingBytes = kStagedStages * kStageBytes;
+  static constexpr int kTileBytes = kRows * (kStagedGroup + 1) * 8;
+  static constexpr int kSmemBytes =
+      kRingBytes > kTileBytes ? kRingBytes : kTileBytes;
+  static_assert(kSub % kLane == 0 && kSub <= kStagedSub, "uint8 l2");
+  static_assert(kRows % 64 == 0 && kStagedGroup % 4 == 0,
+                "a warp walks 64 rows of 4 lanes");
+  static_assert(kCluster <= 8, "a portable cluster");
+  static_assert(tlt::kHeavyFirstMax <= kThreads,
+                "one thread ranks one chunk");
+};
+
+// The consumer thread's lane cl (in the group) and first row r0 (in the
+// block's rows).
+template <int kRows>
+__device__ __forceinline__ void staged_cells(int tid, int& cl, int& r0) {
+  constexpr int kQuads = kStagedGroup / 4;
+  constexpr int kRowBlocks = kRows / 64;
+  const int w = tid / 32;
+  const int k = tid % 32 / 8;
+  cl = w % kQuads + kQuads * k;
+  r0 = (w / kQuads + k) % kRowBlocks * 64 + tid % 8 * kStagedCells;
+}
+
+// Ghosts.  A ghost cell's L1 is lane 127, x's structural zero: it adds
+// +0.0 without a load.  That is bit-identical to the plain version, which
+// adds x's lane-127 value: every level's source holds +-0.0 there
+// (tests/test_torch_spmv.py pins it), acc starts at +0.0, and in
+// round-to-nearest a sum is -0.0 only if both addends are, so acc is never
+// -0.0 and adding +0.0 or -0.0 to it leaves it unchanged (inf and NaN
+// too).  The adds past the chunk's tiles add +0.0 as well.
+template <typename T, int kSub>
+__global__ void __launch_bounds__(Staged<kSub>::kThreads)
+cpg_staged_level_kernel(const __grid_constant__ CUtensorMap l1_map,
+                        const __grid_constant__ CUtensorMap l2_map,
+                        const T* __restrict__ x,
+                        const int32_t* __restrict__ s_ids,
+                        const int32_t* __restrict__ starts,
+                        const int32_t* __restrict__ counts,
+                        const T* __restrict__ base, T* __restrict__ out,
+                        int n_chunks) {
+  using S = Staged<kSub>;
+  constexpr int kRows = S::kRows;
+  constexpr int kCs = S::kCluster;
+  constexpr int kAhead = kStagedAhead<T>;
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ uint64_t full[kStagedStages], empty[kStagedStages];
+  const int tid = static_cast<int>(threadIdx.x);
+  const int d = tlt::heavy_first_chunk(counts, n_chunks);
+  const int ld0 = static_cast<int>(blockIdx.x) / kCs * kStagedGroup;
+  const int rd0 = static_cast<int>(blockIdx.x) % kCs * kRows;
+  if (tid == 0) {
+    for (int s = 0; s < kStagedStages; ++s) {
+      tlt::mbar_init(&full[s], 1);
+      tlt::mbar_init(&empty[s], S::kConsumers / 32 * kCs);
+    }
+    tlt::mbar_fence_init();
+  }
+  __syncthreads();
+  tlt::cluster_sync();  // the cluster's barriers are ready
+
+  const int64_t start = starts[d];
+  const int count = counts[d];
+  T acc[kStagedCells];
+#pragma unroll
+  for (int b = 0; b < kStagedCells; ++b) acc[b] = T(0);
+  int cl = 0, r0 = 0;
+  if (tid == S::kConsumers) {  // the producer
+    const uint32_t rank = tlt::cluster_rank();
+    constexpr int kSlice = kSub / kCs;  // l1 rows it brings
+    constexpr uint16_t kAll = (1u << kCs) - 1;
+    for (int i = 0; i < count; ++i) {
+      const int s = i % kStagedStages;
+      const int use = i / kStagedStages;
+      // stage s is free in every CTA of the cluster
+      if (use > 0) tlt::mbar_wait(&empty[s], (use - 1) & 1);
+      uint8_t* buf = smem + s * S::kStageBytes;
+      tlt::mbar_arrive_expect_tx(&full[s], S::kL1Bytes + S::kL2Bytes);
+      const int l1_row = static_cast<int>((start + i) * kSub) +
+                         static_cast<int>(rank) * kSlice;
+      if constexpr (kCs > 1) {
+        tlt::tma_load_2d_multicast(buf + rank * kSlice * kStagedGroup,
+                                   &l1_map, ld0, l1_row, &full[s], kAll);
+      } else {
+        tlt::tma_load_2d(buf, &l1_map, ld0, l1_row, &full[s]);
+      }
+      tlt::tma_load_2d(buf + tlt::align128(S::kL1Bytes), &l2_map, rd0,
+                       static_cast<int>((start + i) * kLane) + ld0, &full[s]);
+    }
+  } else if (tid < S::kConsumers) {
+    staged_cells<kRows>(tid, cl, r0);
+    const int lane_id = tid % 32;
+    // tile i's values of this thread's cells, +0.0 for a ghost and past
+    // the chunk's tiles; the tile's stage is released in every CTA of the
+    // cluster once read
+    auto fetch = [&](int i, T (&v)[kStagedCells]) {
+#pragma unroll
+      for (int b = 0; b < kStagedCells; ++b) v[b] = T(0);
+      if (i >= count) return;
+      const T* xs =
+          x + static_cast<int64_t>(__ldg(s_ids + start + i)) * kSub * kLane;
+      const int s = i % kStagedStages;
+      tlt::mbar_wait(&full[s], (i / kStagedStages) & 1);
+      const uint8_t* buf = smem + s * S::kStageBytes;
+      const uint2 l2w = *reinterpret_cast<const uint2*>(
+          buf + tlt::align128(S::kL1Bytes) + cl * kRows + r0);
+#pragma unroll
+      for (int b = 0; b < kStagedCells; ++b) {
+        const int r = ((b < 4 ? l2w.x : l2w.y) >> (8 * (b % 4))) & 0xff;
+        const int lane = buf[r * kStagedGroup + cl];
+        if (lane != kGhost) v[b] = xs[r * kLane + lane];
+      }
+      __syncwarp();
+      if (lane_id < kCs) {
+        tlt::mbar_arrive_cluster(&empty[s], static_cast<uint32_t>(lane_id));
+      }
+    };
+    // tile i+u's loads are issued kAhead tiles before its adds, which run
+    // in tile order
+    T v[kAhead][kStagedCells];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) fetch(u, v[u]);
+    for (int i = 0; i < count; i += kAhead) {
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {
+#pragma unroll
+        for (int b = 0; b < kStagedCells; ++b) acc[b] += v[u][b];
+        fetch(i + u + kAhead, v[u]);
+      }
+    }
+  }
+
+  // the cells (plus base) through a transpose tile in the ring's shared
+  // memory, read out by then: each of the block's rows is kStagedGroup
+  // contiguous values of out
+  constexpr int kPitch = kStagedGroup + 1;
+  T* tr = reinterpret_cast<T*>(smem);
+  __syncthreads();  // every thread is past its last read of the ring
+  if (tid < S::kConsumers) {
+#pragma unroll
+    for (int b = 0; b < kStagedCells; ++b) tr[(r0 + b) * kPitch + cl] = acc[b];
+  }
+  __syncthreads();
+  for (int e = tid; e < kRows * kStagedGroup; e += S::kThreads) {
+    const int r = e / kStagedGroup;
+    const int c = e % kStagedGroup;
+    const int64_t o =
+        (static_cast<int64_t>(d) * kSub + rd0 + r) * kLane + ld0 + c;
+    const T t = tr[r * kPitch + c];
+    out[o] = base != nullptr ? base[o] + t : t;
+  }
+  // no CTA leaves while a peer may still multicast into it or arrive on
+  // its barriers
+  tlt::cluster_sync();
+}
+
+// Launches one staged classic level at sub = kSub.
+template <typename T, int kSub>
+int launch_staged(const void* x, const void* l1, const void* l2,
+                  const void* s_ids, const void* starts, const void* counts,
+                  const void* base, void* out, int n_chunks,
+                  cudaStream_t stream) {
+  using S = Staged<kSub>;
+  if (!tlt::aligned16(l1) || !tlt::aligned16(l2)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap l1_map, l2_map;
+  // l1 (tiles*sub, 128) int8 in (sub/cluster, group) boxes; l2 (tiles*128,
+  // sub) uint8 in (group, rows) boxes
+  if (!tlt::encode_2d(&l1_map, l1, 1, kLane, slab_map_rows(kLane), kLane,
+                      kStagedGroup, kSub / S::kCluster) ||
+      !tlt::encode_2d(&l2_map, l2, 1, kSub, slab_map_rows(kSub), kSub,
+                      S::kRows, kStagedGroup)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static std::atomic<uint64_t> smem_raised{0};
+  cudaError_t err = tlt::once_per_device(smem_raised, [] {
+    return cudaFuncSetAttribute(cpg_staged_level_kernel<T, kSub>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                S::kSmemBytes);
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim =
+      dim3(static_cast<unsigned>(kLane / kStagedGroup * S::kCluster),
+           static_cast<unsigned>(n_chunks));
+  cfg.blockDim = dim3(S::kThreads);
+  cfg.dynamicSmemBytes = S::kSmemBytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = S::kCluster;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, cpg_staged_level_kernel<T, kSub>, l1_map, l2_map,
+      static_cast<const T*>(x), static_cast<const int32_t*>(s_ids),
+      static_cast<const int32_t*>(starts), static_cast<const int32_t*>(counts),
+      static_cast<const T*>(base), static_cast<T*>(out), n_chunks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The classic layout: sub*128/256 blocks of 256 cells per dest chunk.
 dim3 level_grid(int n_chunks, int sub) {
   return dim3(static_cast<unsigned>((sub * kLane) / kThreads),
@@ -811,6 +1085,32 @@ extern "C" int tlt_spmv_cpg_level(const void* x, const void* l1,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launches one classic CPG level by the staged walk on `stream`: sub 256
+// (uint8 l2), l1 and l2 16-byte aligned, one source buffer whose
+// lane-127 slots hold +-0.0; `base` may be null.  value_bytes is 4 (float)
+// or 8 (double).  Returns cudaGetLastError() after the launch (0 =
+// launched), cudaErrorInvalidValue for a level the walk does not take.
+extern "C" int tlt_spmv_cpg_level_staged(const void* x, const void* l1,
+                                         const void* l2, const void* s_ids,
+                                         const void* starts,
+                                         const void* counts,
+                                         const void* base, void* out,
+                                         int n_chunks, int sub,
+                                         int value_bytes, void* stream) {
+  if (bad_shape(n_chunks, sub)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (sub == kStagedSub && value_bytes == 4) {
+    return launch_staged<float, kStagedSub>(x, l1, l2, s_ids, starts, counts,
+                                            base, out, n_chunks, s);
+  } else if (sub == kStagedSub && value_bytes == 8) {
+    return launch_staged<double, kStagedSub>(x, l1, l2, s_ids, starts,
+                                             counts, base, out, n_chunks, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Launches one classic CPG level on `stream` that reads its source from

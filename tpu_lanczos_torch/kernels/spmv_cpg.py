@@ -10,7 +10,12 @@ layout to every level.  Each wrapper launches ``csrc/spmv_cpg.cu`` on a
 CUDA tensor and takes its plain version (``run_level_ref``,
 ``run_level_comp_ref``) only for a tensor on the CPU.  All return the
 untransposed (n_chunks*sub, 128) level output, and all are bit-identical
-to the reference's kernel.  ``n_chunks`` counts the dest chunks: on a
+to the reference's kernel.  A classic level runs one of two walks,
+``staged_walk`` says which: the staged walk (``cpg_staged_level_kernel``:
+a tile's indices in shared memory by TMA, only x gathered) for a large
+level at sub 256 whose tiles are spread over many chunks, else one
+thread a dest cell (``cpg_level_kernel``).
+``n_chunks`` counts the dest chunks: on a
 shard of the row-sharded path (dist/cpg_sharded.py) the source holds
 another number of chunks than the dest, or lies in two buffers
 (``run_level(..., halo=)``).  ``run_shard_level_df`` launches the
@@ -32,6 +37,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from tpu_lanczos_torch.core.df64 import two_sum
 from tpu_lanczos_torch.kernels.cpg import CPGGraph, LANE
@@ -40,6 +46,8 @@ from tpu_lanczos_torch.kernels.cpg import CPGGraph, LANE
 # the plain level kernel (run_level), classic and slab layout,
 launches = 0
 launches_slab = 0
+# of them, the classic launches of the staged walk (``staged_walk``)
+launches_staged = 0
 # and the compensated one (run_level_comp), classic and slab layout
 launches_comp = 0
 launches_comp_slab = 0
@@ -59,6 +67,24 @@ _DF_MODES = {"bcast": 0, "main": 1, "reduce": 2}
 # the slab kernel's TMA row coordinates are int32 (csrc/spmv_cpg.cu,
 # slab_map_rows)
 SLAB_MAX_ROWS = 2**31 - LANE
+# the staged classic walk (csrc/spmv_cpg.cu, cpg_staged_level_kernel)
+# runs at sub 256 (a tile's l1 rows one TMA box, uint8 l2; at sub 128 it
+# was slower than the one-thread walk on BA graphs of 100k-600k nodes),
+STAGED_SUB = 256
+# on levels of at least this many padded tiles (more than 240 real ones:
+# a level's tile arrays are padded to 256 at least)
+STAGED_MIN_TILES = 512
+# whose real tiles are at least this many times its heaviest dest
+# chunk's: the staged walk takes about its heaviest chunk's serial chain
+# (0.65-0.76 us a tile), the one-thread walk the level's tiles spread
+# over the card (0.065-0.09 us a tile).  BA main levels below it were
+# slower staged in f64 (1.9 to 11.1: +3% to +119%) and in f32 but one
+# (+3% to +88%; -7% at 7.7), those above it faster (13.3 to 13.8, bn1M's
+# 13.4: -7% to -31%), as was stencil_2600's (~200)
+STAGED_MIN_SPREAD = 12
+# a level's (real tiles, heaviest chunk's tiles) by its counts tensor,
+# read from the device once
+_spreads = WeakIdKeyDictionary()
 
 _INDEX_DTYPES = {"s_ids": torch.int32, "starts": torch.int32,
                  "counts": torch.int32, "l1": torch.int8}
@@ -184,6 +210,41 @@ def _check(x2d, level, n_chunks, sub, base, slab=False):
                              f"{SLAB_MAX_ROWS // LANE} tiles, got {t_pad}")
 
 
+def _tile_spread(counts: torch.Tensor) -> tuple:
+    """(real tiles, heaviest chunk's tiles) of a level's per-chunk tile
+    counts; one device read the first time a counts tensor is seen."""
+    got = _spreads.get(counts)
+    if got is None:
+        got = _spreads[counts] = tuple(torch.stack((
+            counts.sum(dtype=torch.int64), counts.max().long())).tolist())
+    return got
+
+
+def staged_walk(level: dict, sub: int, slab: bool = False,
+                halo: torch.Tensor | None = None) -> bool:
+    """Whether ``run_level`` runs ``level`` by the staged classic walk
+    (``cpg_staged_level_kernel``), a pure function of what the wrapper
+    sees: a classic level of one source buffer at sub ``STAGED_SUB``
+    (uint8 l2), l1 and l2 16-byte aligned, int32 TMA row coordinates, at
+    least ``STAGED_MIN_TILES`` padded tiles, and real tiles at least
+    ``STAGED_MIN_SPREAD`` times its heaviest chunk's (its chunk counts,
+    read once a level).  Every other classic level keeps the
+    one-thread-a-cell walk (``cpg_level_kernel``): the halo launch, packs
+    at another sub, levels whose heaviest chunk holds much of the work,
+    and small levels, such as bn1M's broadcast and reduce levels (one
+    chunk's serial chain of 14 and 39 tiles)."""
+    t_pad = level["s_ids"].shape[0]
+    if not (not slab and halo is None and sub == STAGED_SUB
+            and level["l2"].dtype == torch.uint8
+            and t_pad >= STAGED_MIN_TILES
+            and t_pad * sub <= SLAB_MAX_ROWS
+            and level["l1"].data_ptr() % 16 == 0
+            and level["l2"].data_ptr() % 16 == 0):
+        return False
+    tiles, heaviest = _tile_spread(level["counts"])
+    return 0 < heaviest and STAGED_MIN_SPREAD * heaviest <= tiles
+
+
 def run_level(x2d: torch.Tensor, level: dict, n_chunks: int, sub: int,
               base: torch.Tensor | None = None, slab: bool = False,
               halo: torch.Tensor | None = None) -> torch.Tensor:
@@ -192,11 +253,22 @@ def run_level(x2d: torch.Tensor, level: dict, n_chunks: int, sub: int,
     tensor.  Writes ``n_chunks`` dest chunks, (n_chunks*sub, 128); the
     source x may hold another number of chunks (see ``_check``).  With
     ``halo`` (classic only) the source is x2d's chunks followed by
-    halo's, each read in place.  Launches on the current stream without
-    syncing."""
-    global launches, launches_slab
+    halo's, each read in place.  A classic level takes the staged walk
+    where ``staged_walk`` says so.  Precondition, as ``run_level_comp``'s:
+    x is +-0.0 in lane 127 of every row (the staged walk skips a ghost's
+    load).  Launches on the current stream without syncing, but for the
+    one read of a sub-256 level's chunk counts the first time it runs."""
     if x2d.device.type == "cpu":
         return run_level_ref(x2d, level, n_chunks, sub, base, slab, halo)
+    return _run_level_cuda(x2d, level, n_chunks, sub, base, slab, halo,
+                           staged_walk(level, sub, slab, halo))
+
+
+def _run_level_cuda(x2d, level, n_chunks, sub, base, slab, halo,
+                    staged: bool) -> torch.Tensor:
+    """``run_level``'s launch on a CUDA tensor, by the staged walk where
+    ``staged`` (a classic level of one source at sub 256)."""
+    global launches, launches_slab, launches_staged
     if x2d.device.type != "cuda":
         raise ValueError(f"no CPG SpMV for device {x2d.device}")
     _check(x2d, level, n_chunks, sub, base, slab)
@@ -214,21 +286,27 @@ def run_level(x2d: torch.Tensor, level: dict, n_chunks: int, sub: int,
              level["s_ids"].data_ptr(), level["starts"].data_ptr(),
              level["counts"].data_ptr(),
              None if base is None else base.data_ptr(), out.data_ptr(),
-             n_chunks, sub, level["l2"].element_size(), x2d.element_size())
+             n_chunks, sub)
     stream = torch.cuda.current_stream(x2d.device).cuda_stream
-    if halo is None:
-        err = lib.tlt_spmv_cpg_level(x2d.data_ptr(), *index, int(slab),
-                                     stream)
+    sizes = (level["l2"].element_size(), x2d.element_size())
+    if staged:
+        err = lib.tlt_spmv_cpg_level_staged(x2d.data_ptr(), *index,
+                                            x2d.element_size(), stream)
+    elif halo is None:
+        err = lib.tlt_spmv_cpg_level(x2d.data_ptr(), *index, *sizes,
+                                     int(slab), stream)
     else:
         err = lib.tlt_spmv_cpg_level_halo(x2d.data_ptr(), halo.data_ptr(),
                                           x2d.shape[0] // sub, *index,
-                                          stream)
+                                          *sizes, stream)
     if err != 0:
         raise RuntimeError(f"spmv_cpg kernel launch failed: CUDA error {err}")
     if slab:
         launches_slab += 1
     else:
         launches += 1
+        if staged:
+            launches_staged += 1
     return out
 
 

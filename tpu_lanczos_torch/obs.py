@@ -51,8 +51,8 @@ PREFIX = "tpu_lanczos_torch."
 # module not yet imported has launched nothing
 LAUNCH_COUNTERS = (
     ("tpu_lanczos_torch.kernels.spmv_cpg",
-     ("launches", "launches_slab", "launches_comp", "launches_comp_slab",
-      "launches_df", "launches_df_slab")),
+     ("launches", "launches_slab", "launches_staged", "launches_comp",
+      "launches_comp_slab", "launches_df", "launches_df_slab")),
     ("tpu_lanczos_torch.kernels.spmv_cst", ("launches_cst",)),
     ("tpu_lanczos_torch.kernels.spmv_gpg", ("launches_gpg",)),
     ("tpu_lanczos_torch.kernels.lanczos_step",
