@@ -54,8 +54,8 @@ def test_generators_match_reference_native_path(fn, args):
 
 
 def test_native_builds_into_port_build_dir():
-    """The port compiles its own copy of graphcore.cc (byte-identical to
-    the reference's, tests/test_torch_slab.py) into its own build
+    """The port compiles its own copy of graphcore.cc (the reference's
+    but for the coloring's path swap, tests/test_torch_slab.py) into its own build
     directory and never writes the reference's _graphcore.so."""
     assert native.available()
     assert native._SO.startswith(BUILD_DIR)
@@ -63,6 +63,25 @@ def test_native_builds_into_port_build_dir():
     assert native._SRC == os.path.join(
         ROOT_DIR, "tpu_lanczos_torch", "graphs", "native", "graphcore.cc")
     assert native._SO != ref_native._SO
+
+
+@pytest.mark.parametrize("seed", range(0, 40, 8))
+def test_native_edge_color_is_proper(seed):
+    """gc_edge_color, the Konig coloring that deals a CPG level's entries
+    into tiles: on random bipartite multigraphs (40 x 40 nodes, 400
+    edges) no two edges at a node share a color, and Delta colors do.
+    A path swap made edge by edge dropped an interior node's second
+    color, so a later edge took it there (seed 25 of these)."""
+    for s in range(seed, seed + 8):
+        rng = np.random.default_rng(s)
+        a = rng.integers(0, 40, 400)
+        b = rng.integers(0, 40, 400)
+        colors = native.edge_color(a, b)
+        delta = max(np.bincount(a).max(), np.bincount(b).max())
+        assert colors.min() >= 0 and colors.max() < delta
+        for ends in (a, b):
+            keys = ends.astype(np.int64) * delta + colors
+            assert np.unique(keys).size == keys.size, s
 
 
 def test_csr_from_edges_and_helpers_match_reference():

@@ -196,22 +196,26 @@ def test_spans_in_a_profiler_trace(ba, tmp_path):
 def test_d2h_bytes_are_the_bytes_fetched(ba):
     _, dg = ba
     f32, i64 = 4, 8
+    # every SpMV walks each level once; chain_tiles adds the heaviest
+    # chunk's tiles of each (the CPU runs the levels' plain versions)
+    chain = sum(int(lv["counts"].max()) for lv in dg.levels)
     _, (q,) = _recorded(ba, "summary_device")
     # values, norm, shift, alpha, beta, x_norm in one copy; the indices
     assert q.counts == {"d2h_bytes": (TOPK + 2 + K + K - 1 + 1) * f32
-                        + TOPK * i64, "syncs": 2}
+                        + TOPK * i64, "syncs": 2, "chain_tiles": K * chain}
     _, (q,) = _recorded(ba, "summary_host")
     # alpha, beta, x_norm; values, indices, norm
     assert q.counts == {"d2h_bytes": (2 * K) * f32 + (TOPK + 1) * f32
-                        + TOPK * i64, "syncs": 4}
+                        + TOPK * i64, "syncs": 4, "chain_tiles": K * chain}
     _, (q,) = _recorded(ba, "expm_action")
     # T twice (the coefficients, the result), the answer
     assert q.counts == {"d2h_bytes": 2 * (2 * K) * f32 + dg.n_pad * f32,
-                        "syncs": 3}
+                        "syncs": 3, "chain_tiles": K * chain}
     _, (q,) = _recorded(ba, "expm_action_df")
-    # pass 1's df alpha, beta and x_norm; both halves of the answer
+    # pass 1's df alpha, beta and x_norm; both halves of the answer; two
+    # passes of df SpMVs, 2K - 1 of them
     assert q.counts == {"d2h_bytes": (4 * K + 2) * f32 + 2 * dg.n_pad * f32,
-                        "syncs": 3}
+                        "syncs": 3, "chain_tiles": (2 * K - 1) * chain}
 
 
 def test_pack_spans():

@@ -272,6 +272,10 @@ def test_check_refuses_what_the_slab_kernel_cannot_take(case, fault,
 
 
 def test_graphcore_copy_is_byte_identical():
+    """The port's copy of graphcore.cc is the reference's byte for byte
+    but for one block: the Konig coloring's path swap, which the port
+    does in two passes (clear every old color, then set every new one),
+    so an interior node of the path keeps both of its colors."""
     here = os.path.dirname(os.path.abspath(__file__))
     root = os.path.dirname(here)
     with open(os.path.join(root, "tpu_lanczos", "graphs", "native",
@@ -279,4 +283,12 @@ def test_graphcore_copy_is_byte_identical():
         want = f.read()
     with open(os.path.join(root, "tpu_lanczos_torch", "graphs", "native",
                            "graphcore.cc"), "rb") as f:
-        assert f.read() == want
+        got = f.read()
+    end = b"      c = alpha;\n"
+    ref_start = want.index(b"      for (const int64_t f : path) {\n")
+    port_start = got.index(b"      // Swap in two passes")
+    ref_block = want[ref_start:want.index(end, ref_start)]
+    port_block = got[port_start:got.index(end, port_start)]
+    assert port_block.count(b"for (const int64_t f : path)") == 2
+    assert want.count(ref_block) == 1
+    assert want.replace(ref_block, port_block) == got

@@ -42,6 +42,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="edges for uniform-random generation")
     p.add_argument("-b", "--barabasi", type=int, default=None, metavar="DEG",
                    help="generate Barabasi-Albert with this degree instead")
+    p.add_argument("--graph500", type=int, default=None, metavar="SCALE",
+                   help="generate the Graph500 Kronecker graph of 2^SCALE "
+                        "vertices, edgefactor 16, instead")
     p.add_argument("-v", "--verbose", action="store_true")
     p.add_argument("--dtype", default="float32",
                    choices=["float32", "float64", "df64"],
@@ -145,6 +148,9 @@ def load_graph(args):
     elif args.barabasi is not None:
         g = generators.barabasi_albert(args.n, args.barabasi, seed=args.seed)
         src = f"barabasi(n={args.n}, m={args.barabasi}, seed={args.seed})"
+    elif args.graph500 is not None:
+        g = generators.graph500(args.graph500, seed=args.seed)
+        src = f"graph500(scale={args.graph500}, edgefactor=16, seed={args.seed})"
     else:
         g = generators.uniform_random(args.n, args.edges, seed=args.seed)
         src = f"uniform(n={args.n}, E={args.edges}, seed={args.seed})"

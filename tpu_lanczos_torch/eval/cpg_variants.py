@@ -2,7 +2,8 @@
 on one CUDA GPU.
 
     python -m tpu_lanczos_torch.eval.cpg_variants \\
-        [--n 1000000] [--m 10] [--seed 0] [--stencil SIDE | --suite NAME] \\
+        [--n 1000000] [--m 10] [--seed 0] \\
+        [--stencil SIDE | --suite NAME | --graph500 SCALE] \\
         [--sub 512] [--layout classic|slab] \\
         [--source NAME=PATH[,PATH...] ...]
 
@@ -12,7 +13,9 @@ interfaces, built together: an earlier version of the kernels, for
 example the parent commit's, from ``git archive``), each into its own
 library.  On the graph (Barabasi-Albert, native generator; with
 ``--stencil`` the 5-point SIDE x SIDE mesh in its own order; with
-``--suite`` a ``bench_suite`` config's graph and pack options) packed at
+``--suite`` a ``bench_suite`` config's graph and pack options; with
+``--graph500`` the Graph500 Kronecker graph of 2^SCALE vertices,
+edgefactor 16, from ``--seed``) packed at
 ``--sub`` (the suite config's own where not given, else 512) in
 ``--layout``, it prints one JSON line with each level's
 per-chunk tile counts, then one line per build: its ptxas report, and
@@ -239,6 +242,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--stencil", type=int, default=0)
     ap.add_argument("--suite", default="")
+    ap.add_argument("--graph500", type=int, default=0, metavar="SCALE")
     ap.add_argument("--sub", type=int, default=None)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--k", type=int, default=50)
@@ -271,6 +275,9 @@ def main(argv=None) -> int:
         graph = f"bench_suite {args.suite}"
         g = bench_suite._generate(cfg)
         pack_kw = dict(cfg.get("pack") or {})
+    elif args.graph500:
+        graph = f"graph500({args.graph500}, 16, seed={args.seed})"
+        g = generators.graph500(args.graph500, seed=args.seed)
     elif args.stencil:
         graph = f"stencil_2d({args.stencil})"
         g = generators.stencil_2d(args.stencil)

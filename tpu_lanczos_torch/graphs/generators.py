@@ -1,4 +1,5 @@
-"""Seeded graph generators: uniform-random and Barabasi-Albert.
+"""Seeded graph generators: uniform-random, Barabasi-Albert, R-MAT, the
+Graph500 Kronecker graph, stencils and clique unions.
 
 Reference capabilities (serial/lib/make_graph.cc:19-113, dispatch
 parallel-final/lib/adjMatrix.cc:79-103):
@@ -153,6 +154,66 @@ def rmat(
     src %= n
     dst %= n
     return CSRGraph.from_edges(n, np.stack([src, dst], axis=1))
+
+
+# the Graph500 Kronecker initiator (A, B, C); D = 1 - A - B - C = 0.05
+GRAPH500_INITIATOR = (0.57, 0.19, 0.19)
+
+
+def graph500(scale: int, edgefactor: int = 16, seed: int = 0) -> CSRGraph:
+    """The Graph500 benchmark's Kronecker graph ("Graph 500 benchmark
+    specification", the Kronecker generator, kronecker_generator.m).
+
+    2^scale vertices and edgefactor * 2^scale generated edges.  Each edge
+    takes one bit of its (start, end) pair a level, ``scale`` levels, the
+    lowest bit first: the start bit is 1 where a uniform draw exceeds
+    A + B, the end bit where a second draw exceeds C / (C + D) after a
+    start bit of 1, A / (A + B) after a 0.  The vertex labels are then
+    permuted by a permutation drawn from the same stream, as the spec
+    requires.  Self-loops and duplicate edges are dropped and the graph
+    made symmetric (``CSRGraph.from_edges``).  From ``seed``: for each
+    level ``random(M)`` for the start bits, then ``random(M)`` for the end
+    bits, then ``permutation(N)``, all of one ``np.random.default_rng``.
+    Unlike ``rmat``, ids are never folded by modulo.  The two samplers
+    stay apart: ``rmat`` draws one number a level for the quadrant and
+    must equal the JAX package's ``rmat`` draw for draw (the eval
+    suite's graphs and caches), while this draws the spec's two numbers
+    a level and then the permutation, so no shared loop keeps both
+    streams.
+    """
+    if scale < 1 or edgefactor < 1:
+        raise ValueError("need scale >= 1 and edgefactor >= 1")
+    n = 1 << scale
+    m = edgefactor * n
+    a, b, c = GRAPH500_INITIATOR
+    ab = a + b
+    c_norm = c / (1.0 - ab)
+    a_norm = a / ab
+    rng = np.random.default_rng(seed)
+    # one set of buffers for every level: a fresh set a level (~8 arrays
+    # of m) made SCALE 21 take minutes of page faults on a fresh host
+    src = np.zeros(m, dtype=np.int64)
+    dst = np.zeros(m, dtype=np.int64)
+    draw = np.empty(m, dtype=np.float64)
+    bits = np.empty(m, dtype=np.int64)
+    ii = np.empty(m, dtype=bool)
+    jj = np.empty(m, dtype=bool)
+    jj_c = np.empty(m, dtype=bool)
+    for bit in range(scale):
+        rng.random(out=draw)
+        np.greater(draw, ab, out=ii)
+        rng.random(out=draw)
+        # end bit: the draw above c_norm after a start bit of 1, above
+        # a_norm after a 0
+        np.greater(draw, a_norm, out=jj)
+        np.greater(draw, c_norm, out=jj_c)
+        np.copyto(jj, jj_c, where=ii)
+        for out, flags in ((src, ii), (dst, jj)):
+            np.copyto(bits, flags)
+            np.left_shift(bits, bit, out=bits)
+            np.bitwise_or(out, bits, out=out)
+    perm = rng.permutation(n)
+    return CSRGraph.from_edges(n, np.stack([perm[src], perm[dst]], axis=1))
 
 
 def stencil_3d(nx: int, ny: int, nz: int) -> CSRGraph:

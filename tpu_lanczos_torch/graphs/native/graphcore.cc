@@ -451,12 +451,19 @@ int64_t edge_color_impl(int64_t n_edges, int64_t n_a, int64_t n_b,
         set_bit(mb, c, true);
         continue;
       }
+      // Swap in two passes: an interior node of the path holds one alpha
+      // and one beta edge, and keeps both colors after the swap.  Clearing
+      // and setting edge by edge would clear the color its other path edge
+      // had just set, so a later edge could take that color there too: two
+      // entries in one staging pair or dest cell of a tile.
       for (const int64_t f : path) {
         const int64_t old_c = colors_out[f];
-        const int64_t new_c = (old_c == alpha) ? beta : alpha;
         set_bit(&a_used[static_cast<size_t>(a_ids[f]) * words], old_c, false);
-        set_bit(&a_used[static_cast<size_t>(a_ids[f]) * words], new_c, true);
         set_bit(&b_used[static_cast<size_t>(b_ids[f]) * words], old_c, false);
+      }
+      for (const int64_t f : path) {
+        const int64_t new_c = (colors_out[f] == alpha) ? beta : alpha;
+        set_bit(&a_used[static_cast<size_t>(a_ids[f]) * words], new_c, true);
         set_bit(&b_used[static_cast<size_t>(b_ids[f]) * words], new_c, true);
         colors_out[f] = static_cast<int32_t>(new_c);
       }

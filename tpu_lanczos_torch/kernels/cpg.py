@@ -101,6 +101,9 @@ class CPGGraph:
     layout: str = "classic"
     t_reals: tuple = ()    # real (un-padded) tile count per level
     mask_sparse: tuple = ()  # per level: a real tile kept a sparse mask
+    # per level: its heaviest dest chunk's real tiles, the serial chain a
+    # level's walk takes (a cell's sum runs in tile order)
+    chains: tuple = ()
 
     @property
     def device(self) -> torch.device:
@@ -518,6 +521,7 @@ def from_numpy(meta: dict, levels, realmask: np.ndarray,
         layout=str(meta.get("layout", "classic")),
         t_reals=tuple(int(t) for t in meta["t_reals"]),
         mask_sparse=tuple(bool(m) for m in meta["mask_sparse"]),
+        chains=tuple(int(np.max(lv["counts"], initial=0)) for lv in levels),
     )
 
 
@@ -915,8 +919,10 @@ def _finalize(graph, n, n_units, theta, sub, pos_of, levels,
 
     dev_levels = []
     mask_sparse = []
+    chains = []
     for lv in levels:
         starts, counts = _level_ranges(lv.d_ids, n_chunks)
+        chains.append(int(np.max(counts, initial=0)))
         run_ids_real = _run_ids(lv.s_ids, lv.d_ids)
         # pad the tile arrays to the reference's coarse buckets (ghost
         # tiles lie outside every chunk's [start, start+count) range)
@@ -957,5 +963,5 @@ def _finalize(graph, n, n_units, theta, sub, pos_of, levels,
         realmask=realmask,
         new_of_old=new_of_old, n_bcast=n_bcast, layout=layout,
         t_reals=tuple(lv.s_ids.shape[0] for lv in levels),
-        mask_sparse=tuple(mask_sparse),
+        mask_sparse=tuple(mask_sparse), chains=tuple(chains),
     )

@@ -58,6 +58,11 @@ launches_shard_df = 0
 # (csrc/spmv_cpg_shard.cu) and slab layout (csrc/spmv_cpg.cu)
 launches_df = 0
 launches_df_slab = 0
+# the serial chain of the SpMVs run: each single-device SpMV (f32/f64 or
+# df, on either device) adds its pack's ``chains``, every level's
+# heaviest dest chunk's real tiles (a cell's sum is taken in tile order,
+# so that chunk's tiles run one after another whatever the walk)
+chain_tiles = 0
 
 # what a single-device df64 level writes (csrc/df_level.cuh, DfMode): a
 # broadcast level's (hi, lo), the main level's (y, e), a reduce level's
@@ -360,11 +365,19 @@ def run_level_comp(x2d: torch.Tensor, level: dict, n_chunks: int,
     return out, err_out
 
 
+def _count_chain(cg: CPGGraph) -> None:
+    """Adds one SpMV's serial chain, the pack's ``chains`` (host ints
+    made with the pack), to ``chain_tiles``: no device read."""
+    global chain_tiles
+    chain_tiles += sum(cg.chains)
+
+
 def _spmv(cg: CPGGraph, x: torch.Tensor, level_fn,
           masked: bool = True) -> torch.Tensor:
     """The reference's level loop (spmv_cpg.py:379-416) over ``level_fn``,
     each level run in the pack's layout; with ``masked=False`` the result
     before its realmask multiply (which a Lanczos step folds in)."""
+    _count_chain(cg)
     C, sub = cg.n_chunks, cg.sub
     slab = cg.layout == "slab"
     x2d = x.reshape(cg.n_sub, LANE)
@@ -433,6 +446,7 @@ def _spmv_df(cg: CPGGraph, x_hi: torch.Tensor, x_lo: torch.Tensor,
     rounding is the tile sum, which ``comp_fn`` two-sums into an error
     stream.  lo rides the plain level (its own rounding is ~2^-48 of y),
     and reduce levels fold (hi, err) pairs with a two-sum here."""
+    _count_chain(cg)
     C, sub = cg.n_chunks, cg.sub
     slab = cg.layout == "slab"
     hi2d = x_hi.reshape(cg.n_sub, LANE)
@@ -565,6 +579,7 @@ def _spmv_df_levels(cg: CPGGraph, x_hi: torch.Tensor, x_lo: torch.Tensor,
     the broadcast levels, the main level and the reduce levels, the last
     of them finishing the pair (times the realmask unless
     ``masked=False``)."""
+    _count_chain(cg)
     C, sub = cg.n_chunks, cg.sub
     slab = cg.layout == "slab"
     pair = (x_hi.reshape(cg.n_sub, LANE), x_lo.reshape(cg.n_sub, LANE))

@@ -23,11 +23,12 @@ so its copy lies in the device trace, on the trace's own clock, over the
 kernels it launched.
 
 Counters: the ``query`` span, the root of a served call, keeps the
-deltas of the kernels' launch counters (they stay in their modules:
-``kernels/spmv_cpg.py``, ``spmv_cst.py``, ``spmv_gpg.py``,
-``lanczos_step.py``) by name, and every device-to-host read of the call
-goes through ``fetch``, which adds its bytes to ``d2h_bytes`` and one to
-``syncs``.
+deltas of the kernels' launch counters and of ``chain_tiles``, each
+single-device CPG SpMV's heaviest dest chunks' tiles, one a level, summed
+(they stay in their modules: ``kernels/spmv_cpg.py``, ``spmv_cst.py``,
+``spmv_gpg.py``, ``lanczos_step.py``) by name, and every device-to-host
+read of the call goes through ``fetch``, which adds its bytes to
+``d2h_bytes`` and one to ``syncs``.
 
     with obs.recording() as rec:
         expm_action_summary(g, dg=dg, eig_impl="device")
@@ -52,7 +53,8 @@ PREFIX = "tpu_lanczos_torch."
 LAUNCH_COUNTERS = (
     ("tpu_lanczos_torch.kernels.spmv_cpg",
      ("launches", "launches_slab", "launches_staged", "launches_comp",
-      "launches_comp_slab", "launches_df", "launches_df_slab")),
+      "launches_comp_slab", "launches_df", "launches_df_slab",
+      "chain_tiles")),
     ("tpu_lanczos_torch.kernels.spmv_cst", ("launches_cst",)),
     ("tpu_lanczos_torch.kernels.spmv_gpg", ("launches_gpg",)),
     ("tpu_lanczos_torch.kernels.lanczos_step",
