@@ -314,6 +314,46 @@ def test_expm_action_runs_the_staged_walk_once_a_spmv(dev):
     assert oracle.rel_error(res.ans, ref) < 1e-12
 
 
+def test_graph500_levels_bit_for_bit_under_their_route(dev):
+    """The smallest Graph500 SCALE whose main level the route gives the
+    staged walk in float32 (SCALE 20: 4,234 tiles, 711 in the heaviest
+    chunk), packed at sub 256: every level of one SpMV, fed the input
+    ``spmv_cpg`` gives it, equals ``run_level_ref`` bit for bit under
+    the walk it is routed to, in float32 (the main level staged) and
+    float64 (none staged); ``expm_action_summary`` at k steps counts k
+    staged launches on its ``query`` span."""
+    from tpu_lanczos_torch import expm_action_summary, obs
+
+    g = generators.graph500(20, seed=1)
+    cg = cpg.pack_cpg(g, sub=256, device=dev)
+    nb = cg.n_bcast
+    xr = np.random.default_rng(8).standard_normal(g.n)
+    for np_dtype, main_staged in ((np.float32, True), (np.float64, False)):
+        x = torch.from_numpy(cg.permute_in(xr, np_dtype)).to(dev)
+        routes = [spmv_cpg.staged_walk(lv, cg.sub, dtype=x.dtype)
+                  for lv in cg.levels]
+        assert routes == [main_staged and i == nb
+                          for i in range(len(cg.levels))]
+
+        def checked(x2d, level, n_chunks, sub, base=None, slab=False):
+            got = spmv_cpg.run_level(x2d, level, n_chunks, sub, base, slab)
+            want = spmv_cpg.run_level_ref(x2d, level, n_chunks, sub, base,
+                                          slab)
+            assert torch.equal(_bits(got), _bits(want))
+            return got
+
+        before = spmv_cpg.launches_staged
+        spmv_cpg._spmv(cg, x, checked)
+        torch.cuda.synchronize()
+        assert spmv_cpg.launches_staged - before == int(main_staged)
+    k = 20
+    with obs.recording() as rec:
+        out = expm_action_summary(g, k=k, topk=10, dg=cg, eig_impl="device")
+    (q,) = rec.take()
+    assert q.counts.get("launches_staged", 0) == k
+    assert np.all(np.isfinite(out.top_values))
+
+
 # name -> (graph, sub): slab packs whose main level has a chunk longer
 # than the walk's ring (8 stages) and chunks with 0 tiles, at sub 128,
 # 256 and 512; the star's four levels hold chunks of 2 to 23 tiles

@@ -32,7 +32,7 @@ from tpu_lanczos_torch.utils import ROOT_DIR
 EVAL_MODULES = ("profiling", "bench_suite", "stage_breakdown",
                 "fused_serving", "accuracy_gpu", "sweeps", "df_sweep",
                 "df_accuracy_suite", "europe_df64", "stochastic_bench",
-                "pack_truth")
+                "pack_truth", "route_sweep")
 
 # a tiny config of each of the suite's six generator kinds
 TINY = {

@@ -85,16 +85,18 @@
 // walk"), as measured on the H100 (PERF.md, section 6).
 // - Where it runs.  spmv_cpg.py::staged_walk gives it a classic level of
 //   one source buffer at sub 256 (uint8 l2; a tile's l1 rows one TMA box)
-//   of at least 512 padded tiles whose real tiles are at least 12 times
-//   its heaviest chunk's: bn1M's main level (5,856 and 436), the large
-//   stencil packs' one level.  Its time is about its heaviest chunk's
-//   serial chain (0.65-0.76 us a tile), the walk above's the level's
-//   tiles over the card (0.065-0.09 us a tile), so the walk above keeps
+//   of at least 512 padded tiles whose real tiles T reach 12 H or
+//   k*H + t0, H its heaviest chunk's (k, t0 = 4, 1000 in float; 10, 500
+//   in double): bn1M's main level (5,856 and 436), Graph500's (SCALE 21:
+//   ~9,300 and ~820), the stencil packs' one level.  Its time is about its
+//   heaviest chunk's serial chain (0.62 us a tile in float, 0.85 in
+//   double), the walk above's the level's x gathers spread over the card
+//   (0.06-0.14 us a tile by the tiles' fill), so the walk above keeps
 //   the rest: small levels (bn1M's broadcast and reduce levels, 15 and 39
-//   tiles of one chunk: 0.03-0.05 ms staged against 0.025-0.04), levels
-//   with a heavier chunk (BA main levels of 1.9 to 11.1 times their
-//   heaviest chunk's tiles: +3% to +119% staged in f64, and in f32 +3%
-//   to +88% but at 7.7, -7%), sub 128 (BA 100k-600k: +9% to +105%; only
+//   tiles of one chunk; Graph500's reduce level, one chunk's 571-648
+//   tiles: 0.32-0.35 ms staged against 0.14-0.16), levels with a heavier
+//   chunk or fewer tiles (BA-100k to -600k, Graph500 SCALE 18-19: +15% to
+//   +78% staged in float), sub 128 (BA 100k-600k: +9% to +105%; only
 //   the balanced copapers_540k pack was faster, 0.192 against 0.260 ms),
 //   the halo launch and int16 l2.
 // - Why it wins where those rings lost.  A block owns 32 dest lanes and

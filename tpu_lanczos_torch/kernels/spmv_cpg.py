@@ -12,9 +12,9 @@ CUDA tensor and takes its plain version (``run_level_ref``,
 untransposed (n_chunks*sub, 128) level output, and all are bit-identical
 to the reference's kernel.  A classic level runs one of two walks,
 ``staged_walk`` says which: the staged walk (``cpg_staged_level_kernel``:
-a tile's indices in shared memory by TMA, only x gathered) for a large
-level at sub 256 whose tiles are spread over many chunks, else one
-thread a dest cell (``cpg_level_kernel``).
+a tile's indices in shared memory by TMA, only x gathered) for a level
+at sub 256 whose tiles outweigh its heaviest chunk's serial chain, else
+one thread a dest cell (``cpg_level_kernel``).
 ``n_chunks`` counts the dest chunks: on a
 shard of the row-sharded path (dist/cpg_sharded.py) the source holds
 another number of chunks than the dest, or lies in two buffers
@@ -79,14 +79,24 @@ STAGED_SUB = 256
 # on levels of at least this many padded tiles (more than 240 real ones:
 # a level's tile arrays are padded to 256 at least)
 STAGED_MIN_TILES = 512
-# whose real tiles are at least this many times its heaviest dest
-# chunk's: the staged walk takes about its heaviest chunk's serial chain
-# (0.65-0.76 us a tile), the one-thread walk the level's tiles spread
-# over the card (0.065-0.09 us a tile).  BA main levels below it were
-# slower staged in f64 (1.9 to 11.1: +3% to +119%) and in f32 but one
-# (+3% to +88%; -7% at 7.7), those above it faster (13.3 to 13.8, bn1M's
-# 13.4: -7% to -31%), as was stencil_2600's (~200)
+# whose real tiles T reach STAGED_MIN_SPREAD times its heaviest dest
+# chunk's H, or k*H + t0 with (k, t0) = STAGED_LINE[value type].  The
+# staged walk's time is that chunk's serial chain (~0.04 ms + 0.62 us a
+# chain tile in float32, 0.85 in float64) or, with a short chain, its
+# tiles over the card (stencil packs).  The one-thread walk's is the
+# level's x gathers, ~21 ps a real cell on power-law packs: 0.06-0.14 us
+# a tile by the tiles' fill, which the route does not see; the small
+# levels of the power-law packs timed had the sparsest tiles, hence t0.
+# Timed in turns on every level of 41 packs at sub 256 (BA n 100k-1.05M,
+# m 2-20; Graph500 SCALE 18-21; stencils of side 1,000-2,600) and a
+# 4-shard bn1M pack (PERF.md section 6, PR 22): no level of spread 12 or
+# more was slower staged, and the line stages no level that the spread
+# does not but Graph500 SCALE 20-21's (T 4,217-9,347, H 700-824; 0.53-0.58
+# ms staged against 1.25-1.31 one-thread at SCALE 21 in float32) and BA
+# levels of spread 7.6-11.7, each within 3% of the faster walk but for
+# one BA-800k m=4 reading (+3.0% in float32; +0.7% and +2.1% in two more)
 STAGED_MIN_SPREAD = 12
+STAGED_LINE = {torch.float32: (4, 1000), torch.float64: (10, 500)}
 # a level's (real tiles, heaviest chunk's tiles) by its counts tensor,
 # read from the device once
 _spreads = WeakIdKeyDictionary()
@@ -226,20 +236,25 @@ def _tile_spread(counts: torch.Tensor) -> tuple:
 
 
 def staged_walk(level: dict, sub: int, slab: bool = False,
-                halo: torch.Tensor | None = None) -> bool:
-    """Whether ``run_level`` runs ``level`` by the staged classic walk
-    (``cpg_staged_level_kernel``), a pure function of what the wrapper
-    sees: a classic level of one source buffer at sub ``STAGED_SUB``
-    (uint8 l2), l1 and l2 16-byte aligned, int32 TMA row coordinates, at
-    least ``STAGED_MIN_TILES`` padded tiles, and real tiles at least
-    ``STAGED_MIN_SPREAD`` times its heaviest chunk's (its chunk counts,
-    read once a level).  Every other classic level keeps the
+                halo: torch.Tensor | None = None,
+                dtype: torch.dtype = torch.float32) -> bool:
+    """Whether ``run_level`` runs ``level`` on values of ``dtype`` by the
+    staged classic walk (``cpg_staged_level_kernel``), a pure function of
+    what the wrapper sees: a classic level of one source buffer at sub
+    ``STAGED_SUB`` (uint8 l2), l1 and l2 16-byte aligned, int32 TMA row
+    coordinates, at least ``STAGED_MIN_TILES`` padded tiles, and real
+    tiles T reaching ``STAGED_MIN_SPREAD`` * H or k*H + t0, H its
+    heaviest chunk's (its chunk counts, read once a level), (k, t0) =
+    ``STAGED_LINE[dtype]``.  Every other classic level keeps the
     one-thread-a-cell walk (``cpg_level_kernel``): the halo launch, packs
-    at another sub, levels whose heaviest chunk holds much of the work,
-    and small levels, such as bn1M's broadcast and reduce levels (one
-    chunk's serial chain of 14 and 39 tiles)."""
+    at another sub, levels whose heaviest chunk's chain outlasts the
+    level's work spread over the card, and small levels, such as bn1M's
+    broadcast and reduce levels (one chunk's serial chain of 14 and 39
+    tiles) and Graph500's reduce level (one chunk's 571-648)."""
     t_pad = level["s_ids"].shape[0]
-    if not (not slab and halo is None and sub == STAGED_SUB
+    line = STAGED_LINE.get(dtype)
+    if not (line is not None and not slab and halo is None
+            and sub == STAGED_SUB
             and level["l2"].dtype == torch.uint8
             and t_pad >= STAGED_MIN_TILES
             and t_pad * sub <= SLAB_MAX_ROWS
@@ -247,7 +262,9 @@ def staged_walk(level: dict, sub: int, slab: bool = False,
             and level["l2"].data_ptr() % 16 == 0):
         return False
     tiles, heaviest = _tile_spread(level["counts"])
-    return 0 < heaviest and STAGED_MIN_SPREAD * heaviest <= tiles
+    k, t0 = line
+    return 0 < heaviest and min(STAGED_MIN_SPREAD * heaviest,
+                                k * heaviest + t0) <= tiles
 
 
 def run_level(x2d: torch.Tensor, level: dict, n_chunks: int, sub: int,
@@ -266,7 +283,7 @@ def run_level(x2d: torch.Tensor, level: dict, n_chunks: int, sub: int,
     if x2d.device.type == "cpu":
         return run_level_ref(x2d, level, n_chunks, sub, base, slab, halo)
     return _run_level_cuda(x2d, level, n_chunks, sub, base, slab, halo,
-                           staged_walk(level, sub, slab, halo))
+                           staged_walk(level, sub, slab, halo, x2d.dtype))
 
 
 def _run_level_cuda(x2d, level, n_chunks, sub, base, slab, halo,
